@@ -1,18 +1,22 @@
 """ics_tpu_torch — the PyTorch and CUDA port of ``ics_tpu`` for an NVIDIA H100.
 
 ``ics_tpu`` (JAX) stays the reference. This package mirrors its module
-names for the parts that touch the device and imports its JAX-free host
-tiers as they are: ``web``, ``db``, ``crud``, ``core``, ``services``,
-``schemas``, ``utils``, ``native``, ``runtime.batcher`` and
-``runtime.decode``. It imports ``torch`` and never ``jax``.
+names and stands on its own: it imports ``torch``, never ``jax``, and nothing
+of ``ics_tpu``. The host tiers are its own copies of the JAX package's
+JAX-free modules (same names, same behaviour); the modules that touch the
+device are ports.
 
-- ``ops``      — hand-written CUDA kernels (flash attention) and the plain
-                 PyTorch versions beside them; fp32 preprocessing
-- ``nn``       — the layers ViT needs
-- ``models``   — ViT and the registry of ported models
-- ``weights``  — JAX parameter trees (as numpy) into state dicts
-- ``runtime``  — inference engine and service for the host-decode lane
-- ``api``      — the ``/inferencia`` routes; ``main`` — app and entry point
+- ``ops``      — hand-written CUDA kernels (flash attention, fused bottleneck
+                 chain, uint8 normalize) and the plain PyTorch versions
+                 beside them; fp32 preprocessing
+- ``nn``       — layers and blocks of ViT and ResNet
+- ``models``   — ViT, ResNet and the registry of ported models
+- ``weights``  — JAX parameter and state trees (as numpy) into state dicts
+- ``runtime``  — inference engine and service (host-decode lane), batcher, decode
+- ``api``      — the routers; ``main`` — app and entry point
+- ``core``, ``web``, ``db``, ``crud``, ``schemas``, ``services``, ``utils``,
+  ``native``, ``sync.nextcloud_client`` — host tiers, copied
+- ``tools``    — measurement scripts for the GPU
 """
 
 from __future__ import annotations

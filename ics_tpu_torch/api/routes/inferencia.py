@@ -2,7 +2,7 @@
 
 - ``GET /inferencia/modelos`` — ported models (any authenticated user)
 - ``GET /inferencia/status`` — engine, batcher, latency and kernel-launch
-  counts (admin)
+  counts (admin); ``?modelo=`` reads a model the pool has built
 - ``POST /inferencia/warmup`` — run every batch bucket once (admin)
 - ``POST /inferencia/classificar`` — multipart image(s) -> top-k classes
   and scores (authenticated); ``?modelo=`` picks another ported model
@@ -20,8 +20,8 @@ import asyncio
 import os
 import tempfile
 
-from ics_tpu.services.auth_service import get_current_user, require_admin
-from ics_tpu.web import HTTPException, JSONResponse, Request, Router
+from ics_tpu_torch.services.auth_service import get_current_user, require_admin
+from ics_tpu_torch.web import HTTPException, JSONResponse, Request, Router
 from ics_tpu_torch.models.registry import get_model, list_models
 from ics_tpu_torch.ops import reset_launch_counts
 
@@ -59,6 +59,13 @@ async def listar_modelos(request: Request):
 @router.get("/status")
 async def status_inferencia(request: Request):
     require_admin(request)
+    modelo = request.query_params.get("modelo")
+    pool = request.app.state.get("engine_pool")
+    if modelo and pool is not None:
+        service = pool.built(modelo)
+        if service is None:
+            raise HTTPException(404, f"Modelo não carregado: {modelo}.")
+        return JSONResponse(service.status())
     return JSONResponse(_engine(request).status())
 
 

@@ -1,9 +1,10 @@
 """Application factory and entry point of the port (counterpart of ``ics_tpu/main.py``).
 
-The app mounts every ``ics_tpu`` router whose handlers reach no JAX, the
-port's ``/inferencia`` router in place of the JAX one, and the monitor
-routes. Startup: database schema and seed as in ``ics_tpu`` (by ``ENV``),
-then the inference service on the GPU. An engine that fails to build fails
+The app mounts the port's own copies of the host routers (everything whose
+handlers need no device), its ``/inferencia`` router, and the monitor
+routes; nothing of the JAX package is imported. Startup: database schema
+and seed as in ``ics_tpu`` (by ``ENV``), then the inference service on the
+GPU. An engine that fails to build fails
 startup; a service already placed in ``app.state.engine`` is used as it is.
 
 Run: ``python -m ics_tpu_torch.main [--host H] [--port P]``.
@@ -15,29 +16,34 @@ import argparse
 import contextlib
 import logging
 
-from ics_tpu.core.config import settings
-from ics_tpu.db.engine import Database, get_database
-from ics_tpu.main import _db_session_middleware, _observability_middleware, _prepare_schema
-from ics_tpu.web import App, JSONResponse, Request, Router
+import time
+import uuid
+
+from ics_tpu_torch.core.config import settings
+from ics_tpu_torch.db import migrate, seed
+from ics_tpu_torch.db.engine import Database, get_database
+from ics_tpu_torch.utils.metrics import registry
+from ics_tpu_torch.web import App, JSONResponse, PlainTextResponse, Request, Response
+from ics_tpu_torch.web.exceptions import HTTPException, RequestValidationError
 
 logger = logging.getLogger(__name__)
 
-# handlers of classificacoes that reach the JAX embedding index, the
-# trained-weight engines or the explain lane: they wait for later slices
-_DEFERRED_ROUTES = {
-    ("GET", "/classificacoes/ambiente/{id_amb}/sugerir-vizinhos/{content_hash}"),
-    ("POST", "/classificacoes/ambiente/{id_amb}/classificar-tpu"),
-    ("POST", "/classificacoes/ambiente/{id_amb}/explicar"),
-}
 
-
-def _without_deferred(router: Router) -> Router:
-    kept = Router()
-    kept.routes = [
-        r for r in router.routes
-        if not any((m, r.path) in _DEFERRED_ROUTES for m in r.methods)
-    ]
-    return kept
+def _prepare_schema(db: Database) -> None:
+    if not db.wait_until_ready():
+        raise RuntimeError("database unreachable")
+    env = settings.ENV.lower()
+    if env == "production":
+        db.create_all()
+        migrate.upgrade_head(db)
+    elif env == "development":
+        db.drop_all()
+        db.create_all()
+        migrate.stamp_head(db)
+    else:  # test and anything else: non-destructive
+        db.create_all()
+        migrate.stamp_head(db)
+    seed.seed_all(db)
 
 
 @contextlib.asynccontextmanager
@@ -67,6 +73,7 @@ async def lifespan(app: App):
                 precision=settings.TPU_PRECISION,
                 buckets=settings.get_batch_buckets(),
                 canvas=settings.TPU_CANVAS,
+                fused_chains=settings.TPU_FUSED_CHAINS,
             )
             pool.add(settings.TPU_DEFAULT_MODEL, service)
             app.state.engine = service
@@ -80,6 +87,58 @@ async def lifespan(app: App):
             await owned.stop()
 
 
+async def _observability_middleware(request: Request, call_next):
+    """Request id, structured access log and latency histogram."""
+    request_id = request.headers.get("x-request-id") or uuid.uuid4().hex[:12]
+    request.state.request_id = request_id
+    t0 = time.perf_counter()
+    # the default covers BaseExceptions the clauses below do not: a request
+    # cancelled while the server drains raises CancelledError (not an
+    # Exception). 499 = closed before a response.
+    status = 499
+    try:
+        response = await call_next(request)
+        status = response.status_code
+        return response
+    except HTTPException as exc:
+        # converted to a response above the middleware stack; record the
+        # real status here so 401/404/422 do not pass for 500s
+        status = exc.status_code
+        raise
+    except RequestValidationError:
+        status = 422
+        raise
+    except Exception:
+        status = 500
+        raise
+    finally:
+        dt_ms = (time.perf_counter() - t0) * 1000
+        registry.counter("http_requests_total", "total HTTP requests").inc()
+        if status >= 500:
+            registry.counter("http_errors_total", "5xx responses").inc()
+        registry.histogram("http_request_ms", "request latency (ms)").observe(dt_ms)
+        logger.info(
+            'rid=%s method=%s path=%s status=%s ms=%.2f',
+            request_id, request.method, request.path, status, dt_ms,
+        )
+
+
+async def _db_session_middleware(request: Request, call_next):
+    """One unit of work per request."""
+    db = request.app.state.db
+    session = db.open_session()
+    request.state.db = session
+    try:
+        response = await call_next(request)
+        session.commit()
+        return response
+    except Exception:
+        session.rollback()
+        raise
+    finally:
+        session.close()
+
+
 def create_app(db: Database | None = None) -> App:
     app = App(
         title="Sistema de Classificação de Imagens (GPU)",
@@ -91,11 +150,13 @@ def create_app(db: Database | None = None) -> App:
     app.add_middleware(_observability_middleware)
     app.add_middleware(_db_session_middleware)
 
-    from ics_tpu.api.routes import (
+    # explicit imports: a broken route module must fail startup loudly
+    from ics_tpu_torch.api.routes import (
         ambientes,
         auditoria,
         auth as auth_routes,
         classificacoes,
+        inferencia,
         nextcloud_images,
         opcoes,
         test_sync,
@@ -103,14 +164,12 @@ def create_app(db: Database | None = None) -> App:
         usuarios_ambientes,
         whitelist,
     )
-    from ics_tpu_torch.api.routes import inferencia
 
     for module in (
-        auth_routes, usuarios, whitelist, ambientes, opcoes,
+        auth_routes, usuarios, whitelist, ambientes, opcoes, classificacoes,
         usuarios_ambientes, auditoria, nextcloud_images, test_sync, inferencia,
     ):
         app.include_router(module.router)
-    app.include_router(_without_deferred(classificacoes.router))
 
     @app.get("/")
     async def root(request: Request):
@@ -122,14 +181,13 @@ def create_app(db: Database | None = None) -> App:
 
     @app.get("/docs")
     async def docs(request: Request):
-        from ics_tpu.web import Response
-        from ics_tpu.web.console import CONSOLE_HTML
+        from ics_tpu_torch.web.console import CONSOLE_HTML
 
         return Response(CONSOLE_HTML, media_type="text/html; charset=utf-8")
 
     @app.get("/openapi.json")
     async def openapi(request: Request):
-        from ics_tpu.web.console import build_openapi
+        from ics_tpu_torch.web.console import build_openapi
 
         return JSONResponse(build_openapi(
             request.app, title="Sistema de Classificação de Imagens (GPU)",
@@ -146,9 +204,6 @@ def create_app(db: Database | None = None) -> App:
 
     @app.get("/monitor/metrics")
     async def monitor_metrics(request: Request):
-        from ics_tpu.utils.metrics import registry
-        from ics_tpu.web import PlainTextResponse
-
         engine = request.app.state.get("engine")
         if engine is not None:
             stats = engine.status()
@@ -173,7 +228,7 @@ def main() -> None:
     parser.add_argument("--port", type=int, default=settings.API_PORT)
     args = parser.parse_args()
     logging.basicConfig(level=logging.INFO)
-    from ics_tpu.web.server import run
+    from ics_tpu_torch.web.server import run
 
     run(
         create_app(), args.host, args.port,

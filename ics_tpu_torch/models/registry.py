@@ -1,19 +1,55 @@
 """Registry of the ported models: name -> (constructor, preprocessing config).
 
-Counterpart of ``ics_tpu/models/registry.py`` with the same ``ModelSpec``,
-holding only the models this port runs. ``build(num_classes=..., device=...)``
-returns a module with uninitialised parameters; the engine fills them from a
-seed or from a state dict.
+Counterpart of ``ics_tpu/models/registry.py`` with its own ``ModelSpec``
+and the JAX package's preprocessing sizes, holding only the models this
+port runs. ``build(num_classes=..., device=...)`` returns a module with
+uninitialised parameters; the engine fills them from a seed or from a
+state dict.
 """
 
 from __future__ import annotations
 
-from ics_tpu.models.registry import ModelSpec
-from ics_tpu_torch.models import vit
+from dataclasses import dataclass
+from typing import Any, Callable
+
+from ics_tpu_torch.models import resnet, vit
+
+
+@dataclass(frozen=True)
+class ModelSpec:
+    name: str
+    build: Callable[..., Any]
+    image_size: int
+    resize_short: int
+    description: str = ""
+    # dev/CI-only models (resnet_tiny, vit_tiny): resolvable by name
+    # everywhere (tests, TPU_DEFAULT_MODEL overrides) but excluded from the
+    # public API surface: a production client must not be able to classify
+    # against randomly initialised toy weights
+    dev_only: bool = False
+
 
 _REGISTRY: dict[str, ModelSpec] = {
     spec.name: spec
     for spec in (
+        ModelSpec("resnet50", resnet.resnet50, 224, 256,
+                  "ResNet-50 v1.5 — the default model; cuDNN convs, optional "
+                  "hand-written fused bottleneck chains (BASELINE cfg 2)"),
+        ModelSpec("resnet101", resnet.resnet101, 224, 256, "ResNet-101 v1.5"),
+        ModelSpec("resnet152", resnet.resnet152, 224, 256, "ResNet-152 v1.5"),
+        ModelSpec("resnet18", resnet.resnet18, 224, 256,
+                  "ResNet-18 — basic-block light variant (torchvision-compatible)"),
+        ModelSpec("resnet34", resnet.resnet34, 224, 256,
+                  "ResNet-34 — basic-block variant (torchvision-compatible)"),
+        ModelSpec("resnext50_32x4d", resnet.resnext50_32x4d, 224, 256,
+                  "ResNeXt-50 32x4d — grouped 3x3s at 2x inner width "
+                  "(torchvision-checkpoint-compatible)"),
+        ModelSpec("wide_resnet50_2", resnet.wide_resnet50_2, 224, 256,
+                  "Wide-ResNet-50-2 — 2x inner bottleneck width, dense convs "
+                  "(torchvision-checkpoint-compatible)"),
+        ModelSpec("resnet_tiny", resnet.resnet_tiny, 64, 64,
+                  "ResNet tiny (1 block/stage @64px) — dev/CI serving-stack model",
+                  dev_only=True),
         ModelSpec("vit_b16", vit.vit_b16, 384, 384,
                   "ViT-B/16 @384px — hand-written CUDA flash attention "
                   "(BASELINE cfg 3)"),

@@ -1,4 +1,5 @@
-"""The layers ViT needs, as PyTorch modules (counterpart of ``ics_tpu/nn/layers.py``).
+"""The layers ViT and ResNet need, as PyTorch modules (counterpart of
+``ics_tpu/nn/layers.py``).
 
 Activations stay NHWC at the public functions, as in the JAX package, so
 the tests compare like with like. Parameters use PyTorch's layouts (conv
@@ -10,7 +11,7 @@ distributions as the JAX initialisers, from a ``torch.Generator``.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -24,25 +25,54 @@ def trunc_normal_(t: torch.Tensor, generator: Optional[torch.Generator],
                                  generator=generator)
 
 
-class Conv2D(nn.Module):
-    """Strided VALID convolution with bias on NHWC input, weight OIHW (the
-    ViT patch embed). cuDNN computes it: the JAX package left its
-    convolutions to XLA, outside Pallas."""
+def kaiming_normal_(t: torch.Tensor, fan_in: int,
+                    generator: Optional[torch.Generator]) -> torch.Tensor:
+    return nn.init.normal_(t, std=math.sqrt(2.0 / fan_in), generator=generator)
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int, device=None):
+
+class Conv2D(nn.Module):
+    """Convolution on NHWC input, weight OIHW, computed by cuDNN: the JAX
+    package left its convolutions to XLA, outside Pallas.
+
+    ``padding`` is symmetric, as an int; ``"SAME"`` is taken where it is
+    symmetric too (stride 1 with an odd kernel, or a 1x1 kernel at any
+    stride). XLA's asymmetric SAME at stride 2 is not ported: the models
+    that stride a 3x3 or 7x7 name their padding (``k // 2``). An NHWC tensor
+    seen as NCHW is ``channels_last`` memory, so the two permutes are views
+    and cuDNN runs its NHWC kernels without a copy.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 padding: Union[int, str] = 0, groups: int = 1,
+                 use_bias: bool = True, device=None):
         super().__init__()
+        if padding == "SAME":
+            if kernel != 1 and (stride != 1 or kernel % 2 == 0):
+                raise ValueError(
+                    f"SAME padding is asymmetric for kernel {kernel} at stride "
+                    f"{stride}; name the padding"
+                )
+            padding = kernel // 2
         self.stride = stride
-        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel, device=device))
-        self.bias = nn.Parameter(torch.empty(out_ch, device=device))
+        self.padding = int(padding)
+        self.groups = groups
+        self.weight = nn.Parameter(
+            torch.empty(out_ch, in_ch // groups, kernel, kernel, device=device)
+        )
+        if use_bias:
+            self.bias = nn.Parameter(torch.empty(out_ch, device=device))
+        else:
+            self.register_parameter("bias", None)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        fan_in = self.weight[0].numel()
-        nn.init.normal_(self.weight, std=math.sqrt(2.0 / fan_in), generator=generator)
-        nn.init.zeros_(self.bias)
+        kaiming_normal_(self.weight, self.weight[0].numel(), generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
-                     self.bias.to(x.dtype), self.stride)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), bias,
+                     self.stride, self.padding, 1, self.groups)
         return y.permute(0, 2, 3, 1)
 
 
@@ -56,6 +86,8 @@ class Dense(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         if self.init_kind == "trunc_normal":
             trunc_normal_(self.weight, generator)
+        elif self.init_kind == "kaiming":
+            kaiming_normal_(self.weight, self.weight.shape[1], generator)
         else:
             nn.init.xavier_uniform_(self.weight, generator=generator)
         nn.init.zeros_(self.bias)
@@ -82,6 +114,67 @@ class LayerNorm(nn.Module):
         y = F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
                          self.bias.float(), self.eps)
         return y.to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm with running statistics (``ics_tpu/nn/layers.py:126-162``),
+    over the last (channel) dimension of an NHWC tensor. ``momentum`` is
+    PyTorch's: 0.1 here is the JAX package's 0.9. The forward normalises
+    with the running statistics unless the module is in training mode;
+    serving folds it away (``fold_batchnorm``)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1, device=None):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.empty(num_features, device=device))
+        self.bias = nn.Parameter(torch.empty(num_features, device=device))
+        self.register_buffer("running_mean", torch.empty(num_features, device=device))
+        self.register_buffer("running_var", torch.empty(num_features, device=device))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+        nn.init.zeros_(self.running_mean)
+        nn.init.ones_(self.running_var)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            x32 = x.float().reshape(-1, x.shape[-1])
+            mean = x32.mean(dim=0)
+            var = x32.var(dim=0, unbiased=False)
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+                self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        scale = self.weight.float() * torch.rsqrt(var + self.eps)
+        bias = self.bias.float() - mean * scale
+        return x * scale.to(x.dtype) + bias.to(x.dtype)
+
+
+def fold_batchnorm(bn: BatchNorm) -> tuple[torch.Tensor, torch.Tensor]:
+    """(scale, bias) in fp32 of a BatchNorm at its running statistics, with
+    the layer's own eps (``ics_tpu/nn/layers.py:165-169``)."""
+    scale = bn.weight.detach().float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+    bias = bn.bias.detach().float() - bn.running_mean.float() * scale
+    return scale, bias
+
+
+def max_pool(x: torch.Tensor, window: int = 3, stride: int = 2,
+             padding: int = 1) -> torch.Tensor:
+    """Max pooling on NHWC with symmetric padding that never wins the max
+    (PyTorch's implicit -inf), as ``ics_tpu/nn/layers.py:190-203``."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    return x.mean(dim=(1, 2))
+
+
+relu = F.relu
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -34,7 +34,17 @@ class LaunchCounter:
             return value
 
 
-LAUNCHES: dict[str, LaunchCounter] = {"flash_attention": LaunchCounter()}
+LAUNCHES: dict[str, LaunchCounter] = {
+    name: LaunchCounter()
+    for name in ("flash_attention", "bottleneck_chain", "normalize_u8")
+}
+
+
+def tensor_device_index(t) -> int:
+    """CUDA device index of a tensor, for the kernels' ``cudaSetDevice``."""
+    import torch
+
+    return t.device.index if t.device.index is not None else torch.cuda.current_device()
 
 
 def launch_counts() -> dict[str, int]:

@@ -17,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from ics_tpu_torch.ops import LAUNCHES
+from ics_tpu_torch.ops import LAUNCHES, tensor_device_index
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
@@ -89,7 +89,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = lib.ics_flash_attention(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), b * h, s, d, _valid_len(seq_len, s), stream,
-        q.device.index if q.device.index is not None else torch.cuda.current_device(),
+        tensor_device_index(q),
     )
     if rc != 0:
         msg = lib.ics_cuda_error_string(rc).decode()

@@ -27,13 +27,15 @@
 // the fragment reads are free of bank conflicts. The fp32 variant (the
 // TPU_PRECISION=fp32 path) is plain FMA, one query row per thread.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <cmath>
 
+#include "mma_frag.cuh"
+
 namespace {
+
+using ics::mma_bf16;
+using ics::pack_bf16;
+using ics::pack_f32;
 
 constexpr int kBlockQ = 64;        // query rows per block
 constexpr int kWarps = 4;          // 16 query rows per warp
@@ -42,28 +44,6 @@ constexpr int kBlockK = 64;        // keys per shared-memory tile (bf16)
 constexpr int kBlockKF32 = 32;     // keys per tile (fp32): 2 x 32 KB at D=128
 constexpr int kPad = 8;            // bf16 of padding per shared-memory row
 constexpr float kNegInf = -1e30f;  // NEG_INF of the TPU kernel
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a (16x16, row-major) * b (16x8, column-major); bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // two neighbouring q values of one row, times the bf16 scale, rounded to bf16
 __device__ __forceinline__ uint32_t load_q_pair(const __nv_bfloat16* row_ptr,
@@ -321,10 +301,6 @@ int ics_flash_attention(int dtype, const void* q, const void* k, const void* v,
     case 128: return static_cast<int>(launch<128>(dtype, q, k, v, o, bh, seq, kv_len, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-const char* ics_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

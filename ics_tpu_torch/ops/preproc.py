@@ -76,3 +76,11 @@ def preprocess_batch(canvas: torch.Tensor, sizes: torch.Tensor, out_size: int = 
     ry = _triangle_weights(ch, out_size, h, sy, oy)
     rx = _triangle_weights(cw, out_size, w, sx, ox)
     return normalize_pixels(apply_resize_weights(canvas, ry, rx), dtype=dtype)
+
+
+def normalize_only(x_u8: torch.Tensor, mean=IMAGENET_MEAN, std=IMAGENET_STD,
+                   dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Fixed-size path (image already out_size x out_size): dequantise and
+    normalize, the same math as ``normalize_pixels``. The plain version of
+    the ``normalize_u8`` kernel (``ics_tpu_torch.ops.normalize``)."""
+    return normalize_pixels(x_u8.float(), mean, std, dtype)

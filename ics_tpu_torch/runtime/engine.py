@@ -1,11 +1,18 @@
 """Inference engine for the pixel lane (counterpart of ``ics_tpu/runtime/engine.py``).
 
 One step per batch bucket: uint8 canvas -> fp32 resize/crop/normalize on
-the device -> forward in the serving dtype (attention in the flash kernel)
+the device -> forward in the serving dtype (ViT attention in the flash
+kernel; ResNet bottleneck chains in the fused kernel when ``fused_chains``)
 -> softmax (or sigmoid when multi-label) and top-k. Requests are padded up
 to the nearest bucket, so the device sees a small fixed set of shapes.
 PyTorch runs eagerly: the first call on a shape pays the kernel builds and
 cuBLAS/cuDNN plan selection, and is counted as the compile.
+
+The fixed-size lane: for a model whose ``resize_short == image_size``, a
+batch whose real images are all exactly ``image_size`` square needs no
+resize (the triangle weights are the identity), so the step normalizes the
+top-left window of the canvas with the ``normalize_u8`` kernel and skips
+the two resize matmuls.
 
 Not ported yet: the mesh, pipeline-parallel, TTA, explain, embed and
 JPEG-coefficient lanes.
@@ -23,6 +30,7 @@ import torch
 from ics_tpu_torch import disable_tf32, get_device
 from ics_tpu_torch.models.registry import ModelSpec, get_model
 from ics_tpu_torch.ops import launch_counts
+from ics_tpu_torch.ops.normalize import normalize_u8
 from ics_tpu_torch.ops.preproc import preprocess_batch
 
 logger = logging.getLogger(__name__)
@@ -46,6 +54,7 @@ class InferenceEngine:
         state_dict: Optional[dict] = None,
         multi_label: bool = False,
         device=None,
+        fused_chains: bool = False,
     ):
         if precision not in _DTYPES:
             raise ValueError(f"precision must be one of {sorted(_DTYPES)}; got {precision!r}")
@@ -69,7 +78,15 @@ class InferenceEngine:
             model.init_weights(torch.Generator().manual_seed(seed))
         else:
             model.load_state_dict(state_dict, strict=True)
-        self.model = model.fold().to(device=self.device, dtype=self.dtype).eval()
+        # fused_chains reaches fold() of the models that have bottleneck
+        # chains (ResNet); fold raises for those among them it cannot chain
+        fused_chains = bool(fused_chains) and hasattr(model, "chains")
+        if fused_chains and self.device.type == "cuda" and precision != "bf16":
+            raise ValueError("fused_chains on the GPU needs precision='bf16': "
+                             "the bottleneck_chain kernel takes bf16 activations")
+        folded = model.fold(fused_chains=True) if fused_chains else model.fold()
+        self.model = folded.to(device=self.device, dtype=self.dtype).eval()
+        self.fused_chains = fused_chains
         self._compiled_shapes: set = set()
         self._stats = {
             "batches": 0, "images": 0, "total_device_ms": 0.0, "compiles": 0,
@@ -93,12 +110,28 @@ class InferenceEngine:
         # multi-label returns every class: each sigmoid is its own decision
         return self.num_classes if self.multi_label else min(TOP_K, self.num_classes)
 
-    @torch.inference_mode()
-    def _step(self, canvas: torch.Tensor, sizes: torch.Tensor):
-        x = preprocess_batch(
-            canvas, sizes, out_size=self.spec.image_size,
-            resize_short=self.spec.resize_short, dtype=self.dtype,
+    def _fixed_size(self, canvas: np.ndarray, sizes: np.ndarray) -> bool:
+        """Whether a batch takes the fixed-size lane: the model resizes to
+        its own input size, the canvas holds that window, and every real
+        image (padding rows do not count) is exactly that size."""
+        s = self.spec.image_size
+        return (
+            self.spec.resize_short == s
+            and len(sizes) > 0
+            and min(canvas.shape[1], canvas.shape[2]) >= s
+            and bool((np.asarray(sizes) == s).all())
         )
+
+    @torch.inference_mode()
+    def _step(self, canvas: torch.Tensor, sizes: torch.Tensor, fixed_size: bool = False):
+        s = self.spec.image_size
+        if fixed_size:
+            x = normalize_u8(canvas[:, :s, :s], dtype=self.dtype)
+        else:
+            x = preprocess_batch(
+                canvas, sizes, out_size=s,
+                resize_short=self.spec.resize_short, dtype=self.dtype,
+            )
         logits = self.model.apply_folded(x).float()
         probs = torch.sigmoid(logits) if self.multi_label else torch.softmax(logits, dim=-1)
         scores, idx = torch.topk(probs, self._top_k(), dim=-1)
@@ -126,9 +159,14 @@ class InferenceEngine:
         for b in buckets or self.buckets:
             canvas = np.zeros((b, self.canvas, self.canvas, 3), np.uint8)
             sizes = np.full((b, 2), PAD_SIZE, np.int32)
-            idx, _ = self._step(*self._to_device(canvas, sizes))
+            staged = self._to_device(canvas, sizes)
+            idx, _ = self._step(*staged)
             idx.cpu()
             self._compiled_shapes.add((b, self.canvas))
+            if self.spec.resize_short == self.spec.image_size <= self.canvas:
+                idx, _ = self._step(*staged, fixed_size=True)
+                idx.cpu()
+                self._compiled_shapes.add((b, self.canvas, "fixed"))
             logger.info("warmed %s step for bucket %d", self.model_name, b)
 
     def _to_device(self, canvas: np.ndarray, sizes: np.ndarray):
@@ -143,10 +181,11 @@ class InferenceEngine:
         WITHOUT waiting for it; returns a zero-arg resolver that fetches the
         results (blocking) and records step telemetry."""
         n = canvas.shape[0]
+        fixed_size = self._fixed_size(canvas, sizes)
         canvas, sizes, bucket = self._pad(canvas, sizes)
         t0 = time.perf_counter()
-        idx, scores = self._step(*self._to_device(canvas, sizes))
-        shape_key = (bucket, canvas.shape[1])
+        idx, scores = self._step(*self._to_device(canvas, sizes), fixed_size=fixed_size)
+        shape_key = (bucket, canvas.shape[1]) + (("fixed",) if fixed_size else ())
 
         def resolve() -> tuple[np.ndarray, np.ndarray]:
             i = idx.cpu().numpy()[:n]
@@ -170,6 +209,7 @@ class InferenceEngine:
             "backend": self.device.type,
             "device_name": torch.cuda.get_device_name(self.device) if cuda else "cpu",
             "devices": torch.cuda.device_count() if cuda else 1,
+            "fused_chains": self.fused_chains,
             "kernel_launches": launch_counts(),
             **self._stats,
         }

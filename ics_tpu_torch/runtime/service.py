@@ -1,9 +1,9 @@
 """Inference service: image bytes in -> classes and scores out (counterpart
 of ``ics_tpu/runtime/service.py``, host-decode lane).
 
-Host decode (``ics_tpu.runtime.decode``) -> dynamic batcher
-(``ics_tpu.runtime.batcher``) -> the port's engine. The batcher, decode and
-staging are the JAX package's own host code, imported as they are.
+Host decode (``runtime.decode``) -> dynamic batcher (``runtime.batcher``)
+-> the engine. The batcher, decode and staging are the port's own copies
+of the JAX package's host code.
 
 Not ported yet: the JPEG-coefficient (device decode) lanes, hedged
 replicas, trained-weight engines, and the TTA/embed/explain requests.
@@ -18,13 +18,15 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from ics_tpu.core.config import settings
-from ics_tpu.runtime.batcher import DynamicBatcher
-from ics_tpu.runtime.decode import decode_image, stage_batch
-from ics_tpu.utils.metrics import registry as metrics_registry
+from ics_tpu_torch.core.config import settings
+from ics_tpu_torch.runtime.batcher import DynamicBatcher
+from ics_tpu_torch.runtime.decode import decode_image, stage_batch
+from ics_tpu_torch.utils.metrics import registry as metrics_registry
 from ics_tpu_torch.runtime.engine import InferenceEngine
 
 logger = logging.getLogger(__name__)
+
+_warned: set[str] = set()  # notices already given in this process
 
 
 class InferenceService:
@@ -48,15 +50,17 @@ class InferenceService:
     @classmethod
     def from_settings(cls) -> "InferenceService":
         """The serving engine and service the ``TPU_*`` settings describe."""
-        if settings.TPU_DEVICE_DECODE:
-            logger.info("TPU_DEVICE_DECODE: the device-decode lane is not "
-                        "ported yet; images are decoded on the host")
+        if settings.TPU_DEVICE_DECODE and "device_decode" not in _warned:
+            _warned.add("device_decode")
+            logger.warning("TPU_DEVICE_DECODE is set, but the device-decode lane is not "
+                           "ported yet (ROADMAP.md slice 3): images are decoded on the host")
         engine = InferenceEngine(
             model_name=settings.TPU_DEFAULT_MODEL,
             num_classes=settings.TPU_NUM_CLASSES,
             precision=settings.TPU_PRECISION,
             buckets=settings.get_batch_buckets(),
             canvas=settings.TPU_CANVAS,
+            fused_chains=settings.TPU_FUSED_CHAINS,
         )
         return cls(
             engine,
@@ -158,6 +162,7 @@ class InferenceService:
             "batcher": self.batcher.stats,
             "latency": self.latency_percentiles(),
             "device_errors": self._device_errors,
+            "device_decode": False,  # the lane is not ported: every image is host-decoded
             **self._stats,
         }
 
@@ -182,6 +187,10 @@ class InferenceServicePool:
     def add(self, name: str, service: InferenceService) -> None:
         """Register an already started service (the default model's)."""
         self._services[name] = service
+
+    def built(self, model_name: str) -> Optional[InferenceService]:
+        """The service of ``model_name`` if it has been built, else None."""
+        return self._services.get(model_name)
 
     async def get(self, model_name: Optional[str] = None) -> InferenceService:
         name = model_name or self.default_model

@@ -1,0 +1,139 @@
+"""Where one engine step's time goes on the GPU.
+
+    python -m ics_tpu_torch.tools.profile_step --model resnet50 --bucket 32 [--fused-chains]
+
+Builds the engine with random weights from seed 0, stages random images of
+300-512 px (or ``--exact``: all exactly the model's input size, the
+fixed-size lane) on a 512 canvas, and prints: the card's name and power
+limit; the step's time by CUDA events (whole step, preprocess alone); then
+``torch.profiler``'s device time by kernel over ``--steps`` steps, grouped
+into convolution/GEMM, the port's own kernels, and elementwise glue, with
+the device's busy share of the profiled wall time. One JSON line at the end
+carries the same numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from ics_tpu_torch.ops import launch_counts, reset_launch_counts
+from ics_tpu_torch.ops.preproc import preprocess_batch
+from ics_tpu_torch.runtime.engine import InferenceEngine
+
+GROUPS = (
+    ("port kernels", ("flash_bf16", "flash_f32", "bottleneck_block", "normalize_vec",
+                      "normalize_scalar")),
+    ("convolution and GEMM", ("gemm", "cutlass", "nvjet", "xmma", "conv", "cudnn", "wgrad",
+                              "implicit", "sm90_", "sm80_")),
+    ("pooling, softmax, top-k", ("pool", "softmax", "topk", "sort", "gather", "reduce")),
+)
+
+
+def group_of(kernel_name: str) -> str:
+    lowered = kernel_name.lower()
+    for group, needles in GROUPS:
+        if any(n in lowered for n in needles):
+            return group
+    return "elementwise glue and copies"
+
+
+def events_ms(fn, iters: int) -> float:
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", default="resnet50")
+    ap.add_argument("--bucket", type=int, default=32)
+    ap.add_argument("--canvas", type=int, default=512)
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--fused-chains", action="store_true")
+    ap.add_argument("--exact", action="store_true",
+                    help="every image exactly the model's input size (fixed-size lane)")
+    args = ap.parse_args()
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(card)
+    eng = InferenceEngine(args.model, precision="bf16", buckets=(args.bucket,),
+                          canvas=args.canvas, fused_chains=args.fused_chains)
+    rng = np.random.default_rng(0)
+    canvas = rng.integers(0, 256, (args.bucket, args.canvas, args.canvas, 3), np.uint8)
+    if args.exact:
+        sizes = np.full((args.bucket, 2), eng.spec.image_size, np.int32)
+    else:
+        sizes = rng.integers(300, args.canvas + 1, (args.bucket, 2)).astype(np.int32)
+    fixed = eng._fixed_size(canvas, sizes)
+    staged = eng._to_device(canvas, sizes)
+    step = lambda: eng._step(*staged, fixed_size=fixed)  # noqa: E731
+    pre = lambda: preprocess_batch(  # noqa: E731
+        *staged, out_size=eng.spec.image_size, resize_short=eng.spec.resize_short,
+        dtype=eng.dtype)
+    for fn in (step, pre):
+        events_ms(fn, 3)
+    reset_launch_counts()
+    step()
+    per_step = launch_counts()
+    step_ms = events_ms(step, 20)
+    pre_ms = None if fixed else events_ms(pre, 20)
+    print(f"{args.model} bf16 bucket {args.bucket} fused_chains={eng.fused_chains} "
+          f"fixed_size={fixed}: step {step_ms:.3f} ms ({args.bucket / step_ms * 1e3:.0f} "
+          f"images/s), preprocess alone {pre_ms if pre_ms is None else round(pre_ms, 3)} ms, "
+          f"kernel launches per step {per_step}")
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            idx, _ = step()
+            idx.cpu()       # each step ends in a fetch, as the served step does
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_group: dict[str, float] = defaultdict(float)
+    by_kernel = []
+    n_kernels = 0
+    for ev in prof.key_averages():
+        device_us = getattr(ev, "self_device_time_total", 0) or getattr(
+            ev, "self_cuda_time_total", 0)
+        is_kernel = getattr(ev, "device_type", None) is not None and \
+            str(ev.device_type).endswith("CUDA")
+        if not is_kernel or device_us <= 0:
+            continue
+        by_group[group_of(ev.key)] += device_us / 1e3 / args.steps
+        by_kernel.append((device_us / 1e3 / args.steps, ev.count // args.steps, ev.key))
+        n_kernels += ev.count
+    busy_ms = sum(by_group.values())
+    if busy_ms == 0:
+        print("torch.profiler recorded no device time here; only the event times above hold")
+    for group, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"  {group:32s} {ms:8.3f} ms/step  {ms / busy_ms:6.1%}")
+    for ms, count, key in sorted(by_kernel, reverse=True)[:12]:
+        print(f"    {ms:8.3f} ms/step  x{count:<4d} {key[:100]}")
+    busy_share = busy_ms * args.steps / wall_ms
+    print(f"  device busy {busy_ms:.3f} ms/step of {wall_ms / args.steps:.3f} ms wall "
+          f"({busy_share:.1%}; profiler on), {n_kernels // args.steps} kernels a step")
+    print(json.dumps({
+        "card": card, "model": args.model, "bucket": args.bucket,
+        "fused_chains": eng.fused_chains, "fixed_size": fixed, "step_ms": step_ms,
+        "preprocess_ms": pre_ms, "launches_per_step": per_step,
+        "device_ms_by_group": dict(by_group), "device_busy_share": busy_share,
+        "kernels_per_step": n_kernels // args.steps,
+    }))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,14 @@
 """JAX parameter trees into the port's state dicts.
 
-``from_jax_variables`` takes the ``{"params": ...}`` tree of an
-``ics_tpu`` model as nested dicts and lists of numpy arrays (no JAX
+``from_jax_variables`` takes the ``{"params": ..., "state": ...}`` trees of
+an ``ics_tpu`` model as nested dicts and lists of numpy arrays (no JAX
 needed) and returns the state dict of the matching ``ics_tpu_torch``
-module. Names follow the tree (``blocks.3.attn.qkv.w`` ->
-``blocks.3.attn.qkv.weight``); layouts move from JAX's to PyTorch's:
-conv kernels HWIO -> OIHW, dense kernels [in, out] -> [out, in].
+module. Names follow the trees, lists keep their indices
+(``blocks.3.attn.qkv.w`` -> ``blocks.3.attn.qkv.weight``,
+``stages.1.2.cbr2.bn.gamma`` -> ``stages.1.2.cbr2.bn.weight``, and from the
+state tree ``stages.1.2.cbr2.bn.mean`` -> ``stages.1.2.cbr2.bn.running_mean``);
+layouts move from JAX's to PyTorch's: conv kernels HWIO -> OIHW, dense
+kernels [in, out] -> [out, in].
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 _LEAF_NAMES = {"w": "weight", "b": "bias", "gamma": "weight", "beta": "bias"}
+_STATE_LEAF_NAMES = {"mean": "running_mean", "var": "running_var"}
 
 
 def _walk(tree: Any, prefix: tuple = ()) -> Iterator[tuple[tuple, Any]]:
@@ -30,8 +34,12 @@ def _walk(tree: Any, prefix: tuple = ()) -> Iterator[tuple[tuple, Any]]:
 
 
 def _entries(variables: dict) -> Iterator[tuple[str, Any, tuple]]:
-    """(torch name, JAX leaf, axis permutation or None) per parameter."""
+    """(torch name, JAX leaf, axis permutation or None) per parameter and
+    per BatchNorm running statistic."""
     params = variables.get("params", variables)
+    for path, leaf in _walk(variables.get("state", {}) if "params" in variables else {}):
+        name = _STATE_LEAF_NAMES.get(path[-1], path[-1])
+        yield ".".join(path[:-1] + (name,)), leaf, None
     for path, leaf in _walk(params):
         name = path[-1]
         perm = None

@@ -1,5 +1,6 @@
 """The port's app: classify over HTTP with a CPU service, startup rules, and
-the rule that ``ics_tpu_torch`` never imports JAX."""
+the rule that ``ics_tpu_torch`` never imports JAX (the wider rule, nothing of
+``ics_tpu`` either, is held in ``test_torch_standalone.py``)."""
 
 import ast
 import io
@@ -14,8 +15,8 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from ics_tpu.core.config import settings
-from ics_tpu.db.engine import Database
+from ics_tpu_torch.core.config import settings
+from ics_tpu_torch.db.engine import Database
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -89,15 +90,22 @@ async def test_routes_of_the_port(served):
     h = await _admin(client)
     r = await client.get("/inferencia/modelos", headers=h)
     names = [m["nome"] for m in r.json()["modelos"]]
-    assert names == ["vit_b16", "vit_l16", "vit_s16"]   # dev models stay hidden
+    assert names == ["resnet101", "resnet152", "resnet18", "resnet34", "resnet50",
+                     "resnext50_32x4d", "vit_b16", "vit_l16", "vit_s16",
+                     "wide_resnet50_2"]                    # dev models stay hidden
     r = await client.post("/inferencia/classificar?modelo=vit_tiny", headers=h,
                           files=[("files", ("a.jpg", _jpeg(0), "image/jpeg"))])
     assert r.status_code == 422
     r = await client.post("/inferencia/classificar", headers=h,
                           files=[("files", ("a.jpg", b"not an image", "image/jpeg"))])
     assert r.status_code == 422
+    r = await client.get("/inferencia/status?modelo=vit_tiny", headers=h)
+    assert r.status_code == 200 and r.json()["model"] == "vit_tiny"
+    r = await client.get("/inferencia/status?modelo=resnet50", headers=h)
+    assert r.status_code == 404                           # known, but not built
     r = await client.post("/inferencia/kernels/zerar", headers=h)
-    assert r.status_code == 200 and set(r.json()["anteriores"]) == {"flash_attention"}
+    assert r.status_code == 200 and set(r.json()["anteriores"]) == {
+        "flash_attention", "bottleneck_chain", "normalize_u8"}
     r = await client.post("/inferencia/warmup", headers=h)
     assert r.status_code == 200 and r.json()["buckets"] == [1, 4]
     assert (await client.get("/health")).json()["status"] == "healthy"
@@ -113,7 +121,7 @@ async def test_routes_of_the_port(served):
 
 @pytest.mark.anyio
 async def test_engine_that_fails_to_build_fails_startup(tmp_path):
-    from ics_tpu.core.config import reload_settings
+    from ics_tpu_torch.core.config import reload_settings
     from ics_tpu_torch.main import create_app
 
     reload_settings(TPU_ENABLE_INFERENCE="true", TPU_DEFAULT_MODEL="no_such_model")
@@ -147,8 +155,8 @@ import httpx, numpy as np
 from PIL import Image
 
 async def main():
-    from ics_tpu.core.config import settings
-    from ics_tpu.db.engine import Database
+    from ics_tpu_torch.core.config import settings
+    from ics_tpu_torch.db.engine import Database
     from ics_tpu_torch.main import create_app
     from ics_tpu_torch.runtime.engine import InferenceEngine
     from ics_tpu_torch.runtime.service import InferenceService
@@ -191,3 +199,35 @@ def test_serving_a_classify_never_imports_jax(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result == {"status": 200, "total": 1, "jax": []}
+
+
+def test_from_settings_hands_fused_chains_on_and_says_device_decode_once(monkeypatch, caplog):
+    import logging
+
+    from ics_tpu_torch.core.config import reload_settings
+    from ics_tpu_torch.runtime import service as service_mod
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+
+    built = []
+
+    def cpu_engine(**kwargs):
+        built.append(kwargs)
+        return InferenceEngine(device="cpu", **kwargs)
+
+    monkeypatch.setattr(service_mod, "InferenceEngine", cpu_engine)
+    monkeypatch.setattr(service_mod, "_warned", set())
+    reload_settings(TPU_DEFAULT_MODEL="resnet_tiny", TPU_FUSED_CHAINS="true",
+                    TPU_DEVICE_DECODE="true", TPU_NUM_CLASSES="10", TPU_BATCH_BUCKETS="1,2")
+    try:
+        with caplog.at_level(logging.INFO, logger=service_mod.__name__):
+            first = service_mod.InferenceService.from_settings()
+            service_mod.InferenceService.from_settings()
+    finally:
+        reload_settings()
+    assert [kw["fused_chains"] for kw in built] == [True, True]
+    assert built[0]["model_name"] == "resnet_tiny" and built[0]["buckets"] == (1, 2)
+    notices = [r for r in caplog.records if "TPU_DEVICE_DECODE" in r.getMessage()]
+    assert len(notices) == 1 and notices[0].levelno == logging.WARNING
+    assert "slice 3" in notices[0].getMessage()
+    status = first.status()
+    assert status["device_decode"] is False and status["fused_chains"] is True

@@ -84,7 +84,9 @@ def test_status_and_warmup(engine):
     assert st["backend"] == "cpu" and st["devices"] == 1
     assert st["buckets"] == [1, 4] and st["batches"] == 0
     assert {(1, 64), (4, 64)} <= engine._compiled_shapes
-    assert set(st["kernel_launches"]) == {"flash_attention"}
+    assert set(st["kernel_launches"]) == {
+        "flash_attention", "bottleneck_chain", "normalize_u8"}
+    assert st["fused_chains"] is False
 
 
 def test_multi_label_scores_every_class_with_sigmoid():
@@ -109,5 +111,131 @@ def test_same_seed_same_weights_across_engines():
 def test_rejects_unknown_precision_and_model():
     with pytest.raises(ValueError, match="precision"):
         InferenceEngine("vit_tiny", precision="fp8", device="cpu")
-    with pytest.raises(KeyError, match="resnet50"):
-        InferenceEngine("resnet50", device="cpu")
+    with pytest.raises(KeyError, match="convnext_tiny"):
+        InferenceEngine("convnext_tiny", device="cpu")
+
+
+# ---- ResNet, fused chains and the fixed-size lane --------------------------------
+
+@pytest.fixture(scope="module")
+def resnet_variables():
+    from ics_tpu.models.resnet import resnet_tiny
+
+    return jax.tree_util.tree_map(
+        np.asarray, resnet_tiny(num_classes=10).init(jax.random.PRNGKey(3))
+    )
+
+
+@pytest.mark.parametrize("fused_chains", [False, True])
+def test_resnet_top5_matches_jax_engine_fp32(resnet_variables, fused_chains):
+    canvas, sizes = stage_batch(_images(5), canvas=None)
+    ref_idx, ref_scores = JaxEngine(
+        "resnet_tiny", num_classes=10, precision="fp32", buckets=(8,),
+        canvas=256, variables=resnet_variables,
+    ).predict_staged(canvas, sizes)
+    eng = InferenceEngine(
+        "resnet_tiny", num_classes=10, precision="fp32", buckets=(8,), canvas=256,
+        state_dict=weights.from_jax_variables(resnet_variables), device="cpu",
+        fused_chains=fused_chains,
+    )
+    idx, scores = eng.predict_staged(canvas, sizes)
+    np.testing.assert_array_equal(idx, ref_idx)
+    np.testing.assert_allclose(scores, ref_scores, atol=1e-4, rtol=0)
+    assert eng.status()["fused_chains"] is fused_chains
+
+
+def test_fused_chains_reaches_fold():
+    """The flag is handed to fold() for models that have chains, and is a
+    no-op for models that have none; fold's refusals surface at build."""
+    import ics_tpu_torch.models.registry as registry
+    from ics_tpu_torch.models import resnet
+
+    spec = registry.ModelSpec(
+        "resnet_2211", lambda num_classes, device=None: resnet.ResNet(
+            (2, 2, 1, 1), num_classes, device=device), 64, 64, dev_only=True)
+    registry._REGISTRY[spec.name] = spec
+    try:
+        on = InferenceEngine(spec.name, num_classes=10, precision="bf16", device="cpu",
+                             fused_chains=True)
+        off = InferenceEngine(spec.name, num_classes=10, precision="bf16", device="cpu")
+    finally:
+        del registry._REGISTRY[spec.name]
+    assert sorted(on.model.chains) == ["0", "1"] and len(off.model.chains) == 0
+    assert on.status()["fused_chains"] is True and off.status()["fused_chains"] is False
+    # the engine's cast leaves the chain's fp32 scales and bf16 weights alone
+    assert on.model.chains["0"].s1.dtype == torch.float32
+    assert on.model.chains["0"].w1.dtype == torch.bfloat16
+    assert on.model.stem.conv.weight.dtype == torch.bfloat16
+    # same seed, same images: chains on and off agree on the top class
+    canvas, sizes = stage_batch(_images(3, seed=5), canvas=256)
+    np.testing.assert_array_equal(on.predict_staged(canvas, sizes)[0][:, 0],
+                                  off.predict_staged(canvas, sizes)[0][:, 0])
+    vit = InferenceEngine("vit_tiny", num_classes=10, device="cpu", fused_chains=True)
+    assert vit.status()["fused_chains"] is False
+    with pytest.raises(ValueError, match="basic-block"):
+        InferenceEngine("resnet18", num_classes=4, device="cpu", fused_chains=True)
+
+
+def _exact(n, side, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (side, side, 3), np.uint8) for _ in range(n)]
+
+
+def test_fixed_size_lane_is_taken_exactly_when_the_conditions_hold(monkeypatch):
+    import ics_tpu_torch.runtime.engine as engine_mod
+
+    calls = []
+    real = engine_mod.normalize_u8
+    monkeypatch.setattr(engine_mod, "normalize_u8",
+                        lambda x, **kw: calls.append(tuple(x.shape)) or real(x, **kw))
+    # a vit_tiny-like spec (resize_short == image_size == 64)
+    eng = InferenceEngine("vit_tiny", num_classes=10, precision="fp32", buckets=(1, 4),
+                          canvas=128, device="cpu")
+    canvas, sizes = stage_batch(_exact(3, 64), canvas=128)
+    idx, scores = eng.predict_staged(canvas, sizes)
+    assert calls == [(4, 64, 64, 3)]                 # padded to the bucket, windowed
+    assert (4, 128, "fixed") in eng._compiled_shapes and (4, 128) not in eng._compiled_shapes
+    # its results equal the resize lane's
+    ref_idx, ref_scores = eng._step(*eng._to_device(*eng._pad(canvas, sizes)[:2]))
+    np.testing.assert_array_equal(idx, ref_idx.numpy()[:3])
+    np.testing.assert_allclose(scores, ref_scores.numpy()[:3], atol=1e-5, rtol=0)
+    assert len(calls) == 1
+    # one real row of another size: the resize lane
+    mixed, mixed_sizes = stage_batch(_exact(2, 64) + _exact(1, 63), canvas=128)
+    eng.predict_staged(mixed, mixed_sizes)
+    assert len(calls) == 1 and (4, 128) in eng._compiled_shapes
+    # padding rows do not count: one exact image in bucket 4 of a larger bucket set
+    eng.predict_staged(canvas[:1], sizes[:1])
+    assert calls[-1] == (1, 64, 64, 3)
+    # a canvas smaller than the window cannot hold it
+    assert not eng._fixed_size(np.zeros((1, 32, 32, 3), np.uint8), np.full((1, 2), 64))
+    # a 224/256 model never takes the lane, whatever the images
+    res = InferenceEngine("vit_s16", num_classes=4, precision="fp32", buckets=(1,),
+                          canvas=256, device="cpu")
+    assert not res._fixed_size(*stage_batch(_exact(1, 224), canvas=256))
+    assert not res._fixed_size(*stage_batch(_exact(1, 256), canvas=256))
+
+
+def test_fixed_size_lane_preprocessing_equals_the_resize_lane_fp32():
+    from ics_tpu_torch.ops.normalize import normalize_u8
+    from ics_tpu_torch.ops.preproc import preprocess_batch
+
+    canvas, sizes = stage_batch(_exact(2, 384, seed=3), canvas=512)
+    resized = preprocess_batch(torch.from_numpy(canvas), torch.from_numpy(sizes),
+                               out_size=384, resize_short=384, dtype=torch.float32)
+    fixed = normalize_u8(torch.from_numpy(canvas)[:, :384, :384], dtype=torch.float32)
+    np.testing.assert_allclose(fixed.numpy(), resized.numpy(), atol=1e-5, rtol=0)
+
+
+def test_warmup_covers_the_fixed_size_lane():
+    eng = InferenceEngine("resnet_tiny", num_classes=10, precision="fp32", buckets=(1, 2),
+                          canvas=64, device="cpu")
+    eng.warmup()
+    assert {(1, 64), (2, 64), (1, 64, "fixed"), (2, 64, "fixed")} <= eng._compiled_shapes
+    assert eng.status()["batches"] == 0
+    # a warmed lane is no compile when traffic arrives
+    eng.predict_staged(*stage_batch(_exact(2, 64), canvas=64))
+    assert eng.status()["compiles"] == 0
+    big = InferenceEngine("vit_s16", num_classes=4, precision="fp32", buckets=(1,),
+                          canvas=256, device="cpu")
+    assert big.spec.resize_short != big.spec.image_size
