@@ -4,28 +4,41 @@
 Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
 
 1. The card's name and power limit, as ``nvidia-smi`` gives them.
-2. Build every CUDA kernel from ``ics_tpu_torch/ops/csrc`` (one ``nvcc``
-   per source, all started together) and time it.
+2. Build every CUDA kernel from ``ics_tpu_torch/ops/csrc`` (five sources,
+   one ``nvcc`` per source, all started together) and time it.
 3. Each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and at edge shapes, with the tolerance stated beside each
-   case: ``flash_attention``, ``bottleneck_chain``, ``normalize_u8``.
+   case: ``flash_attention`` (and its ``bf16_exp`` variant),
+   ``bottleneck_chain``, ``normalize_u8``, ``depthwise_conv``,
+   ``window_attention``.
 4. CUDA-event times of each kernel and its plain version, in turns, at the
    bucket-32 shapes, with the least time the card could take computed from
-   the shapes; ``F.scaled_dot_product_attention`` as a yardstick for the
-   attention kernel (timed here, used nowhere in the port).
+   the shapes, and one library call as a yardstick where there is one
+   (``F.scaled_dot_product_attention``, cuDNN's grouped ``F.conv2d``): timed
+   here, used nowhere on the kernels' paths.
+4b. The ``bf16_exp`` variant's own path, ``tools.bench_vit_attn``, with the
+   launch counts set to 0 before and read after.
 5. ViT-B/16 @384 at full width (random weights from seed 0) in this
    process: the bf16 forward through the kernel against the fp32 forward
    through the plain version.
 5b. ResNet-50 at full width in this process: bf16 with fused chains against
    the fp32 unfused forward, beside the bf16 unfused (cuDNN) forward; then
    one bucket-32 engine step with the chains on and off.
+5c. ConvNeXt-T, Swin-T, MobileNetV3-Small and EfficientNet-B4 at full width
+   in this process: bf16 through the kernels against the fp32 forward through
+   the plain versions, beside the bf16 forward with cuDNN's grouped
+   convolution or the plain window attention; then one bucket-32 engine step
+   of each, kernels on and off.
 6. The main paths: one ``python -m ics_tpu_torch.main`` whose default model
    is ResNet-50 with ``TPU_FUSED_CHAINS=true``, classify requests over HTTP:
    JPEGs to ResNet-50, the same JPEGs to ``?modelo=vit_b16`` (the pool
-   builds it), then a batch of 384x384 PNGs to ViT-B/16 (the fixed-size
-   lane). The kernel launch counts are set to 0 just before each stretch
-   and read just after, and every kernel of that stretch's path must have
-   run.
+   builds it), a batch of 384x384 PNGs to ViT-B/16 (the fixed-size lane),
+   then JPEGs to ``?modelo=convnext_tiny``, ``?modelo=swin_tiny`` and
+   ``?modelo=mobilenetv3_small``. The kernel launch counts are set to 0 just
+   before each stretch and read just after, and every kernel of that
+   stretch's path must have run: ``depthwise_conv`` 18 times a batch on
+   ConvNeXt-T and 7 times on MobileNetV3-Small, ``window_attention`` 12
+   times a batch on Swin-T.
 
 Prints ``{"kernels": [...]}`` on the line before the last and
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
@@ -59,8 +72,23 @@ FP32_TOL = 1e-5   # the same fp32 math summed in another order
 CHAIN_TOL = 2.0 ** -5
 CHAIN_MEAN_TOL = 1e-3
 NORM_BF16_TOL = 2.0 ** -6   # one bf16 ulp of the largest output, |y| < 4
+# depthwise_conv: the kernel and the plain version sum the same k*k fp32
+# products in another order. In fp32 that is a few ulps of the largest output;
+# in bf16 the one rounding may fall on the other side of a tie: one bf16 ulp
+# of the largest output, 2^-5 for |y| < 8 (the cases keep |y| < 8).
+DW_BF16_TOL = 2.0 ** -5
+# flash attention with bf16_exp: each p is within 2^-7 relative of the plain
+# version's (the bound of ex2.approx.ftz.bf16x2), on top of the bf16 bar.
+BF16_EXP_TOL = 2e-2
 VIT = "vit_b16"
 RESNET = "resnet50"
+CONVNEXT = "convnext_tiny"
+SWIN = "swin_tiny"
+MOBILENET = "mobilenetv3_small"
+EFFICIENTNET = "efficientnet_b4"
+CONVNEXT_DEPTHS = (3, 3, 9, 3)   # ConvNeXt-T: one depthwise_conv launch per block, 18
+SWIN_DEPTHS = (2, 2, 6, 2)       # Swin-T: one window_attention launch per block, 12
+MOBILENET_LAUNCHES = 7           # MobileNetV3-Small: its stride-1 blocks, 7 of 11
 VIT_DEPTH = 12              # ViT-B/16: one flash launch per block per batch
 CHAIN_LAUNCHES = 5          # ResNet-50: one launch per chained bottleneck, 2 + 3
 SERVER_START_S = 600
@@ -87,9 +115,22 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int) -> float:
+_AHEAD: dict = {}
+
+
+def cuda_ms(fn, iters: int, ahead: bool = True) -> float:
+    """ms per call by CUDA events. ``ahead``: a few milliseconds of other work
+    (two 8192^2 bf16 products) go to the device first, so that the host has
+    queued every launch by the time the first one starts and a kernel shorter
+    than its launch overhead is still timed on the device's clock. An engine
+    step is timed without it: there the host's pace is part of the step."""
     import torch
 
+    if ahead:
+        if "a" not in _AHEAD:
+            _AHEAD["a"] = torch.ones((8192, 8192), device="cuda", dtype=torch.bfloat16)
+        for _ in range(2):
+            torch.mm(_AHEAD["a"], _AHEAD["a"])
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -136,18 +177,25 @@ def check_attention(torch, attention) -> float:
     return worst
 
 
-def in_turns(label: str, kernel, plain, iters: int = 20) -> tuple[float, float]:
+def in_turns(label: str, kernel, plain, iters: int = 20,
+             ahead: bool = True) -> tuple[float, float]:
     """ms per call of a kernel and its plain version, in turns (kernel,
     plain, plain, kernel) after a warm-up of each."""
     for fn in (kernel, plain):
-        cuda_ms(fn, 3)
+        cuda_ms(fn, 3, ahead)
     runs = {"kernel": [], "plain": []}
     for name in ("kernel", "plain", "plain", "kernel"):
-        runs[name].append(cuda_ms(kernel if name == "kernel" else plain, iters))
+        runs[name].append(cuda_ms(kernel if name == "kernel" else plain, iters, ahead))
     ms, plain_ms = (sum(v) / len(v) for v in (runs["kernel"], runs["plain"]))
     log(f"  {label}: kernel {runs['kernel']} ms, plain {runs['plain']} ms; "
         f"mean {ms:.4f} vs {plain_ms:.4f} ms")
     return ms, plain_ms
+
+
+def library_ms(fn, iters: int = 20) -> float:
+    """ms per call of a library yardstick: the mean of two runs after a warm-up."""
+    cuda_ms(fn, 3)
+    return (cuda_ms(fn, iters) + cuda_ms(fn, iters)) / 2
 
 
 def bound(n_bytes: float, n_ops: float, peak_ops: float) -> dict:
@@ -172,13 +220,11 @@ def time_attention(torch, attention) -> dict:
         f"flash_attention {list(shape)} bf16",
         lambda: attention.flash_attention(q, k, v),
         lambda: attention.attention_reference(q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
-    cuda_ms(sdpa, 3)
-    library_ms = (cuda_ms(sdpa, 20) + cuda_ms(sdpa, 20)) / 2
     b, h, s, d = shape
-    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    out = {"ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
            **bound(4 * q.numel() * 2, 4.0 * b * h * s * s * d, BF16_FLOPS)}
-    log(f"    F.scaled_dot_product_attention (yardstick only) {library_ms:.4f} ms; "
+    log(f"    F.scaled_dot_product_attention (yardstick only) {out['library_ms']:.4f} ms; "
         f"bound {out['bound_ms']:.4f} ms by {out['bound_by']}")
     return out
 
@@ -299,6 +345,228 @@ def time_normalize(torch, normalize) -> dict:
     return out
 
 
+def check_bf16_exp(torch, attention) -> float:
+    """Phase 3: flash_attention(bf16_exp=True) against its plain version."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    worst = 0.0
+    for shape, seq_len in [((8, 12, 577, 64), None), ((8, 12, 577, 64), 300),
+                           ((1, 12, 1100, 64), None), ((2, 3, 130, 32), 0)]:
+        q, k, v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        out = attention.flash_attention(q, k, v, seq_len, bf16_exp=True)
+        ref = attention.attention_reference(q, k, v, seq_len, bf16_exp=True)
+        exact = attention.attention_reference(q, k, v, seq_len)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        from_exact = (out.float() - exact.float()).abs().max().item()
+        log(f"  flash_attention bf16_exp {list(shape)} seq_len={seq_len}: max_abs_err={err:.3e} "
+            f"(tol {BF16_EXP_TOL:g}); {from_exact:.3e} from the exact plain version")
+        if not bool(torch.isfinite(out).all()) or err > BF16_EXP_TOL \
+                or (seq_len == 0 and not bool((out == 0).all())):
+            fail(f"flash_attention(bf16_exp=True) disagrees with its plain version at {shape} "
+                 f"seq_len={seq_len}: err {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def depthwise_inputs(torch, shape, k: int, bias: bool, dtype, seed: int = 0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g).to(dtype).cuda()
+    w = (torch.randn((k, k, shape[-1]), generator=g) / k).to(dtype).cuda()
+    b = torch.randn(shape[-1], generator=g).to(dtype).cuda() if bias else None
+    return x, w, b
+
+
+CONVNEXT_SHAPES = [(56, 96), (28, 192), (14, 384), (7, 768)]   # (H = W, C) per stage
+
+
+def check_depthwise(torch, depthwise) -> float:
+    """Phase 3: depthwise_conv against its plain version; the largest error."""
+    cases = [((8, hw, hw, c), 7, True) for hw, c in CONVNEXT_SHAPES] + [
+        ((8, 28, 28, 88), 3, False),      # MobileNetV3: C not a multiple of 8
+        ((8, 14, 14, 240), 5, True),
+        ((8, 14, 14, 240), 5, False),
+        ((4, 12, 12, 2688), 5, False),    # EfficientNet-B4's widest
+        ((4, 24, 24, 672), 3, False),
+        ((8, 7, 7, 576), 5, False),       # W = 7: one ragged tile
+        ((16, 1, 1, 96), 3, True),        # a 1x1 image: only the centre tap lands
+        ((2, 10, 6, 15), 3, True),        # an odd C: the direct kernel
+    ]
+    worst = 0.0
+    for shape, k, bias in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, b = depthwise_inputs(torch, shape, k, bias, dtype)
+            out = depthwise.depthwise_conv(x, w, b)
+            torch.cuda.synchronize()
+            ref = depthwise.depthwise_reference(x, w, b)
+            top = ref.float().abs().max().item()
+            tol = DW_BF16_TOL if dtype == torch.bfloat16 else FP32_TOL * max(top, 1.0)
+            err = (out.float() - ref.float()).abs().max().item()
+            log(f"  depthwise_conv {list(shape)} k={k} bias={bias} {str(dtype)[6:]}: "
+                f"max_abs_err={err:.3e} (tol {tol:.3g}), max|y|={top:.2f}")
+            if not bool(torch.isfinite(out).all()) or top >= 8 or err > tol:
+                fail(f"depthwise_conv disagrees with its plain version at {shape} k={k} "
+                     f"bias={bias} {dtype}: err {err}, max|y| {top}")
+            worst = max(worst, err)
+    return worst
+
+
+def window_inputs(torch, batch: int, grid: int, heads: int, hd: int, window: int,
+                  masked: bool, dtype, seed: int = 0):
+    """q (pre-scaled), k, v, bias and the model's own shift mask for one
+    Swin stage: ``grid`` tokens a side in windows of ``window``."""
+    from ics_tpu_torch.models.swin import _shift_attn_mask
+
+    ww = window * window
+    n_w = (grid // window) ** 2
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((batch * n_w, heads, ww, hd), generator=g).to(dtype).cuda()
+               for _ in range(3))
+    q = q * hd ** -0.5
+    bias = torch.randn((heads, ww, ww), generator=g).cuda()
+    mask = None
+    if masked:
+        mask = torch.from_numpy(_shift_attn_mask(grid, window, window // 2)).cuda()
+    return q, k, v, bias, mask
+
+
+SWIN_STAGES = [(56, 3), (28, 6), (14, 12), (7, 24)]   # (grid, heads) per stage; window 7, hd 32
+
+
+def check_window(torch, window_attention) -> float:
+    """Phase 3: window_attention against its plain version; the largest error."""
+    cases = [(8, grid, heads, 32, 7, masked)
+             for grid, heads in SWIN_STAGES for masked in (False, True) if masked <= (grid > 7)]
+    cases += [(8, 16, 2, 16, 4, True), (8, 8, 4, 16, 4, False)]   # swin_micro: ww 16, hd 16
+    worst = 0.0
+    for batch, grid, heads, hd, window, masked in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = window_inputs(torch, batch, grid, heads, hd, window, masked, dtype)
+            out = window_attention.window_attention(*args)
+            torch.cuda.synchronize()
+            ref = window_attention.window_attention_reference(*args)
+            tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+            err = (out.float() - ref.float()).abs().max().item()
+            log(f"  window_attention {list(args[0].shape)} mask={masked} {str(dtype)[6:]}: "
+                f"max_abs_err={err:.3e} (tol {tol:g})")
+            if not bool(torch.isfinite(out).all()) or err > tol:
+                fail(f"window_attention disagrees with its plain version at "
+                     f"{tuple(args[0].shape)} mask={masked} {dtype}: err {err}")
+            worst = max(worst, err)
+    return worst
+
+
+def time_bf16_exp(torch, attention) -> dict:
+    """Phase 4: the bf16-exp variant at the serving bucket's shape."""
+    import torch.nn.functional as F
+
+    shape = (32, 12, 577, 64)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    ms, plain_ms = in_turns(
+        f"flash_attention bf16_exp {list(shape)} bf16",
+        lambda: attention.flash_attention(q, k, v, bf16_exp=True),
+        lambda: attention.attention_reference(q, k, v, bf16_exp=True), iters=10)
+    b, h, s, d = shape
+    return {"ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+            **bound(4 * q.numel() * 2, 4.0 * b * h * s * s * d, BF16_FLOPS)}
+
+
+def time_depthwise(torch, depthwise) -> dict:
+    """Phase 4: the 18 depthwise convolutions of one ConvNeXt-T bucket-32 step
+    (7x7, bias; 3, 3, 9, 3 launches at the four stage shapes). The library
+    yardstick is cuDNN's grouped convolution on channels_last bf16."""
+    import torch.nn.functional as F
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    by = set()
+    for (hw, c), count in zip(CONVNEXT_SHAPES, CONVNEXT_DEPTHS):
+        shape = (32, hw, hw, c)
+        x, w, b = depthwise_inputs(torch, shape, 7, True, torch.bfloat16)
+        ms, plain_ms = in_turns(
+            f"depthwise_conv {list(shape)} k=7 bias bf16",
+            lambda: depthwise.depthwise_conv(x, w, b),
+            lambda: depthwise.depthwise_reference(x, w, b))
+        x_nchw = x.permute(0, 3, 1, 2)                       # channels_last memory
+        w_oihw = w.permute(2, 0, 1).reshape(c, 1, 7, 7).contiguous(
+            memory_format=torch.channels_last)
+        lib = library_ms(lambda: F.conv2d(x_nchw, w_oihw, b, 1, 3, 1, c))
+        # x read once, y written once, taps and bias read once; 2 * k * k fp32
+        # operations an output
+        case = bound(2 * x.numel() * 2 + (w.numel() + b.numel()) * 2,
+                     2.0 * 49 * x.numel(), FP32_FLOPS)
+        log(f"    F.conv2d(groups=C) channels_last (yardstick only) {lib:.4f} ms; bound "
+            f"{case['bound_ms']:.4f} ms by {case['bound_by']}; x{count} a step")
+        for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib),
+                           ("bound_ms", case["bound_ms"])):
+            total[key] += count * value
+        by.add(case["bound_by"])
+    # the step's bound is the sum of its launches' bounds; it is named after
+    # the side most of them are on
+    return {**total, "bound_by": "operations" if "operations" in by else "bytes"}
+
+
+def time_window(torch, window_attention) -> dict:
+    """Phase 4: the 12 window attentions of one Swin-T bucket-32 step: per
+    stage half unshifted (no mask) and half shifted (mask), the last stage's
+    single window never masked. The library yardstick is
+    ``F.scaled_dot_product_attention`` with bias + mask as ``attn_mask``."""
+    import torch.nn.functional as F
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for (grid, heads), depth in zip(SWIN_STAGES, SWIN_DEPTHS):
+        shifted = depth // 2 if grid > 7 else 0
+        for masked, count in ((False, depth - shifted), (True, shifted)):
+            if count == 0:
+                continue
+            q, k, v, bias, mask = window_inputs(
+                torch, 32, grid, heads, 32, 7, masked, torch.bfloat16)
+            ms, plain_ms = in_turns(
+                f"window_attention {list(q.shape)} mask={masked} bf16",
+                lambda: window_attention.window_attention(q, k, v, bias, mask),
+                lambda: window_attention.window_attention_reference(q, k, v, bias, mask))
+            bn, h, ww, hd = q.shape
+            attn_mask = bias[None].expand(bn, h, ww, ww)
+            if masked:
+                n_w = mask.shape[0]
+                attn_mask = (attn_mask.reshape(bn // n_w, n_w, h, ww, ww)
+                             + mask[None, :, None]).reshape(bn, h, ww, ww)
+            attn_mask = attn_mask.to(torch.bfloat16).contiguous()
+            lib = library_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=attn_mask, scale=1.0))
+            n_bytes = 4 * q.numel() * 2 + bias.numel() * 4 + (mask.numel() * 4 if masked else 0)
+            case = bound(n_bytes, 4.0 * bn * h * ww * ww * hd, BF16_FLOPS)
+            log(f"    F.scaled_dot_product_attention with attn_mask (yardstick only) "
+                f"{lib:.4f} ms; bound {case['bound_ms']:.4f} ms by {case['bound_by']}; "
+                f"x{count} a step")
+            for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib),
+                               ("bound_ms", case["bound_ms"])):
+                total[key] += count * value
+    return {**total, "bound_by": "bytes"}
+
+
+def drive_bf16_exp_path(torch) -> int:
+    """Phase 4b: the bf16-exp variant's own path, ``tools.bench_vit_attn``, with
+    the launch counts zeroed before and read after."""
+    from ics_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ics_tpu_torch.tools import bench_vit_attn
+
+    reset_launch_counts()
+    result = bench_vit_attn.run(batch=32, iters=10)
+    counts = launch_counts()
+    for name, rec in result.items():
+        log(f"  {name}: {rec['ms']:.4f} ms, max abs err against the exact plain version "
+            f"{rec['max_abs_err']:.3e}")
+    log(f"  launches: {counts}")
+    if counts["flash_attention_bf16_exp"] < 1 or counts["flash_attention"] < 1:
+        fail(f"tools.bench_vit_attn launched no kernel: {counts}")
+    if result["bf16_exp"]["max_abs_err"] > BF16_TOL + BF16_EXP_TOL:
+        fail(f"bf16_exp variant is {result['bf16_exp']['max_abs_err']} from the exact plain version")
+    return counts["flash_attention_bf16_exp"]
+
+
 def check_model(torch) -> None:
     """Phase 5: full-width ViT-B/16, bf16 through the kernel, against fp32
     through the plain version. The kernel path's largest logit deviation
@@ -380,10 +648,86 @@ def check_resnet(torch) -> None:
     steps = {name: (lambda e=e: e._step(*staged)) for name, e in engines.items()}
     ms, plain_ms = in_turns(f"{RESNET} bf16 engine step at bucket 32, chains on (kernel) "
                             "and off (cuDNN, under 'plain')",
-                            steps["fused"], steps["unfused"], iters=10)
+                            steps["fused"], steps["unfused"], iters=10, ahead=False)
     log(f"    {32 / ms * 1e3:.0f} images/s with the chains, {32 / plain_ms * 1e3:.0f} without")
     del engines, steps, staged
     torch.cuda.empty_cache()
+
+
+def check_new_models(torch) -> None:
+    """Phase 5c: the four new families at full width. fp32 through the plain
+    versions is the reference; bf16 through the kernels must deviate from it
+    by at most twice what bf16 with cuDNN's grouped convolution (or the plain
+    window attention) does, and agree with its top-1 at least as often. Then
+    one bucket-32 engine step of each, kernels on and off, by CUDA events."""
+    import numpy as np
+
+    from ics_tpu_torch.models.registry import get_model
+    from ics_tpu_torch.nn.layers import set_use_kernels
+    from ics_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+
+    expected = {CONVNEXT: ("depthwise_conv", sum(CONVNEXT_DEPTHS)),
+                SWIN: ("window_attention", sum(SWIN_DEPTHS)),
+                MOBILENET: ("depthwise_conv", MOBILENET_LAUNCHES),
+                EFFICIENTNET: ("depthwise_conv", None)}
+    for name, (kernel, per_forward) in expected.items():
+        spec = get_model(name)
+        model = spec.build(num_classes=1000).init_weights(torch.Generator().manual_seed(0))
+        # ConvNeXt's layer scale starts at 1e-6, which would hide its blocks,
+        # and the depthwise kernel in them, from the logits
+        for pname, param in model.named_parameters():
+            if pname.endswith(".gamma"):
+                param.data.fill_(0.5)
+        model = model.fold().to("cuda").eval()
+        g = torch.Generator(device="cuda").manual_seed(2)
+        x = torch.randn((4, spec.image_size, spec.image_size, 3), generator=g, device="cuda")
+        with torch.inference_mode():
+            ref = set_use_kernels(model, False).apply_folded(x)
+            fp32_kernel = set_use_kernels(model, True).apply_folded(x)
+            model.to(torch.bfloat16)
+            xb = x.to(torch.bfloat16)
+            library = set_use_kernels(model, False).apply_folded(xb).float()
+            reset_launch_counts()
+            kernels = set_use_kernels(model, True).apply_folded(xb).float()
+            launched = launch_counts()[kernel]
+        torch.cuda.synchronize()
+        scale = ref.abs().max().item()
+        fp32_gap = (fp32_kernel - ref).abs().max().item()
+        library_gap = (library - ref).abs().max().item()
+        kernel_gap = (kernels - ref).abs().max().item()
+        agree = {k: (v.argmax(-1) == ref.argmax(-1)).float().mean().item()
+                 for k, v in (("kernels", kernels), ("library", library))}
+        log(f"  {name} logits [4, 1000] (max|logit| {scale:.3e}): fp32 kernels vs fp32 plain "
+            f"max|d|={fp32_gap:.3e} (tol 1e-3 of max|logit|); bf16 kernels {kernel_gap:.3e} vs "
+            f"bf16 library {library_gap:.3e} from fp32 (tol 2x); top-1 agreement "
+            f"{agree['kernels']:.2f} (library {agree['library']:.2f}); {launched} {kernel} "
+            f"launches a forward")
+        if not bool(torch.isfinite(kernels).all()):
+            fail(f"{name}: non-finite logits from the kernel path")
+        if fp32_gap > 1e-3 * max(scale, 1.0) or kernel_gap > 2 * library_gap \
+                or agree["kernels"] < agree["library"]:
+            fail(f"{name}: the full-width forward through the kernels disagrees with the "
+                 "plain versions")
+        if launched < 1 or (per_forward is not None and launched != per_forward):
+            fail(f"{name}: {launched} {kernel} launches a forward, expected {per_forward}")
+        del model
+        torch.cuda.empty_cache()
+
+        rng = np.random.default_rng(4)
+        canvas = rng.integers(0, 256, (32, 512, 512, 3), np.uint8)
+        sizes = rng.integers(300, 513, (32, 2)).astype(np.int32)
+        on = InferenceEngine(name, precision="bf16", buckets=(32,), canvas=512)
+        off = InferenceEngine(name, precision="bf16", buckets=(32,), canvas=512)
+        set_use_kernels(off.model, False)
+        staged = on._to_device(canvas, sizes)
+        ms, plain_ms = in_turns(
+            f"{name} bf16 engine step at bucket 32, kernels on (kernel) and off (library "
+            "or plain version, under 'plain')",
+            lambda: on._step(*staged), lambda: off._step(*staged), iters=10, ahead=False)
+        log(f"    {32 / ms * 1e3:.0f} images/s with the kernels, {32 / plain_ms * 1e3:.0f} without")
+        del on, off, staged
+        torch.cuda.empty_cache()
 
 
 JPEG_SIZES = [(480, 640), (512, 384), (400, 400), (300, 500), (640, 427),
@@ -428,7 +772,7 @@ def _check_result(res: dict, model: str) -> None:
 
 
 async def drive_server(base: str, admin: tuple[str, str]) -> dict:
-    """Phase 6 over HTTP: three stretches, the launch counts zeroed before
+    """Phase 6 over HTTP: six stretches, the launch counts zeroed before
     and read after each. Returns each stretch's counts and stats."""
     import httpx
 
@@ -483,13 +827,17 @@ async def drive_server(base: str, admin: tuple[str, str]) -> dict:
 
         # 6 images in one request (the batcher forms a batch of them) beside
         # 3 single-image requests; then the same to ViT-B/16, which the pool
-        # builds on its first request; then 4 PNGs that are exactly 384x384
+        # builds on its first request; then 4 PNGs that are exactly 384x384;
+        # then the same JPEGs to each new family
         mixed = [jpegs[:6], *([b] for b in jpegs[6:9])]
-        return {
+        drive = {
             "resnet_jpeg": await stretch("resnet_jpeg", RESNET, "", mixed),
             "vit_jpeg": await stretch("vit_jpeg", VIT, f"?modelo={VIT}", mixed),
             "vit_png": await stretch("vit_png", VIT, f"?modelo={VIT}", [pngs]),
         }
+        for model in (CONVNEXT, SWIN, MOBILENET):
+            drive[model] = await stretch(model, model, f"?modelo={model}", mixed)
+        return drive
 
 
 def serve_and_drive() -> dict:
@@ -577,10 +925,22 @@ def check_drive(drive: dict) -> dict:
         fail("vit_png: a batch of exact 384x384 images did not take the fixed-size lane")
     if max(res["max_batch_seen"], jpg["max_batch_seen"]) < 2:
         fail("the batcher never formed a batch larger than 1")
+    # the new families: exactly their own kernel, once per block per batch
+    for model, kernel, per_batch in ((CONVNEXT, "depthwise_conv", sum(CONVNEXT_DEPTHS)),
+                                     (SWIN, "window_attention", sum(SWIN_DEPTHS)),
+                                     (MOBILENET, "depthwise_conv", MOBILENET_LAUNCHES)):
+        st = drive[model]
+        others = {k: v for k, v in st["launches"].items() if k != kernel and v}
+        if st["launches"][kernel] != per_batch * st["batches"] or others:
+            fail(f"{model}: {st['launches']} for {st['batches']} batches; the path must "
+                 f"launch {kernel} {per_batch} times per batch and no other kernel")
     return {
         "flash_attention": jpg["launches"]["flash_attention"] + png["launches"]["flash_attention"],
         "bottleneck_chain": res["launches"]["bottleneck_chain"],
         "normalize_u8": png["launches"]["normalize_u8"],
+        "depthwise_conv": drive[CONVNEXT]["launches"]["depthwise_conv"]
+        + drive[MOBILENET]["launches"]["depthwise_conv"],
+        "window_attention": drive[SWIN]["launches"]["window_attention"],
     }
 
 
@@ -593,7 +953,14 @@ def main() -> None:
         fail(f"ics_tpu_torch not found beside {Path(__file__).name}; run from a checkout")
     sys.path.insert(0, str(ROOT))
     from ics_tpu_torch import disable_tf32
-    from ics_tpu_torch.ops import _build, attention, bottleneck, normalize
+    from ics_tpu_torch.ops import (
+        _build,
+        attention,
+        bottleneck,
+        depthwise,
+        normalize,
+        window_attention,
+    )
 
     disable_tf32()
     log("[1] card (nvidia-smi name, power.limit):")
@@ -614,6 +981,9 @@ def main() -> None:
         "flash_attention": check_attention(torch, attention),
         "bottleneck_chain": check_chain(torch, bottleneck),
         "normalize_u8": check_normalize(torch, normalize),
+        "depthwise_conv": check_depthwise(torch, depthwise),
+        "window_attention": check_window(torch, window_attention),
+        "flash_attention_bf16_exp": check_bf16_exp(torch, attention),
     }
 
     log("[4] CUDA-event times at the bucket-32 shapes, and the card's bound:")
@@ -621,7 +991,14 @@ def main() -> None:
         "flash_attention": time_attention(torch, attention),
         "bottleneck_chain": time_chain(torch, bottleneck),
         "normalize_u8": time_normalize(torch, normalize),
+        "depthwise_conv": time_depthwise(torch, depthwise),
+        "window_attention": time_window(torch, window_attention),
+        "flash_attention_bf16_exp": time_bf16_exp(torch, attention),
     }
+    torch.cuda.empty_cache()
+
+    log("[4b] the bf16-exp variant's own path, tools.bench_vit_attn:")
+    bf16_exp_launches = drive_bf16_exp_path(torch)
     torch.cuda.empty_cache()
 
     log(f"[5] {VIT} @384 full width in-process, kernel path against plain path:")
@@ -630,9 +1007,14 @@ def main() -> None:
     log(f"[5b] {RESNET} full width in-process, fused chains against unfused:")
     check_resnet(torch)
 
-    log(f"[6] main paths: python -m ics_tpu_torch.main serving {RESNET} (fused chains) "
-        f"and {VIT}, classify over HTTP:")
+    log(f"[5c] {CONVNEXT}, {SWIN}, {MOBILENET}, {EFFICIENTNET} full width in-process, "
+        "kernels against plain and library versions:")
+    check_new_models(torch)
+
+    log(f"[6] main paths: python -m ics_tpu_torch.main serving {RESNET} (fused chains), "
+        f"{VIT}, {CONVNEXT}, {SWIN} and {MOBILENET}, classify over HTTP:")
     launches = check_drive(serve_and_drive())
+    launches["flash_attention_bf16_exp"] = bf16_exp_launches
 
     sources = {
         "flash_attention": ("ics_tpu_torch/ops/csrc/flash_attention.cu",
@@ -641,6 +1023,12 @@ def main() -> None:
                              "ics_tpu/ops/pallas_bottleneck.py:164"),
         "normalize_u8": ("ics_tpu_torch/ops/csrc/normalize_u8.cu",
                          "ics_tpu/ops/pallas_preproc.py:67"),
+        "depthwise_conv": ("ics_tpu_torch/ops/csrc/depthwise_conv.cu",
+                           "ics_tpu/ops/pallas_depthwise.py:88"),
+        "window_attention": ("ics_tpu_torch/ops/csrc/window_attention.cu",
+                             "scripts/proto_window_attn.py:82"),
+        "flash_attention_bf16_exp": ("ics_tpu_torch/ops/csrc/flash_attention.cu",
+                                     "scripts/bench_vit_attn.py:104"),
     }
     log(json.dumps({"kernels": [{
         "name": name,

@@ -7,10 +7,12 @@ JAX-free modules (same names, same behaviour); the modules that touch the
 device are ports.
 
 - ``ops``      — hand-written CUDA kernels (flash attention, fused bottleneck
-                 chain, uint8 normalize) and the plain PyTorch versions
-                 beside them; fp32 preprocessing
-- ``nn``       — layers and blocks of ViT and ResNet
-- ``models``   — ViT, ResNet and the registry of ported models
+                 chain, uint8 normalize, depthwise convolution, window
+                 attention) and the plain PyTorch versions beside them; fp32
+                 preprocessing
+- ``nn``       — layers and blocks of the ported models
+- ``models``   — ViT, ResNet, ConvNeXt, MobileNetV3, EfficientNet, Swin and the
+                 registry of ported models
 - ``weights``  — JAX parameter and state trees (as numpy) into state dicts
 - ``runtime``  — inference engine and service (host-decode lane), batcher, decode
 - ``api``      — the routers; ``main`` — app and entry point

@@ -12,7 +12,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable
 
-from ics_tpu_torch.models import resnet, vit
+from ics_tpu_torch.models import convnext, efficientnet, mobilenetv3, resnet, swin, vit
 
 
 @dataclass(frozen=True)
@@ -22,7 +22,7 @@ class ModelSpec:
     image_size: int
     resize_short: int
     description: str = ""
-    # dev/CI-only models (resnet_tiny, vit_tiny): resolvable by name
+    # dev/CI-only models (resnet_tiny, vit_tiny, swin_micro): resolvable by name
     # everywhere (tests, TPU_DEFAULT_MODEL overrides) but excluded from the
     # public API surface: a production client must not be able to classify
     # against randomly initialised toy weights
@@ -60,6 +60,31 @@ _REGISTRY: dict[str, ModelSpec] = {
         ModelSpec("vit_tiny", vit.vit_tiny, 64, 64,
                   "ViT tiny (8 blocks @64px) — dev/CI model; not a zoo model",
                   dev_only=True),
+        ModelSpec("convnext_tiny", convnext.convnext_tiny, 224, 256,
+                  "ConvNeXt-Tiny — LayerNorm, 7x7 depthwise in the hand-written "
+                  "CUDA kernel, cuBLAS pointwise products"),
+        ModelSpec("convnext_small", convnext.convnext_small, 224, 256, "ConvNeXt-Small"),
+        ModelSpec("swin_tiny", swin.swin_tiny, 224, 256,
+                  "Swin-T — hierarchical windowed attention in the hand-written "
+                  "CUDA kernel (timm-checkpoint-compatible)"),
+        ModelSpec("swin_small", swin.swin_small, 224, 256, "Swin-S — deeper Swin variant"),
+        ModelSpec("swin_base", swin.swin_base, 224, 256,
+                  "Swin-B — embed 128 (timm-checkpoint-compatible, 87,768,224 params)"),
+        ModelSpec("swin_micro", swin.swin_micro, 64, 64,
+                  "Swin micro (2 stages @64px) — dev/CI windowed-attention model",
+                  dev_only=True),
+        ModelSpec("mobilenetv3_small", mobilenetv3.mobilenetv3_small, 224, 256,
+                  "MobileNetV3-Small — single-image latency config (BASELINE cfg 1)"),
+        ModelSpec("efficientnet_b4", efficientnet.efficientnet_b4, 380, 412,
+                  "EfficientNet-B4 — mixed-resolution bucketing (BASELINE cfg 4)"),
+        ModelSpec("efficientnet_b0", efficientnet.efficientnet_b0, 224, 256,
+                  "EfficientNet-B0 — light variant"),
+        ModelSpec("efficientnet_v2_s", efficientnet.efficientnet_v2_s, 384, 384,
+                  "EfficientNetV2-S — fused-MBConv early stages "
+                  "(torchvision-checkpoint-compatible)"),
+        ModelSpec("efficientnet_v2_m", efficientnet.efficientnet_v2_m, 480, 480,
+                  "EfficientNetV2-M — larger V2 variant @480px "
+                  "(torchvision-checkpoint-compatible, 54,139,356 params)"),
     )
 }
 

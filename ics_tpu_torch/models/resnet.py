@@ -16,8 +16,14 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ics_tpu_torch.nn.blocks import ConvBN
-from ics_tpu_torch.nn.layers import Dense, global_avg_pool, max_pool, relu
+from ics_tpu_torch.nn.blocks import ConvBN, fold_convbn
+from ics_tpu_torch.nn.layers import (
+    Dense,
+    global_avg_pool,
+    max_pool,
+    relu,
+    reset_all_parameters,
+)
 from ics_tpu_torch.ops.bottleneck import ChainWeights, bottleneck_chain, pack_chain_weights
 
 # The JAX fold chains a stage only if its identity blocks' weights are at
@@ -126,10 +132,7 @@ class ResNet(nn.Module):
 
     def init_weights(self, generator: Optional[torch.Generator] = None) -> "ResNet":
         """Seeded random weights with the JAX initialisers' distributions."""
-        for module in self.modules():
-            if module is not self and hasattr(module, "reset_parameters"):
-                module.reset_parameters(generator)
-        return self
+        return reset_all_parameters(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: NHWC [B, H, W, 3] -> logits [B, num_classes], BatchNorm as a
@@ -155,12 +158,7 @@ class ResNet(nn.Module):
                 "fused_chains assumes dense 3x3 convs; grouped/wide "
                 "bottlenecks (ResNeXt/Wide-ResNet) have no fused-chain path"
             )
-        for module in self.modules():
-            if isinstance(module, ConvBN):
-                module.fold()
-                # cuDNN's NHWC kernels take OHWI weights: store them so once
-                w = module.conv.weight
-                w.data = w.data.contiguous(memory_format=torch.channels_last)
+        fold_convbn(self)
         self.chains = nn.ModuleDict()
         if fused_chains:
             for si, blocks in enumerate(self.stages):

@@ -14,7 +14,14 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ics_tpu_torch.nn.layers import Conv2D, Dense, LayerNorm, gelu, trunc_normal_
+from ics_tpu_torch.nn.layers import (
+    Conv2D,
+    Dense,
+    LayerNorm,
+    gelu,
+    reset_all_parameters,
+    trunc_normal_,
+)
 from ics_tpu_torch.ops.attention import attention_reference, flash_attention
 
 
@@ -79,10 +86,7 @@ class ViT(nn.Module):
         """Seeded random weights with the JAX initialisers' distributions."""
         trunc_normal_(self.cls_token.data, generator)
         trunc_normal_(self.pos_embed.data, generator)
-        for module in self.modules():
-            if module is not self and hasattr(module, "reset_parameters"):
-                module.reset_parameters(generator)
-        return self
+        return reset_all_parameters(self, generator)
 
     def forward(self, x: torch.Tensor, use_flash: bool = True) -> torch.Tensor:
         """x: NHWC [B, image_size, image_size, 3] -> logits [B, num_classes]."""

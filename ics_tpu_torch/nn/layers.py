@@ -1,4 +1,4 @@
-"""The layers ViT and ResNet need, as PyTorch modules (counterpart of
+"""The layers of the ported models, as PyTorch modules (counterpart of
 ``ics_tpu/nn/layers.py``).
 
 Activations stay NHWC at the public functions, as in the JAX package, so
@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ics_tpu_torch.ops.depthwise import depthwise_conv
+
 
 def trunc_normal_(t: torch.Tensor, generator: Optional[torch.Generator],
                   std: float = 0.02) -> torch.Tensor:
@@ -30,9 +32,27 @@ def kaiming_normal_(t: torch.Tensor, fan_in: int,
     return nn.init.normal_(t, std=math.sqrt(2.0 / fan_in), generator=generator)
 
 
+def reset_all_parameters(model: nn.Module,
+                         generator: Optional[torch.Generator]) -> nn.Module:
+    """Seeded random weights with the JAX initialisers' distributions, for
+    every layer of ``model`` that has ``reset_parameters``."""
+    for module in model.modules():
+        if module is not model and hasattr(module, "reset_parameters"):
+            module.reset_parameters(generator)
+    return model
+
+
 class Conv2D(nn.Module):
     """Convolution on NHWC input, weight OIHW, computed by cuDNN: the JAX
     package left its convolutions to XLA, outside Pallas.
+
+    The one exception is the depthwise convolution the JAX package wrote a
+    kernel for: stride 1, odd kernel, ``groups == in_ch == out_ch``, padding
+    ``k // 2``. On a CUDA tensor it goes to the hand-written kernel
+    (``ics_tpu_torch.ops.depthwise``), bias included; on the CPU it is the
+    same ``F.conv2d`` as every other convolution. ``use_kernel = False``
+    (``set_use_kernels``) sends it to cuDNN on the card too, for measuring
+    the two side by side.
 
     ``padding`` is symmetric, as an int; ``"SAME"`` is taken where it is
     symmetric too (stride 1 with an odd kernel, or a 1x1 kernel at any
@@ -56,6 +76,11 @@ class Conv2D(nn.Module):
         self.stride = stride
         self.padding = int(padding)
         self.groups = groups
+        self.depthwise = (
+            groups == in_ch == out_ch and stride == 1 and kernel > 1
+            and kernel % 2 == 1 and self.padding == kernel // 2
+        )
+        self.use_kernel = True
         self.weight = nn.Parameter(
             torch.empty(out_ch, in_ch // groups, kernel, kernel, device=device)
         )
@@ -71,17 +96,23 @@ class Conv2D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
+        if self.depthwise and self.use_kernel and x.is_cuda:
+            return depthwise_conv(x.contiguous(), self.weight.to(x.dtype), bias)
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), bias,
                      self.stride, self.padding, 1, self.groups)
         return y.permute(0, 2, 3, 1)
 
 
 class Dense(nn.Module):
-    def __init__(self, in_dim: int, out_dim: int, init: str = "xavier", device=None):
+    def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True,
+                 init: str = "xavier", device=None):
         super().__init__()
         self.init_kind = init
         self.weight = nn.Parameter(torch.empty(out_dim, in_dim, device=device))
-        self.bias = nn.Parameter(torch.empty(out_dim, device=device))
+        if use_bias:
+            self.bias = nn.Parameter(torch.empty(out_dim, device=device))
+        else:
+            self.register_parameter("bias", None)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         if self.init_kind == "trunc_normal":
@@ -90,10 +121,12 @@ class Dense(nn.Module):
             kaiming_normal_(self.weight, self.weight.shape[1], generator)
         else:
             nn.init.xavier_uniform_(self.weight, generator=generator)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
 
 
 class LayerNorm(nn.Module):
@@ -175,11 +208,33 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
 
 
 relu = F.relu
+silu = F.silu
 
 
-def gelu(x: torch.Tensor) -> torch.Tensor:
+def gelu(x: torch.Tensor, exact: bool = True) -> torch.Tensor:
     """GELU whose exactness follows the dtype, as in the JAX package: erf
     under fp32, the tanh approximation under bf16/fp16, where its error is
-    below rounding."""
-    approximate = x.dtype in (torch.bfloat16, torch.float16)
+    below rounding. ``exact=False`` takes the approximation whatever the
+    dtype."""
+    approximate = (not exact) or x.dtype in (torch.bfloat16, torch.float16)
     return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def hard_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x / 6.0 + 0.5, 0.0, 1.0)
+
+
+def hard_swish(x: torch.Tensor) -> torch.Tensor:
+    return x * hard_sigmoid(x)
+
+
+def set_use_kernels(module: nn.Module, on: bool) -> nn.Module:
+    """Send every layer of ``module`` that has a hand-written kernel to it
+    (the default) or, with ``on=False``, to its library or plain counterpart
+    on the card too: the depthwise ``Conv2D`` to cuDNN, Swin's window
+    attention to its plain version. For measuring the two side by side;
+    nothing on a served path turns the kernels off."""
+    for m in module.modules():
+        if hasattr(m, "use_kernel"):
+            m.use_kernel = on
+    return module

@@ -36,15 +36,23 @@ class LaunchCounter:
 
 LAUNCHES: dict[str, LaunchCounter] = {
     name: LaunchCounter()
-    for name in ("flash_attention", "bottleneck_chain", "normalize_u8")
+    for name in ("flash_attention", "bottleneck_chain", "normalize_u8",
+                 "depthwise_conv", "window_attention", "flash_attention_bf16_exp")
 }
 
 
-def tensor_device_index(t) -> int:
-    """CUDA device index of a tensor, for the kernels' ``cudaSetDevice``."""
+def stream_and_device(t) -> tuple[int, int]:
+    """(handle of PyTorch's current CUDA stream on the tensor's device, device
+    index), as the kernels' C interfaces take them. The raw-stream call is
+    what PyTorch's own compiled code uses; it saves the ``Stream`` object that
+    ``torch.cuda.current_stream`` builds on every launch."""
     import torch
 
-    return t.device.index if t.device.index is not None else torch.cuda.current_device()
+    index = t.device.index if t.device.index is not None else torch.cuda.current_device()
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index), index
+    return torch.cuda.current_stream(index).cuda_stream, index
 
 
 def launch_counts() -> dict[str, int]:

@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ics_tpu_torch"
-KERNELS = ("flash_attention", "bottleneck_chain", "normalize_u8")
+KERNELS = ("flash_attention", "bottleneck_chain", "normalize_u8", "depthwise_conv",
+           "window_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -7,6 +7,15 @@ of the TPU kernel: non-causal softmax(QK^T/sqrt(d))·V over [B, H, S, D],
 keys at or past ``seq_len`` masked, fully masked rows exactly zero, q
 pre-scaled in its own dtype, P rounded to the input dtype before P·V, fp32
 accumulation and softmax statistics.
+
+``bf16_exp=True`` (bf16 inputs only) is the counterpart of the ``bf16_exp``
+variant of ``scripts/bench_vit_attn.py::make_variant``: ``exp`` is taken on
+``(s - m)`` rounded to bf16 and the row sum stays fp32. On the card that is
+``2^x`` in bf16 (``ex2.approx.ftz.bf16x2``) on ``(s - m)·log2(e)`` rounded to
+bf16, with ``m`` the running max of the kernel's 64-key tiles; the plain
+version walks the same tiles and takes ``torch.exp2`` on the same bf16
+argument, so the two differ by the hardware approximation alone (at most
+2^-7 relative on each p, one bf16 ulp). ViT serving keeps it off.
 """
 
 from __future__ import annotations
@@ -17,13 +26,16 @@ from typing import Optional
 
 import torch
 
-from ics_tpu_torch.ops import LAUNCHES, tensor_device_index
+from ics_tpu_torch.ops import LAUNCHES, stream_and_device
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
-_launches = LAUNCHES["flash_attention"]
+KEY_TILE = 64         # keys per tile of the kernel's online softmax
+LOG2E = 1.4426950408889634
+
+_launches = {False: LAUNCHES["flash_attention"], True: LAUNCHES["flash_attention_bf16_exp"]}
 
 
 def _kernel():
@@ -35,7 +47,7 @@ def _kernel():
         fn.argtypes = [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ]
         fn.restype = ctypes.c_int
         lib.ics_cuda_error_string.argtypes = [ctypes.c_int]
@@ -48,10 +60,12 @@ def _valid_len(seq_len: Optional[int], s: int) -> int:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    seq_len: Optional[int] = None) -> torch.Tensor:
+                    seq_len: Optional[int] = None,
+                    bf16_exp: bool = False) -> torch.Tensor:
     """q, k, v: [B, H, S, D] -> [B, H, S, D].
 
     ``seq_len``: number of valid tokens; keys at or past it are masked.
+    ``bf16_exp``: take exp in bf16 (bf16 inputs only; see the module text).
     CUDA tensors go through the kernel (bf16 or fp32, D in 16/32/64/128,
     contiguous); anything it does not take raises. CPU tensors take the
     plain version.
@@ -63,7 +77,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         )
     devices = {q.device, k.device, v.device}
     if devices == {torch.device("cpu")}:
-        return attention_reference(q, k, v, seq_len)
+        return attention_reference(q, k, v, seq_len, bf16_exp)
     if len(devices) != 1 or q.device.type != "cuda":
         raise ValueError(f"flash_attention wants q, k, v on one CUDA device; got {devices}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -71,6 +85,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"flash_attention takes bf16 or fp32 q, k, v of one dtype; got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
+    if bf16_exp and q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention: bf16_exp needs bf16 inputs; got {q.dtype}")
     b, h, s, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention takes head_dim in {HEAD_DIMS}; got {d}")
@@ -85,21 +101,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = _kernel()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.ics_flash_attention(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b * h, s, d, _valid_len(seq_len, s), stream,
-        tensor_device_index(q),
+        out.data_ptr(), b * h, s, d, _valid_len(seq_len, s), int(bool(bf16_exp)),
+        *stream_and_device(q),
     )
     if rc != 0:
         msg = lib.ics_cuda_error_string(rc).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: {msg} (cudaError {rc})")
-    _launches.add()
+    _launches[bool(bf16_exp)].add()
     return out
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        seq_len: Optional[int] = None) -> torch.Tensor:
+                        seq_len: Optional[int] = None,
+                        bf16_exp: bool = False) -> torch.Tensor:
     """Plain PyTorch attention with the kernel's numerics and contract.
 
     Unlike the JAX package's ``attention_reference`` (which returns the
@@ -111,8 +127,34 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
     valid = torch.arange(s, device=q.device) < _valid_len(seq_len, s)
     scores = scores.masked_fill(~valid, NEG_INF)
+    if bf16_exp:
+        if q.dtype != torch.bfloat16:
+            raise ValueError(f"attention_reference: bf16_exp needs bf16 inputs; got {q.dtype}")
+        return _bf16_exp_reference(scores, valid, v)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(scores - m), 0.0)
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.matmul(p.to(v.dtype).float(), v.float()) / denom
     return out.to(q.dtype)
+
+
+def _bf16_exp_reference(scores: torch.Tensor, valid: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """The bf16-exp variant on masked fp32 scores, over the kernel's tiles of
+    ``KEY_TILE`` keys: per tile the running max ``m``, ``p = 2^x`` in bf16 on
+    ``x = (s - m)·log2(e)`` rounded to bf16, the fp32 sum of those bf16 values,
+    and the earlier sum and accumulator rescaled by ``exp(m_old - m)`` in fp32."""
+    m = torch.full_like(scores[..., :1], NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(scores.shape[:-1] + v.shape[-1:], dtype=torch.float32,
+                      device=scores.device)
+    for k0 in range(0, int(valid.sum()), KEY_TILE):
+        tile = scores[..., k0:k0 + KEY_TILE]
+        m_new = torch.maximum(m, tile.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp2(((tile - m_new) * LOG2E).to(torch.bfloat16))
+        p = torch.where(valid[k0:k0 + KEY_TILE], p, 0.0).float()
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.matmul(p, v[..., k0:k0 + KEY_TILE, :].float())
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(v.dtype)

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ics_tpu_torch.ops import LAUNCHES, tensor_device_index
+from ics_tpu_torch.ops import LAUNCHES, stream_and_device
 
 # inner widths the kernel is built for; the block's width is C = 4 * Cm in
 # ResNet, and any multiple of Cm here
@@ -213,8 +213,7 @@ def bottleneck_chain(x: torch.Tensor, packed, tile_rows: Optional[int] = None) -
     if any(t.dtype != torch.float32 for t in scales):
         raise ValueError("bottleneck_chain wants fp32 scale and bias")
     lib = _kernel()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    device = tensor_device_index(x)
+    stream, device = stream_and_device(x)
     # each bottleneck reads its neighbours' halo rows of the input while
     # other thread blocks write the output: never in place, two buffers in turn
     bufs = [torch.empty_like(x), torch.empty_like(x) if n > 1 else None]

@@ -13,6 +13,15 @@
 // get p = 0 explicitly, so a fully masked row (kv_len = 0) comes back as
 // exact zeros; the output is acc / max(l, 1e-30).
 //
+// The bf16-exp variant (template parameter kBf16Exp) replaces the variant of
+// scripts/bench_vit_attn.py::make_variant that takes exp on (s - m) rounded
+// to bf16 and keeps the row sum in fp32: here (s - m) * log2(e) is rounded to
+// bf16, 2^x is taken on two bf16 values at once (ex2.approx.ftz.bf16x2, half
+// the special-function work of the fp32 path), and the fp32 row sum adds the
+// bf16 results, the very values that go into P.V. The script's other variant,
+// two query blocks in flight, re-orders the work and not the result; this
+// kernel already holds four query tiles in flight per block.
+//
 // What bounds it on an H100: at ViT-B/16 @384 one (batch, head) reads
 // 3 x 577 x 64 bf16 = 222 KB and does 4 x 577^2 x 64 = 85 MFLOP, about 290
 // FLOP per byte of device memory, right at the card's ridge (~295 for bf16).
@@ -44,6 +53,7 @@ constexpr int kBlockK = 64;        // keys per shared-memory tile (bf16)
 constexpr int kBlockKF32 = 32;     // keys per tile (fp32): 2 x 32 KB at D=128
 constexpr int kPad = 8;            // bf16 of padding per shared-memory row
 constexpr float kNegInf = -1e30f;  // NEG_INF of the TPU kernel
+constexpr float kLog2e = 1.4426950408889634f;
 
 // two neighbouring q values of one row, times the bf16 scale, rounded to bf16
 __device__ __forceinline__ uint32_t load_q_pair(const __nv_bfloat16* row_ptr,
@@ -53,7 +63,7 @@ __device__ __forceinline__ uint32_t load_q_pair(const __nv_bfloat16* row_ptr,
   return pack_f32(x.x * scale, x.y * scale);
 }
 
-template <int D>
+template <int D, bool kBf16Exp>
 __global__ void __launch_bounds__(kThreads)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -157,11 +167,26 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int nt = 0; nt < kBlockK / 8; ++nt) {
       float p[4];
+      if (kBf16Exp) {
+        const float2 e0 = __bfloat1622float2(h2exp2(__floats2bfloat162_rn(
+            (s[nt][0] - m[0]) * kLog2e, (s[nt][1] - m[0]) * kLog2e)));
+        const float2 e1 = __bfloat1622float2(h2exp2(__floats2bfloat162_rn(
+            (s[nt][2] - m[1]) * kLog2e, (s[nt][3] - m[1]) * kLog2e)));
+        p[0] = e0.x;
+        p[1] = e0.y;
+        p[2] = e1.x;
+        p[3] = e1.y;
+      }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const bool ok = k0 + nt * 8 + t * 2 + j < kv_len;
-        p[j] = ok ? __expf(s[nt][j] - m[0]) : 0.f;
-        p[2 + j] = ok ? __expf(s[nt][2 + j] - m[1]) : 0.f;
+        if (kBf16Exp) {
+          p[j] = ok ? p[j] : 0.f;
+          p[2 + j] = ok ? p[2 + j] : 0.f;
+        } else {
+          p[j] = ok ? __expf(s[nt][j] - m[0]) : 0.f;
+          p[2 + j] = ok ? __expf(s[nt][2 + j] - m[1]) : 0.f;
+        }
       }
       l[0] += p[0] + p[1];
       l[1] += p[2] + p[3];
@@ -260,13 +285,14 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* o,
-                   int bh, int seq, int kv_len, cudaStream_t stream) {
+                   int bh, int seq, int kv_len, bool bf16_exp, cudaStream_t stream) {
   const dim3 grid(bh, (seq + kBlockQ - 1) / kBlockQ);
   // the reference scales q by 1/sqrt(d) rounded to q's dtype
   const float scale_f32 = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   if (dtype == 0) {
     const float scale = __bfloat162float(__float2bfloat16(scale_f32));
-    flash_bf16_kernel<D><<<grid, kThreads, 0, stream>>>(
+    const auto kernel = bf16_exp ? flash_bf16_kernel<D, true> : flash_bf16_kernel<D, false>;
+    kernel<<<grid, kThreads, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), seq,
         kv_len, scale);
@@ -284,21 +310,24 @@ extern "C" {
 
 // dtype: 0 = bf16, 1 = fp32. q, k, v, o: contiguous [bh, seq, head_dim].
 // kv_len: keys at or past it are masked (0 <= kv_len <= seq).
+// bf16_exp: non-zero takes the bf16-exp variant (dtype 0 only).
 // Returns a cudaError_t; 0 when the launch was accepted.
 int ics_flash_attention(int dtype, const void* q, const void* k, const void* v,
                         void* o, int bh, int seq, int head_dim, int kv_len,
-                        void* stream, int device) {
+                        int bf16_exp, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16_exp != 0 && dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool bx = bf16_exp != 0;
   if (bh <= 0 || seq <= 0) return 0;
   if (kv_len < 0 || kv_len > seq) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 16: return static_cast<int>(launch<16>(dtype, q, k, v, o, bh, seq, kv_len, s));
-    case 32: return static_cast<int>(launch<32>(dtype, q, k, v, o, bh, seq, kv_len, s));
-    case 64: return static_cast<int>(launch<64>(dtype, q, k, v, o, bh, seq, kv_len, s));
-    case 128: return static_cast<int>(launch<128>(dtype, q, k, v, o, bh, seq, kv_len, s));
+    case 16: return static_cast<int>(launch<16>(dtype, q, k, v, o, bh, seq, kv_len, bx, s));
+    case 32: return static_cast<int>(launch<32>(dtype, q, k, v, o, bh, seq, kv_len, bx, s));
+    case 64: return static_cast<int>(launch<64>(dtype, q, k, v, o, bh, seq, kv_len, bx, s));
+    case 128: return static_cast<int>(launch<128>(dtype, q, k, v, o, bh, seq, kv_len, bx, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from ics_tpu_torch.ops import LAUNCHES, tensor_device_index
+from ics_tpu_torch.ops import LAUNCHES, stream_and_device
 from ics_tpu_torch.ops.preproc import IMAGENET_MEAN, IMAGENET_STD, normalize_only
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
@@ -88,7 +88,7 @@ def normalize_u8(x: torch.Tensor, mean=IMAGENET_MEAN, std=IMAGENET_STD,
         _DTYPE_CODES[dtype], x.data_ptr(), out.data_ptr(), b, h, w,
         x.stride(0), x.stride(1), (ctypes.c_float * 3)(*scale),
         (ctypes.c_float * 3)(*bias),
-        torch.cuda.current_stream(x.device).cuda_stream, tensor_device_index(x),
+        *stream_and_device(x),
     )
     if rc != 0:
         msg = lib.ics_cuda_error_string(rc).decode()

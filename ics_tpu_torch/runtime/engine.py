@@ -2,8 +2,10 @@
 
 One step per batch bucket: uint8 canvas -> fp32 resize/crop/normalize on
 the device -> forward in the serving dtype (ViT attention in the flash
-kernel; ResNet bottleneck chains in the fused kernel when ``fused_chains``)
--> softmax (or sigmoid when multi-label) and top-k. Requests are padded up
+kernel; ResNet bottleneck chains in the fused kernel when ``fused_chains``;
+the stride-1 depthwise convolutions of ConvNeXt, MobileNetV3 and
+EfficientNet in the depthwise kernel; Swin's window attention in its
+kernel) -> softmax (or sigmoid when multi-label) and top-k. Requests are padded up
 to the nearest bucket, so the device sees a small fixed set of shapes.
 PyTorch runs eagerly: the first call on a shape pays the kernel builds and
 cuBLAS/cuDNN plan selection, and is counted as the compile.

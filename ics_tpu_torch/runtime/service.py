@@ -53,7 +53,7 @@ class InferenceService:
         if settings.TPU_DEVICE_DECODE and "device_decode" not in _warned:
             _warned.add("device_decode")
             logger.warning("TPU_DEVICE_DECODE is set, but the device-decode lane is not "
-                           "ported yet (ROADMAP.md slice 3): images are decoded on the host")
+                           "ported yet (ROADMAP.md slice 4): images are decoded on the host")
         engine = InferenceEngine(
             model_name=settings.TPU_DEFAULT_MODEL,
             num_classes=settings.TPU_NUM_CLASSES,

@@ -1,6 +1,11 @@
 """Where one engine step's time goes on the GPU.
 
     python -m ics_tpu_torch.tools.profile_step --model resnet50 --bucket 32 [--fused-chains]
+    python -m ics_tpu_torch.tools.profile_step --model convnext_tiny [--no-kernels]
+
+``--model`` takes any name of the port's registry. ``--no-kernels`` sends the
+depthwise convolutions to cuDNN and Swin's window attention to its plain
+version, to see the same step without the hand-written kernels.
 
 Builds the engine with random weights from seed 0, stages random images of
 300-512 px (or ``--exact``: all exactly the model's input size, the
@@ -23,13 +28,15 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from ics_tpu_torch.nn.layers import set_use_kernels
 from ics_tpu_torch.ops import launch_counts, reset_launch_counts
 from ics_tpu_torch.ops.preproc import preprocess_batch
 from ics_tpu_torch.runtime.engine import InferenceEngine
 
 GROUPS = (
     ("port kernels", ("flash_bf16", "flash_f32", "bottleneck_block", "normalize_vec",
-                      "normalize_scalar")),
+                      "normalize_scalar", "dw_tile", "dw_direct", "window_bf16",
+                      "window_f32")),
     ("convolution and GEMM", ("gemm", "cutlass", "nvjet", "xmma", "conv", "cudnn", "wgrad",
                               "implicit", "sm90_", "sm80_")),
     ("pooling, softmax, top-k", ("pool", "softmax", "topk", "sort", "gather", "reduce")),
@@ -61,6 +68,8 @@ def main() -> None:
     ap.add_argument("--canvas", type=int, default=512)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--fused-chains", action="store_true")
+    ap.add_argument("--no-kernels", action="store_true",
+                    help="depthwise convolutions by cuDNN, window attention by its plain version")
     ap.add_argument("--exact", action="store_true",
                     help="every image exactly the model's input size (fixed-size lane)")
     args = ap.parse_args()
@@ -71,6 +80,7 @@ def main() -> None:
     print(card)
     eng = InferenceEngine(args.model, precision="bf16", buckets=(args.bucket,),
                           canvas=args.canvas, fused_chains=args.fused_chains)
+    set_use_kernels(eng.model, not args.no_kernels)
     rng = np.random.default_rng(0)
     canvas = rng.integers(0, 256, (args.bucket, args.canvas, args.canvas, 3), np.uint8)
     if args.exact:
@@ -91,7 +101,7 @@ def main() -> None:
     step_ms = events_ms(step, 20)
     pre_ms = None if fixed else events_ms(pre, 20)
     print(f"{args.model} bf16 bucket {args.bucket} fused_chains={eng.fused_chains} "
-          f"fixed_size={fixed}: step {step_ms:.3f} ms ({args.bucket / step_ms * 1e3:.0f} "
+          f"kernels={not args.no_kernels} fixed_size={fixed}: step {step_ms:.3f} ms ({args.bucket / step_ms * 1e3:.0f} "
           f"images/s), preprocess alone {pre_ms if pre_ms is None else round(pre_ms, 3)} ms, "
           f"kernel launches per step {per_step}")
 
@@ -128,7 +138,8 @@ def main() -> None:
           f"({busy_share:.1%}; profiler on), {n_kernels // args.steps} kernels a step")
     print(json.dumps({
         "card": card, "model": args.model, "bucket": args.bucket,
-        "fused_chains": eng.fused_chains, "fixed_size": fixed, "step_ms": step_ms,
+        "fused_chains": eng.fused_chains, "kernels": not args.no_kernels,
+        "fixed_size": fixed, "step_ms": step_ms,
         "preprocess_ms": pre_ms, "launches_per_step": per_step,
         "device_ms_by_group": dict(by_group), "device_busy_share": busy_share,
         "kernels_per_step": n_kernels // args.steps,

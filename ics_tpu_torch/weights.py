@@ -7,8 +7,11 @@ module. Names follow the trees, lists keep their indices
 (``blocks.3.attn.qkv.w`` -> ``blocks.3.attn.qkv.weight``,
 ``stages.1.2.cbr2.bn.gamma`` -> ``stages.1.2.cbr2.bn.weight``, and from the
 state tree ``stages.1.2.cbr2.bn.mean`` -> ``stages.1.2.cbr2.bn.running_mean``);
-layouts move from JAX's to PyTorch's: conv kernels HWIO -> OIHW, dense
-kernels [in, out] -> [out, in].
+layouts move from JAX's to PyTorch's: conv kernels HWIO -> OIHW (a
+depthwise [k, k, 1, C] becomes [C, 1, k, k]), dense kernels [in, out] ->
+[out, in]. A ``gamma`` is a normalisation's weight only beside a ``beta``:
+ConvNeXt's layer scale ``stages.i.j.gamma`` keeps its name, as does Swin's
+``rel_bias`` table, which also keeps its [(2w-1)^2, heads] layout.
 """
 
 from __future__ import annotations
@@ -40,7 +43,9 @@ def _entries(variables: dict) -> Iterator[tuple[str, Any, tuple]]:
     for path, leaf in _walk(variables.get("state", {}) if "params" in variables else {}):
         name = _STATE_LEAF_NAMES.get(path[-1], path[-1])
         yield ".".join(path[:-1] + (name,)), leaf, None
-    for path, leaf in _walk(params):
+    leaves = list(_walk(params))
+    normalisations = {path[:-1] for path, _ in leaves if path[-1] == "beta"}
+    for path, leaf in leaves:
         name = path[-1]
         perm = None
         if name == "w":
@@ -51,8 +56,9 @@ def _entries(variables: dict) -> Iterator[tuple[str, Any, tuple]]:
                 perm = (1, 0)         # [in, out] -> [out, in]
             else:
                 raise ValueError(f"unexpected kernel rank {ndim} at {'.'.join(path)}")
-        torch_name = ".".join(path[:-1] + (_LEAF_NAMES.get(name, name),))
-        yield torch_name, leaf, perm
+        if name != "gamma" or path[:-1] in normalisations:
+            name = _LEAF_NAMES.get(name, name)
+        yield ".".join(path[:-1] + (name,)), leaf, perm
 
 
 def mapped_shapes(variables: dict) -> dict[str, tuple[int, ...]]:

@@ -90,9 +90,11 @@ async def test_routes_of_the_port(served):
     h = await _admin(client)
     r = await client.get("/inferencia/modelos", headers=h)
     names = [m["nome"] for m in r.json()["modelos"]]
-    assert names == ["resnet101", "resnet152", "resnet18", "resnet34", "resnet50",
-                     "resnext50_32x4d", "vit_b16", "vit_l16", "vit_s16",
-                     "wide_resnet50_2"]                    # dev models stay hidden
+    assert names == ["convnext_small", "convnext_tiny", "efficientnet_b0", "efficientnet_b4",
+                     "efficientnet_v2_m", "efficientnet_v2_s", "mobilenetv3_small",
+                     "resnet101", "resnet152", "resnet18", "resnet34", "resnet50",
+                     "resnext50_32x4d", "swin_base", "swin_small", "swin_tiny", "vit_b16",
+                     "vit_l16", "vit_s16", "wide_resnet50_2"]   # dev models stay hidden
     r = await client.post("/inferencia/classificar?modelo=vit_tiny", headers=h,
                           files=[("files", ("a.jpg", _jpeg(0), "image/jpeg"))])
     assert r.status_code == 422
@@ -105,7 +107,8 @@ async def test_routes_of_the_port(served):
     assert r.status_code == 404                           # known, but not built
     r = await client.post("/inferencia/kernels/zerar", headers=h)
     assert r.status_code == 200 and set(r.json()["anteriores"]) == {
-        "flash_attention", "bottleneck_chain", "normalize_u8"}
+        "flash_attention", "bottleneck_chain", "normalize_u8", "depthwise_conv",
+        "window_attention", "flash_attention_bf16_exp"}
     r = await client.post("/inferencia/warmup", headers=h)
     assert r.status_code == 200 and r.json()["buckets"] == [1, 4]
     assert (await client.get("/health")).json()["status"] == "healthy"
@@ -117,6 +120,54 @@ async def test_routes_of_the_port(served):
     assert "/inferencia/indexar" not in paths
     r = await client.get("/openapi.json")
     assert r.status_code == 200 and "/inferencia/classificar" in r.json()["paths"]
+
+
+@pytest.fixture()
+def public_dev_models():
+    """One dev-size model per new family, registered at 64 px as public
+    names, so that ``?modelo=`` reaches them."""
+    import ics_tpu_torch.models.registry as registry
+    from ics_tpu_torch.models import convnext, efficientnet, mobilenetv3, swin
+
+    constructors = {
+        "convnext_dev": lambda num_classes, device=None: convnext.ConvNeXt(
+            (1, 1, 1, 1), (16, 32, 64, 128), num_classes, device=device),
+        "mobilenetv3_dev": mobilenetv3.mobilenetv3_small,
+        "efficientnet_dev": lambda num_classes, device=None: efficientnet.efficientnet_v1(
+            0.25, 0.5, num_classes=num_classes, device=device),
+        "swin_dev": swin.swin_micro,
+    }
+    for name, build in constructors.items():
+        registry._REGISTRY[name] = registry.ModelSpec(name, build, 64, 64)
+    try:
+        yield sorted(constructors)
+    finally:
+        for name in constructors:
+            del registry._REGISTRY[name]
+
+
+@pytest.mark.anyio
+@pytest.mark.parametrize("name", ["convnext_dev", "mobilenetv3_dev", "efficientnet_dev",
+                                  "swin_dev"])
+async def test_classify_with_modelo_builds_and_serves_the_new_families(
+        served, public_dev_models, name):
+    app, client, _ = served
+    app.state.engine_pool.engine_kwargs.update(
+        num_classes=10, precision="fp32", buckets=(1, 4), canvas=64)
+    h = await _admin(client)
+    files = [("files", (f"img{i}.jpg", _jpeg(i), "image/jpeg")) for i in range(2)]
+    try:
+        r = await client.post(f"/inferencia/classificar?modelo={name}", files=files, headers=h)
+        assert r.status_code == 200, r.text
+        for res in r.json()["resultados"]:
+            assert res["model"] == name and len(set(res["top_classes"])) == 5
+            assert all(0.0 < s < 1.0 for s in res["scores"])
+            assert res["scores"] == sorted(res["scores"], reverse=True)
+        st = (await client.get(f"/inferencia/status?modelo={name}", headers=h)).json()
+        assert st["model"] == name and st["backend"] == "cpu" and st["images"] == 2
+        assert st["kernel_launches"]["depthwise_conv"] == 0      # plain versions on the CPU
+    finally:
+        await app.state.engine_pool.stop()
 
 
 @pytest.mark.anyio
@@ -228,6 +279,6 @@ def test_from_settings_hands_fused_chains_on_and_says_device_decode_once(monkeyp
     assert built[0]["model_name"] == "resnet_tiny" and built[0]["buckets"] == (1, 2)
     notices = [r for r in caplog.records if "TPU_DEVICE_DECODE" in r.getMessage()]
     assert len(notices) == 1 and notices[0].levelno == logging.WARNING
-    assert "slice 3" in notices[0].getMessage()
+    assert "slice 4" in notices[0].getMessage()
     status = first.status()
     assert status["device_decode"] is False and status["fused_chains"] is True

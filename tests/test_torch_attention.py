@@ -6,6 +6,11 @@ do. Inputs come from numpy with a seed. fp32 tolerance 1e-4: the two
 compute the same online/full-row softmax in fp32 and differ only in the
 order of the sums. The kernel itself runs only on the card
 (``tests/test_torch_cuda.py``).
+
+``bf16_exp=True`` takes ``exp`` on a bf16 argument, so each p carries a
+relative error of up to 2^-8 times ``|s - m|·log2(e)`` (below 2^-5 for the
+weights that matter) on top of its own bf16 rounding; the outputs are O(1)
+and the bar is 2e-2, twice the bf16 bar of the exact variant.
 """
 
 import numpy as np
@@ -85,3 +90,42 @@ def test_seq_len_beyond_sequence_is_clamped():
     full = torch_attention.flash_attention(q, k, v)
     longer = torch_attention.flash_attention(q, k, v, seq_len=100)
     torch.testing.assert_close(longer, full, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("shape,seq_len", [((1, 2, 130, 64), None), ((2, 3, 577, 32), 300)])
+def test_bf16_exp_plain_version_stays_within_the_bf16_bar_of_jax(shape, seq_len):
+    import jax.numpy as jnp
+
+    q, k, v = _qkv(shape, seed=5)
+    qb, kb, vb = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    ours = torch_attention.flash_attention(qb, kb, vb, seq_len, bf16_exp=True)
+    assert ours.dtype == torch.bfloat16
+    ref = np.asarray(jax_attention.attention_reference(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+        seq_len=shape[2] if seq_len is None else seq_len).astype(jnp.float32))
+    np.testing.assert_allclose(ours.float().numpy(), ref, atol=2e-2, rtol=0)
+    exact = torch_attention.flash_attention(qb, kb, vb, seq_len)
+    np.testing.assert_allclose(ours.float().numpy(), exact.float().numpy(), atol=2e-2, rtol=0)
+    assert not torch.equal(ours, exact)              # it is another rounding, not a no-op
+
+
+def test_bf16_exp_matches_the_script_variants_single_pass_formula():
+    """``scripts/bench_vit_attn.py:75-77``: p = exp((s - m) in bf16), the row
+    sum in fp32, over the whole row at once. The port tiles the keys by 64
+    and takes 2^x on (s - m)·log2(e): the same function to the bf16 bar."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv((1, 2, 200, 64), seed=6))
+    scale = torch.tensor(64 ** -0.5, dtype=torch.bfloat16)
+    s = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
+    p = torch.exp((s - s.amax(-1, keepdim=True)).to(torch.bfloat16))
+    script = torch.matmul(p.float(), v.float()) / p.float().sum(-1, keepdim=True)
+    ours = torch_attention.attention_reference(q, k, v, bf16_exp=True)
+    np.testing.assert_allclose(ours.float().numpy(), script.numpy(), atol=2e-2, rtol=0)
+
+
+def test_bf16_exp_keeps_the_flash_contract_and_needs_bf16():
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv((1, 1, 100, 32), seed=7, k_shift=100.0, v_shift=-100.0))
+    zeros = torch_attention.flash_attention(q, k, v, seq_len=0, bf16_exp=True)
+    assert bool((zeros == 0).all())
+    with pytest.raises(ValueError, match="bf16_exp needs bf16"):
+        torch_attention.flash_attention(q.float(), k.float(), v.float(), bf16_exp=True)

@@ -12,7 +12,13 @@ same math summed in another order); normalize_u8 fp32 1e-5, bf16 one ulp
 of the largest output (|y| < 4: 2^-6); bottleneck_chain bf16 two ulps of the
 largest output (|y| < 4: 2^-5), one for a sum that lands on the other side
 of a rounding tie at the output and one for such flips of ``a`` and
-``cmid`` carried forward, and a mean error below 1e-3 (the flips are few).
+``cmid`` carried forward, and a mean error below 1e-3 (the flips are few);
+depthwise_conv fp32 1e-5 times the largest output (the same k*k fp32 products
+summed in another order), bf16 one ulp of the largest output (|y| < 8: 2^-5,
+the two fp32 sums on the two sides of a rounding tie); window_attention bf16
+1e-2 and fp32 1e-5 as flash attention (outputs O(1)); flash attention with
+``bf16_exp`` 2e-2 (each p within 2^-7 relative of the plain version's, the
+bound of ``ex2.approx.ftz.bf16x2``, on top of the bf16 bar).
 """
 
 import numpy as np
@@ -21,7 +27,7 @@ import torch
 
 from ics_tpu_torch.runtime.decode import stage_batch
 from ics_tpu_torch.ops import LAUNCHES
-from ics_tpu_torch.ops import attention, bottleneck, normalize
+from ics_tpu_torch.ops import attention, bottleneck, depthwise, normalize, window_attention
 from ics_tpu_torch.ops.preproc import normalize_only
 
 
@@ -201,3 +207,180 @@ def test_resnet_engine_on_the_card_with_chains_matches_the_engine_on_the_cpu(cud
     np.testing.assert_array_equal(idx[:, 0], ref_idx[:, 0])
     np.testing.assert_allclose(scores, ref_scores, atol=2e-2, rtol=0)
     assert eng.status()["fused_chains"] is True
+
+
+# ---- depthwise_conv ---------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,k,bias", [
+    ((4, 56, 56, 96), 7, True), ((4, 28, 28, 192), 7, True), ((4, 14, 14, 384), 7, True),
+    ((4, 7, 7, 768), 7, True), ((2, 28, 28, 88), 3, False), ((2, 14, 14, 240), 5, True),
+    ((2, 12, 12, 2688), 5, False), ((3, 1, 1, 16), 3, True), ((2, 9, 13, 24), 5, False),
+    ((2, 10, 6, 15), 3, True),       # odd C: the direct kernel
+    ((1, 11, 11, 32), 9, True),      # k beyond the tile kernel's: the direct kernel
+])
+def test_depthwise_kernel_matches_plain_version(cuda_device, dtype, shape, k, bias):
+    g = torch.Generator().manual_seed(shape[-1] + k)
+    x = torch.randn(shape, generator=g).to(dtype).to(cuda_device)
+    w = (torch.randn((k, k, shape[-1]), generator=g) / k).to(dtype).to(cuda_device)
+    b = torch.randn(shape[-1], generator=g).to(dtype).to(cuda_device) if bias else None
+    before = LAUNCHES["depthwise_conv"].value
+    out = depthwise.depthwise_conv(x, w, b)
+    torch.cuda.synchronize()
+    assert LAUNCHES["depthwise_conv"].value == before + 1
+    ref = depthwise.depthwise_reference(x, w, b)
+    top = ref.float().abs().max().item()
+    assert top < 8
+    tol = 2.0 ** -5 if dtype == torch.bfloat16 else 1e-5 * max(top, 1.0)
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    # the module's OIHW weight, plain and as fold() stores it, is the same function
+    oihw = w.permute(2, 0, 1).reshape(shape[-1], 1, k, k).contiguous()
+    for taps in (oihw, oihw.contiguous(memory_format=torch.channels_last)):
+        again = depthwise.depthwise_conv(x, taps, b)
+        assert torch.equal(again, out)
+
+
+@pytest.mark.cuda
+def test_depthwise_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    x = torch.zeros((1, 8, 8, 16), device=cuda_device, dtype=torch.bfloat16)
+    w = torch.zeros((3, 3, 16), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        depthwise.depthwise_conv(x.half(), w.half())
+    with pytest.raises(ValueError, match="one dtype"):
+        depthwise.depthwise_conv(x, w.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        depthwise.depthwise_conv(x.transpose(1, 2), w)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        depthwise.depthwise_conv(x, w.cpu())
+    with pytest.raises(ValueError, match="odd k"):
+        depthwise.depthwise_conv(x, torch.zeros((2, 2, 16), device=cuda_device,
+                                                dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_depthwise_conv2d_module_launches_the_kernel_only_within_its_contract(cuda_device):
+    from ics_tpu_torch.nn.layers import Conv2D, set_use_kernels
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 14, 14, 32), generator=g).bfloat16().to(cuda_device)
+    for stride, launches in ((1, 1), (2, 0)):
+        conv = Conv2D(32, 32, 5, stride, padding=2, groups=32, use_bias=False)
+        conv.reset_parameters(g)
+        conv = conv.to(cuda_device)
+        before = LAUNCHES["depthwise_conv"].value
+        with torch.inference_mode():
+            out = conv(x)
+            assert LAUNCHES["depthwise_conv"].value == before + launches
+            library = set_use_kernels(conv, False)(x)
+            assert LAUNCHES["depthwise_conv"].value == before + launches
+        assert (out.float() - library.float()).abs().max().item() <= 2.0 ** -5
+
+
+# ---- window_attention -------------------------------------------------------------
+
+def _window_inputs(bn, heads, ww, hd, n_w, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((bn, heads, ww, hd), generator=g).to(dtype).to(device)
+               for _ in range(3))
+    q = q * hd ** -0.5
+    bias = torch.randn((heads, ww, ww), generator=g).to(device)
+    mask = None
+    if n_w:
+        cut = torch.rand((n_w, ww, ww), generator=g) < 0.3
+        cut &= ~torch.eye(ww, dtype=torch.bool)       # a query always sees itself
+        mask = torch.where(cut, -1e4, 0.0).to(torch.float32).to(device)
+    return q, k, v, bias, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("bn,heads,ww,hd,n_w", [
+    (128, 3, 49, 32, 64), (64, 6, 49, 32, 16), (16, 12, 49, 32, 4), (4, 24, 49, 32, 0),
+    (128, 3, 49, 32, 0), (8, 2, 16, 16, 4), (8, 4, 16, 16, 0), (3, 2, 64, 32, 3),
+    (2, 1, 1, 16, 0), (6, 4, 33, 16, 2),
+])
+def test_window_attention_kernel_matches_plain_version(cuda_device, dtype, tol, bn, heads,
+                                                       ww, hd, n_w):
+    q, k, v, bias, mask = _window_inputs(bn, heads, ww, hd, n_w, dtype, cuda_device)
+    before = LAUNCHES["window_attention"].value
+    out = window_attention.window_attention(q, k, v, bias, mask)
+    torch.cuda.synchronize()
+    assert LAUNCHES["window_attention"].value == before + 1
+    ref = window_attention.window_attention_reference(q, k, v, bias, mask)
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert bool(torch.isfinite(out).all())
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_window_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    q, k, v, bias, mask = _window_inputs(4, 2, 16, 16, 2, torch.bfloat16, cuda_device)
+    attend = window_attention.window_attention
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        attend(q.half(), k.half(), v.half(), bias, mask)
+    with pytest.raises(ValueError, match="fp32 bias and mask"):
+        attend(q, k, v, bias.bfloat16(), mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        attend(q, k.transpose(0, 1).contiguous().transpose(0, 1), v, bias, mask)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        attend(q, k, v, bias.cpu(), mask)
+    x = torch.zeros((2, 2, 16, 64), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        attend(x, x, x, bias)
+    big = torch.zeros((1, 1, 81, 16), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="at most 64"):
+        attend(big, big, big, torch.zeros((1, 81, 81), device=cuda_device))
+
+
+# ---- flash attention, bf16 exp ----------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,seq_len", [
+    ((2, 12, 577, 64), None), ((2, 12, 577, 64), 300), ((1, 3, 130, 32), None),
+    ((1, 2, 100, 64), 0),
+])
+def test_flash_attention_bf16_exp_matches_plain_version(cuda_device, shape, seq_len):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device).bfloat16()
+               for _ in range(3))
+    before = {name: LAUNCHES[name].value
+              for name in ("flash_attention", "flash_attention_bf16_exp")}
+    out = attention.flash_attention(q, k, v, seq_len, bf16_exp=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bf16_exp"].value == before["flash_attention_bf16_exp"] + 1
+    assert LAUNCHES["flash_attention"].value == before["flash_attention"]
+    ref = attention.attention_reference(q, k, v, seq_len, bf16_exp=True)
+    exact = attention.attention_reference(q, k, v, seq_len)
+    if seq_len == 0:
+        assert bool((out == 0).all())
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert (out.float() - exact.float()).abs().max().item() <= 3e-2
+    with pytest.raises(ValueError, match="bf16_exp needs bf16"):
+        attention.flash_attention(q.float(), k.float(), v.float(), bf16_exp=True)
+
+
+# ---- the new models on the card ---------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kernel,launches", [
+    ("swin_micro", "window_attention", 3),
+    ("mobilenetv3_small", "depthwise_conv", 7),
+])
+def test_new_model_engines_on_the_card_match_the_engine_on_the_cpu(cuda_device, name, kernel,
+                                                                   launches):
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, (h, w, 3), np.uint8)
+              for h, w in [(64, 64), (120, 90), (40, 200)]]
+    canvas, sizes = stage_batch(images, canvas=None)
+    kw = dict(num_classes=10, precision="fp32", buckets=(4,), canvas=256, seed=3)
+    ref_idx, ref_scores = InferenceEngine(name, device="cpu", **kw).predict_staged(canvas, sizes)
+    eng = InferenceEngine(name, device=cuda_device, **kw)
+    before = LAUNCHES[kernel].value
+    idx, scores = eng.predict_staged(canvas, sizes)
+    assert LAUNCHES[kernel].value == before + launches
+    np.testing.assert_array_equal(idx[:, 0], ref_idx[:, 0])
+    np.testing.assert_allclose(scores, ref_scores, atol=1e-4, rtol=0)

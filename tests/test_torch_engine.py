@@ -85,7 +85,8 @@ def test_status_and_warmup(engine):
     assert st["buckets"] == [1, 4] and st["batches"] == 0
     assert {(1, 64), (4, 64)} <= engine._compiled_shapes
     assert set(st["kernel_launches"]) == {
-        "flash_attention", "bottleneck_chain", "normalize_u8"}
+        "flash_attention", "bottleneck_chain", "normalize_u8", "depthwise_conv",
+        "window_attention", "flash_attention_bf16_exp"}
     assert st["fused_chains"] is False
 
 
@@ -111,8 +112,8 @@ def test_same_seed_same_weights_across_engines():
 def test_rejects_unknown_precision_and_model():
     with pytest.raises(ValueError, match="precision"):
         InferenceEngine("vit_tiny", precision="fp8", device="cpu")
-    with pytest.raises(KeyError, match="convnext_tiny"):
-        InferenceEngine("convnext_tiny", device="cpu")
+    with pytest.raises(KeyError, match="densenet121"):
+        InferenceEngine("densenet121", device="cpu")
 
 
 # ---- ResNet, fused chains and the fixed-size lane --------------------------------
@@ -239,3 +240,79 @@ def test_warmup_covers_the_fixed_size_lane():
     big = InferenceEngine("vit_s16", num_classes=4, precision="fp32", buckets=(1,),
                           canvas=256, device="cpu")
     assert big.spec.resize_short != big.spec.image_size
+
+
+# ---- the depthwise families and Swin at dev size ---------------------------------
+
+def _dev_constructors():
+    """(JAX constructor, port constructor) of one dev-size model per family."""
+    from ics_tpu.models import convnext as jconvnext
+    from ics_tpu.models import efficientnet as jeffnet
+    from ics_tpu.models import mobilenetv3 as jmbv3
+    from ics_tpu.models import swin as jswin
+    from ics_tpu_torch.models import convnext, efficientnet, mobilenetv3, swin
+
+    dims = dict(depths=(1, 1, 1, 1), dims=(16, 32, 64, 128))
+    return {
+        "convnext_dev": (
+            lambda num_classes: jconvnext.ConvNeXt(num_classes=num_classes, **dims),
+            lambda num_classes, device=None: convnext.ConvNeXt(
+                num_classes=num_classes, device=device, **dims)),
+        "mobilenetv3_dev": (jmbv3.mobilenetv3_small, mobilenetv3.mobilenetv3_small),
+        "efficientnet_dev": (
+            lambda num_classes: jeffnet.EfficientNet(0.25, 0.5, num_classes=num_classes),
+            lambda num_classes, device=None: efficientnet.efficientnet_v1(
+                0.25, 0.5, num_classes=num_classes, device=device)),
+        "swin_dev": (jswin.swin_micro, swin.swin_micro),
+    }
+
+
+@pytest.fixture()
+def dev_models():
+    """The four dev-size models registered at 64 px in both registries."""
+    import ics_tpu.models.registry as jax_registry
+    import ics_tpu_torch.models.registry as registry
+
+    jax_registry.list_models()                       # fills the JAX registry first
+    constructors = _dev_constructors()
+    for name, (jbuild, tbuild) in constructors.items():
+        jax_registry.register_model(name, jbuild, 64, 64, dev_only=True)
+        registry._REGISTRY[name] = registry.ModelSpec(name, tbuild, 64, 64, dev_only=True)
+    try:
+        yield constructors
+    finally:
+        for name in constructors:
+            del jax_registry._REGISTRY[name]
+            del registry._REGISTRY[name]
+
+
+@pytest.mark.parametrize("name", ["convnext_dev", "mobilenetv3_dev", "efficientnet_dev",
+                                  "swin_dev"])
+def test_depthwise_and_swin_top5_match_jax_engine_fp32(dev_models, name):
+    jbuild, _ = dev_models[name]
+    variables = jax.tree_util.tree_map(
+        np.asarray, jbuild(num_classes=10).init(jax.random.PRNGKey(11)))
+    canvas, sizes = stage_batch(_images(5), canvas=None)
+    kw = dict(num_classes=10, precision="fp32", buckets=(8,), canvas=256)
+    ref_idx, ref_scores = JaxEngine(name, variables=variables, **kw).predict_staged(canvas, sizes)
+    eng = InferenceEngine(name, state_dict=weights.from_jax_variables(variables),
+                          device="cpu", **kw)
+    idx, scores = eng.predict_staged(canvas, sizes)
+    assert idx.shape == scores.shape == (5, 5)
+    np.testing.assert_array_equal(idx, ref_idx)
+    np.testing.assert_allclose(scores, ref_scores, atol=1e-4, rtol=0)
+    st = eng.status()
+    assert st["fused_chains"] is False and st["kernel_launches"]["depthwise_conv"] == \
+        st["kernel_launches"]["window_attention"] == 0      # the CPU takes the plain versions
+
+
+@pytest.mark.parametrize("name", ["convnext_tiny", "swin_tiny", "mobilenetv3_small",
+                                  "efficientnet_b4", "efficientnet_v2_s"])
+def test_engine_builds_the_new_zoo_models_by_name(name):
+    """Shapes only: the registered constructor, folded, on the meta device."""
+    from ics_tpu_torch.models.registry import get_model
+
+    spec = get_model(name)
+    model = spec.build(num_classes=5, device="meta").fold()
+    assert model.num_classes == 5 and callable(model.apply_folded)
+    assert not hasattr(model, "chains")              # fused_chains stays a ResNet matter

@@ -347,6 +347,72 @@ def test_model_spec_and_registry_sizes_follow_the_jax_registry():
     assert {"resnet50", "resnet_tiny", "resnext50_32x4d", "wide_resnet50_2"} <= set(port.list_models())
 
 
+def test_registry_is_the_jax_registry_minus_what_is_not_ported():
+    """Every model of the JAX registry but DenseNet, RegNet (later slices)
+    and the two TPU-only MXU-width ViTs, with equal sizes and flags."""
+    from ics_tpu.models import registry as ref
+    from ics_tpu_torch.models import registry as port
+
+    waiting = {"densenet121", "densenet169", "regnet_y_400mf", "regnet_y_1_6gf"}
+    tpu_only = {"vit_b16_h6d128", "vit_l16_h8d128"}
+    assert waiting | tpu_only <= set(ref.list_models())
+    assert port.list_models() == sorted(set(ref.list_models()) - waiting - tpu_only)
+    assert port.list_models(include_dev=False) == sorted(
+        set(ref.list_models(include_dev=False)) - waiting - tpu_only)
+    for name in port.list_models():
+        r, p = ref.get_model(name), port.get_model(name)
+        assert (p.image_size, p.resize_short, p.dev_only) == \
+            (r.image_size, r.resize_short, r.dev_only), name
+    sizes = {n: (port.get_model(n).image_size, port.get_model(n).resize_short)
+             for n in ("efficientnet_b4", "efficientnet_v2_s", "efficientnet_v2_m", "swin_micro")}
+    assert sizes == {"efficientnet_b4": (380, 412), "efficientnet_v2_s": (384, 384),
+                     "efficientnet_v2_m": (480, 480), "swin_micro": (64, 64)}
+    assert port.get_model("swin_micro").dev_only
+
+
+@pytest.mark.parametrize("module", [
+    "ics_tpu_torch.ops.depthwise", "ics_tpu_torch.ops.window_attention",
+    "ics_tpu_torch.models.convnext", "ics_tpu_torch.models.mobilenetv3",
+    "ics_tpu_torch.models.efficientnet", "ics_tpu_torch.models.swin",
+    "ics_tpu_torch.tools.bench_vit_attn", "ics_tpu_torch.tools.bench_depthwise",
+])
+def test_new_modules_import_alone_and_build_nothing_at_import(module):
+    """Each module of this slice imports in a fresh interpreter with no JAX
+    and no ``ics_tpu`` loaded, and importing it neither builds nor loads a
+    kernel library (there is no nvcc where the tests run)."""
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "from ics_tpu_torch.ops import _build\n"
+        "tops = ('ics_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'orbax', 'triton')\n"
+        "print(json.dumps({'loaded': sorted(m for m in sys.modules if m.split('.')[0] in tops),"
+        " 'libraries': sorted(_build._loaded)}))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"loaded": [], "libraries": []}
+
+
+def test_kernel_sources_of_this_slice_are_plain_cuda_with_a_c_interface():
+    csrc = REPO / "ics_tpu_torch" / "ops" / "csrc"
+    from ics_tpu_torch.ops import _build
+
+    assert set(_build.KERNELS) == {p.stem for p in csrc.glob("*.cu")} == {
+        "flash_attention", "bottleneck_chain", "normalize_u8", "depthwise_conv",
+        "window_attention"}
+    for name, symbol in (("depthwise_conv", "ics_depthwise_conv"),
+                         ("window_attention", "ics_window_attention")):
+        text = (csrc / f"{name}.cu").read_text()
+        assert f"int {symbol}(" in text and 'extern "C"' in text
+        for library in ("torch/", "ATen", "cudnn", "cublas", "cutlass"):
+            assert library not in text, (name, library)
+    flash = (csrc / "flash_attention.cu").read_text()
+    assert "template <int D, bool kBf16Exp>" in flash        # one kernel, a template parameter
+
+
 def test_nextcloud_client_is_importable_without_the_sync_engine():
     from ics_tpu_torch.sync import nextcloud_client
 
