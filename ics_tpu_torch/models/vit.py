@@ -2,7 +2,8 @@
 
 The patch embed is a strided convolution (cuDNN); attention goes through
 the hand-written flash kernel (``ics_tpu_torch.ops.attention``) on the
-serving path, and through its plain version with ``use_flash=False``.
+serving path, which reads q, k and v out of the fused qkv product by their
+strides, and through its plain version with ``use_flash=False``.
 ViT-B/16 @384 has 577 tokens (24x24 patches + cls); the kernel masks the
 ragged last tile itself.
 """
@@ -22,7 +23,7 @@ from ics_tpu_torch.nn.layers import (
     reset_all_parameters,
     trunc_normal_,
 )
-from ics_tpu_torch.ops.attention import attention_reference, flash_attention
+from ics_tpu_torch.ops.attention import attention_reference, flash_attention_qkv
 
 
 class MultiHeadAttention(nn.Module):
@@ -39,10 +40,14 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x: torch.Tensor, use_flash: bool = True) -> torch.Tensor:
         b, s, _ = x.shape
         qkv = self.qkv(x).reshape(b, s, 3, self.num_heads, self.head_dim)
-        q, k, v = (t.contiguous() for t in qkv.permute(2, 0, 3, 1, 4).unbind(0))
-        attend = flash_attention if use_flash else attention_reference
-        out = attend(q, k, v)                                  # [B, H, S, hd]
-        return self.proj(out.transpose(1, 2).reshape(b, s, self.dim))
+        if use_flash:
+            # the kernel reads q, k and v out of the product by their strides
+            # and writes [B, S, H, hd]: no copy on either side of it
+            out = flash_attention_qkv(qkv)
+        else:
+            q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)     # [B, H, S, hd] views
+            out = attention_reference(q, k, v).transpose(1, 2)
+        return self.proj(out.reshape(b, s, self.dim))
 
 
 class TransformerBlock(nn.Module):

@@ -8,8 +8,11 @@ for each distinct (shape, k, bias) in bf16 on the GPU: the kernel's and
 cuDNN's grouped convolution's time by CUDA events, with the launches queued
 ahead of the device so that a short kernel is timed on the device's clock,
 and the host's time per call of each (the wrapper against ``F.conv2d``),
-which is what a host-bound step pays. The card's name and power limit come
-first; one JSON line at the end carries the same numbers.
+which is what a host-bound step pays, beside the least time the card could
+take for the shape (input read once and output written once at 3.35 TB/s,
+or 2 k^2 fp32 operations an output at 67 TFLOP/s, whichever is longer). The
+card's name and power limit come first; one JSON line at the end carries the
+same numbers.
 """
 
 from __future__ import annotations
@@ -67,6 +70,17 @@ def host_us(fn, calls: int = 1000) -> float:
     return us
 
 
+HBM_BYTES_S = 3.35e12     # published peaks of one H100 SXM
+FP32_FLOPS = 67e12
+
+
+def bound_ms(n_values: int, k: int, channels: int, bias: bool) -> tuple[float, str]:
+    """The least time the card could take for one bf16 call, and what bounds it."""
+    by_bytes = (2 * n_values + (k * k + bias) * channels) * 2 / HBM_BYTES_S * 1e3
+    by_ops = 2.0 * k * k * n_values / FP32_FLOPS * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="efficientnet_b4")
@@ -94,16 +108,20 @@ def main() -> None:
         ms = {"kernel": [], "cudnn": []}
         for name in ("kernel", "cudnn", "cudnn", "kernel"):
             ms[name].append(queued_ms(kernel if name == "kernel" else cudnn, ahead, args.iters))
+        least, by = bound_ms(x.numel(), k, c, bias)
         row = {"shape": list(shape), "k": k, "bias": bias, "launches": count,
                "kernel_ms": sum(ms["kernel"]) / 2, "cudnn_ms": sum(ms["cudnn"]) / 2,
+               "bound_ms": least, "bound_by": by,
                "kernel_host_us": host_us(kernel), "cudnn_host_us": host_us(cudnn)}
         rows.append(row)
         print(f"{list(shape)} k={k} bias={bias} x{count}: kernel {row['kernel_ms']:.4f} ms, "
-              f"cuDNN {row['cudnn_ms']:.4f} ms; host {row['kernel_host_us']:.1f} vs "
-              f"{row['cudnn_host_us']:.1f} us a call")
-    total = {key: sum(r[key] * r["launches"] for r in rows) for key in ("kernel_ms", "cudnn_ms")}
+              f"cuDNN {row['cudnn_ms']:.4f} ms, bound {least:.4f} ms by {by}; host "
+              f"{row['kernel_host_us']:.1f} vs {row['cudnn_host_us']:.1f} us a call")
+    total = {key: sum(r[key] * r["launches"] for r in rows)
+             for key in ("kernel_ms", "cudnn_ms", "bound_ms")}
     print(f"{args.model} bucket {args.bucket}: {sum(r['launches'] for r in rows)} launches a "
-          f"step, kernel {total['kernel_ms']:.4f} ms, cuDNN {total['cudnn_ms']:.4f} ms")
+          f"step, kernel {total['kernel_ms']:.4f} ms, cuDNN {total['cudnn_ms']:.4f} ms, bound "
+          f"{total['bound_ms']:.4f} ms")
     print(json.dumps({"card": card, "model": args.model, "bucket": args.bucket,
                       "step": total, "shapes": rows}))
 

@@ -34,7 +34,7 @@ from ics_tpu_torch.ops.preproc import preprocess_batch
 from ics_tpu_torch.runtime.engine import InferenceEngine
 
 GROUPS = (
-    ("port kernels", ("flash_bf16", "flash_f32", "bottleneck_block", "normalize_vec",
+    ("port kernels", ("flash_wgmma", "flash_mma", "flash_f32", "bottleneck_block", "normalize_vec",
                       "normalize_scalar", "dw_tile", "dw_direct", "window_bf16",
                       "window_f32")),
     ("convolution and GEMM", ("gemm", "cutlass", "nvjet", "xmma", "conv", "cudnn", "wgrad",

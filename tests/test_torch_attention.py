@@ -129,3 +129,64 @@ def test_bf16_exp_keeps_the_flash_contract_and_needs_bf16():
     assert bool((zeros == 0).all())
     with pytest.raises(ValueError, match="bf16_exp needs bf16"):
         torch_attention.flash_attention(q.float(), k.float(), v.float(), bf16_exp=True)
+
+
+# ---- strided inputs and the fused qkv entry point ---------------------------------
+
+def _fused_qkv(b, s, h, d, seed):
+    return np.random.default_rng(seed).standard_normal((b, s, 3, h, d)).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape,seq_len", [((1, 64, 2, 32), None), ((2, 130, 3, 64), None),
+                                           ((2, 130, 3, 64), 100)])
+def test_qkv_entry_point_matches_jax_flash_on_the_transposed_slices(shape, seq_len):
+    """``flash_attention_qkv`` takes ViT's fused product as it lies,
+    [B, S, 3, H, D], and returns [B, S, H, D]; the JAX kernel gets the three
+    [B, H, S, D] slices. fp32 tolerance 1e-4 as above."""
+    qkv = _fused_qkv(*shape, seed=8)
+    ours = torch_attention.flash_attention_qkv(torch.from_numpy(qkv), seq_len)
+    q, k, v = (np.ascontiguousarray(qkv[:, :, i].transpose(0, 2, 1, 3)) for i in range(3))
+    ref = np.asarray(jax_attention.flash_attention(q, k, v, seq_len=seq_len))
+    assert ours.shape == (shape[0], shape[1], shape[2], shape[3]) and ours.is_contiguous()
+    np.testing.assert_allclose(ours.numpy(), ref.transpose(0, 2, 1, 3), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,bf16_exp", [(torch.float32, False), (torch.bfloat16, False),
+                                            (torch.bfloat16, True)])
+def test_qkv_entry_point_and_strided_views_equal_contiguous_copies(dtype, bf16_exp):
+    qkv = torch.from_numpy(_fused_qkv(2, 100, 3, 32, seed=9)).to(dtype)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)               # [B, H, S, D] views
+    assert not q.is_contiguous()
+    copies = torch_attention.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), 80, bf16_exp)
+    views = torch_attention.flash_attention(q, k, v, 80, bf16_exp)
+    fused = torch_attention.flash_attention_qkv(qkv, 80, bf16_exp)
+    assert torch.equal(views, copies)
+    assert torch.equal(fused, copies.transpose(1, 2))
+    assert fused.reshape(2, 100, 96).data_ptr() == fused.data_ptr()   # a view, no copy
+
+
+def test_qkv_entry_point_fully_masked_is_exact_zeros_and_rejects_other_layouts():
+    qkv = torch.from_numpy(_fused_qkv(1, 70, 2, 32, seed=10)) + 100.0
+    out = torch_attention.flash_attention_qkv(qkv, seq_len=0)
+    assert out.shape == (1, 70, 2, 32) and bool((out == 0).all())
+    with pytest.raises(ValueError, match=r"\[B, S, 3, H, D\]"):
+        torch_attention.flash_attention_qkv(qkv.permute(0, 2, 1, 3, 4))
+    with pytest.raises(ValueError, match=r"\[B, S, 3, H, D\]"):
+        torch_attention.flash_attention_qkv(qkv[:, :, 0])
+
+
+@pytest.mark.parametrize("head_dim,seq", [(16, 200), (32, 130), (64, 300), (128, 260)])
+def test_bf16_exp_plain_version_walks_the_kernels_key_tiles(head_dim, seq):
+    """The plain version takes the running max over ``KEY_TILE[head_dim]`` keys
+    at a time, as the kernel of that head_dim does; whatever the tile, it
+    stays within the 2e-2 bar of the JAX reference."""
+    import jax.numpy as jnp
+
+    assert torch_attention.KEY_TILE == {16: 64, 32: 64, 64: 128, 128: 128}
+    q, k, v = _qkv((1, 2, seq, head_dim), seed=11)
+    ours = torch_attention.attention_reference(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)), bf16_exp=True)
+    ref = np.asarray(jax_attention.attention_reference(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), seq_len=seq).astype(jnp.float32))
+    np.testing.assert_allclose(ours.float().numpy(), ref, atol=2e-2, rtol=0)

@@ -18,7 +18,8 @@ summed in another order), bf16 one ulp of the largest output (|y| < 8: 2^-5,
 the two fp32 sums on the two sides of a rounding tie); window_attention bf16
 1e-2 and fp32 1e-5 as flash attention (outputs O(1)); flash attention with
 ``bf16_exp`` 2e-2 (each p within 2^-7 relative of the plain version's, the
-bound of ``ex2.approx.ftz.bf16x2``, on top of the bf16 bar).
+bound of ``ex2.approx.ftz.bf16x2``, on top of the bf16 bar). The same bars
+hold for strided views of a fused qkv product and for ``flash_attention_qkv``.
 """
 
 import numpy as np
@@ -58,6 +59,73 @@ def test_kernel_matches_plain_version(cuda_device, dtype, tol, shape, seq_len):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+def _strided_case(device, shape, dtype, seq_len, bf16_exp=False):
+    """q, k, v as strided views of one [B + 1, S, 3, H, D] tensor, as ViT's
+    fused qkv product lies. The image behind the last one and the K and V rows
+    at or past ``seq_len`` are NaN: the kernel must not read them (a zero
+    weight times NaN would show). Returns the kernel's outputs through both
+    entry points, twice each (a missing fence shows only sometimes), and the
+    plain version's on contiguous copies with those rows zeroed."""
+    b, h, s, d = shape
+    g = torch.Generator(device=device).manual_seed(s * 131 + d)
+    store = torch.randn((b + 1, s, 3, h, d), generator=g, device=device).to(dtype)
+    store[b:] = float("nan")
+    qkv = store[:b]
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    clean_k, clean_v = k.contiguous(), v.contiguous()
+    if seq_len is not None:
+        k[:, :, seq_len:] = float("nan")
+        v[:, :, seq_len:] = float("nan")
+        clean_k[:, :, seq_len:] = 0
+        clean_v[:, :, seq_len:] = 0
+    ref = attention.attention_reference(q.contiguous(), clean_k, clean_v, seq_len, bf16_exp)
+    outs = []
+    for _ in range(2):
+        outs.append(attention.flash_attention(q, k, v, seq_len, bf16_exp))
+        outs.append(attention.flash_attention_qkv(qkv, seq_len, bf16_exp).transpose(1, 2))
+    torch.cuda.synchronize()
+    return outs, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("seq", [1, 63, 64, 65, 127, 128, 129, 577, 1100])
+def test_kernel_at_the_tile_edges_on_strided_views(cuda_device, seq, head_dim):
+    """Sequence lengths on both sides of the 64-row and 128-key tile edges,
+    through ``flash_attention`` on strided views and ``flash_attention_qkv``."""
+    before = LAUNCHES["flash_attention"].value
+    outs, ref = _strided_case(cuda_device, (2, 3, seq, head_dim), torch.bfloat16, None)
+    assert LAUNCHES["flash_attention"].value == before + 4
+    for out in outs:
+        assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+        assert (out.float() - ref.float()).abs().max().item() <= 1e-2
+        assert torch.equal(out, outs[0])
+
+
+_MASKED_BF16 = [((2, 3, 577, d), torch.bfloat16, n) for d in (64, 128) for n in (0, 1, 300, 577)]
+_MASKED_BF16 += [((2, 3, 130, 16), torch.bfloat16, 70), ((2, 3, 130, 32), torch.bfloat16, 129)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,seq_len,bf16_exp", [
+    *((*case, False) for case in _MASKED_BF16), *((*case, True) for case in _MASKED_BF16),
+    ((2, 3, 130, 64), torch.float32, 100, False), ((1, 2, 200, 128), torch.float32, 0, False),
+])
+def test_kernel_never_reads_behind_seq_len_or_the_last_image(cuda_device, shape, dtype,
+                                                             seq_len, bf16_exp):
+    """NaN in the K and V rows at or past ``seq_len`` and in the memory behind
+    the last image: the output is finite and within tolerance, and fully
+    masked rows are exact zeros, in the [B, S, H, D] layout too."""
+    outs, ref = _strided_case(cuda_device, shape, dtype, seq_len, bf16_exp)
+    tol = (2e-2 if bf16_exp else 1e-2) if dtype == torch.bfloat16 else 1e-5
+    for out in outs:
+        assert bool(torch.isfinite(out).all())
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+        assert torch.equal(out, outs[0])
+        if seq_len == 0:
+            assert bool((out == 0).all())
+
+
 @pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     q = torch.zeros((1, 2, 8, 64), device=cuda_device, dtype=torch.bfloat16)
@@ -66,11 +134,24 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="head_dim"):
         x = torch.zeros((1, 2, 8, 48), device=cuda_device, dtype=torch.bfloat16)
         attention.flash_attention(x, x, x)
-    with pytest.raises(ValueError, match="contiguous"):
-        t = q.transpose(1, 2)
+    with pytest.raises(ValueError, match="last dimension contiguous"):
+        t = torch.zeros((1, 2, 64, 8), device=cuda_device, dtype=torch.bfloat16).transpose(2, 3)
         attention.flash_attention(t, t, t)
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        wide = torch.zeros((1, 2, 8, 68), device=cuda_device, dtype=torch.bfloat16)
+        attention.flash_attention(wide[..., :64], q, q)          # rows 136 bytes apart
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        flat = torch.zeros(1 * 2 * 8 * 64 + 4, device=cuda_device, dtype=torch.bfloat16)
+        attention.flash_attention(flat[4:].view(1, 2, 8, 64), q, q)   # base 8 bytes off
     with pytest.raises(ValueError, match="one CUDA device"):
         attention.flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError, match=r"\[B, S, 3, H, D\]"):
+        attention.flash_attention_qkv(q)
+    # a transposed [B, S, H, D] tensor is a strided view the kernel takes
+    t = torch.randn((1, 8, 2, 64), device=cuda_device).bfloat16().transpose(1, 2)
+    out = attention.flash_attention(t, t, t)
+    ref = attention.attention_reference(t.contiguous(), t.contiguous(), t.contiguous())
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2
 
 
 @pytest.mark.cuda

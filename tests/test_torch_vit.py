@@ -128,3 +128,31 @@ def test_seeded_init_is_deterministic_and_has_jax_scales():
     assert float(a.pos_embed.abs().max()) <= 0.04          # trunc normal at 2 std
     assert float(a.blocks[0].ln1.weight.min()) == 1.0
     assert float(a.head.bias.abs().max()) == 0.0
+
+
+def test_attention_module_feeds_the_fused_qkv_product_without_copies(pair, monkeypatch):
+    """``MultiHeadAttention`` hands the qkv product to ``flash_attention_qkv``
+    as a [B, S, 3, H, hd] view of the projection's output and reshapes the
+    [B, S, H, hd] result without a copy; the function is the one of the JAX
+    module (``test_logits_match_jax_fp32`` holds the logits)."""
+    _, _, tmodel, x = pair
+    attn = tmodel.blocks[0].attn
+    seen = {}
+    real = torch_vit.flash_attention_qkv
+
+    def spy(qkv, *args, **kwargs):
+        seen["shape"], seen["contiguous"] = tuple(qkv.shape), qkv.is_contiguous()
+        out = real(qkv, *args, **kwargs)
+        seen["out"] = out
+        return out
+
+    monkeypatch.setattr(torch_vit, "flash_attention_qkv", spy)
+    tokens = torch.from_numpy(
+        np.random.default_rng(2).standard_normal((2, 17, attn.dim)).astype(np.float32))
+    with torch.inference_mode():
+        flash = attn(tokens, use_flash=True)
+        plain = attn(tokens, use_flash=False)
+    assert seen["shape"] == (2, 17, 3, attn.num_heads, attn.head_dim) and seen["contiguous"]
+    assert seen["out"].shape == (2, 17, attn.num_heads, attn.head_dim)
+    assert seen["out"].is_contiguous()            # so the reshape before proj is a view
+    torch.testing.assert_close(flash, plain)
