@@ -4,21 +4,31 @@
 Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
 
 1. The card's name and power limit, as ``nvidia-smi`` gives them.
-2. Build every CUDA kernel from ``ics_tpu_torch/ops/csrc`` (five sources,
-   one ``nvcc`` per source, all started together) and time it.
+2. Build every CUDA kernel from ``ics_tpu_torch/ops/csrc`` (five sources
+   and two shared headers, one ``nvcc`` per source, all started together)
+   and time it.
 3. Each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and at edge shapes, with the tolerance stated beside each
    case: ``flash_attention`` (and its ``bf16_exp`` variant; sequence lengths
    on both sides of its tile edges, every head_dim, masked keys, strided
    views of a fused qkv product and ``flash_attention_qkv``, NaN behind
    ``seq_len`` and behind the last image, each case twice),
-   ``bottleneck_chain``, ``normalize_u8``, ``depthwise_conv``,
-   ``window_attention``.
+   ``bottleneck_chain`` (the wgmma kernel and the mma.sync variant; both
+   ResNet-50 chains at every bucket of phase 6's server, since the tiling
+   depends on the batch; pixels that are no multiple of an M tile, a short last tile, Cm 64, 128 and 256, the
+   large-bias border case, each case twice), ``normalize_u8``,
+   ``depthwise_conv`` (every call of ConvNeXt-T, MobileNetV3-Small and
+   EfficientNet-B4 at every bucket; both sides of the strip kernel's block edges, images
+   smaller than k, C of 8 to 88 and an odd C, k 3 to 9, both weight layouts,
+   NaN around x, each case twice), ``window_attention``.
 4. CUDA-event times of each kernel and its plain version, in turns, at the
    bucket-32 shapes, with the least time the card could take computed from
    the shapes, and one library call as a yardstick where there is one
-   (``F.scaled_dot_product_attention``, cuDNN's grouped ``F.conv2d``): timed
-   here, used nowhere on the kernels' paths. The flash kernel is also timed
+   (``F.scaled_dot_product_attention``, cuDNN's grouped ``F.conv2d``, the
+   unfused cuDNN bottlenecks): timed here, used nowhere on the kernels' paths.
+   The depthwise kernel is timed at ConvNeXt-T's k 7 shapes and, as an entry
+   of its own, at EfficientNet-B4's and MobileNetV3-Small's k 3 and 5 shapes,
+   with the host's time a launch beside cuDNN's. The flash kernel is also timed
    through ``flash_attention_qkv`` beside the copies it replaced, with the
    host's time per launch.
 4b. The ``bf16_exp`` variant's own path, ``tools.bench_vit_attn``, with the
@@ -97,6 +107,7 @@ MOBILENET_LAUNCHES = 7           # MobileNetV3-Small: its stride-1 blocks, 7 of 
 VIT_DEPTH = 12              # ViT-B/16: one flash launch per block per batch
 CHAIN_LAUNCHES = 5          # ResNet-50: one launch per chained bottleneck, 2 + 3
 SERVER_START_S = 600
+SERVER_BUCKETS = (1, 8, 32)  # TPU_BATCH_BUCKETS of phase 6's server
 # published peaks of one H100 SXM: device memory, dense bf16 tensor cores, fp32
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -332,30 +343,58 @@ def chain_input(torch, shape, seed: int):
 
 
 def check_chain(torch, bottleneck) -> float:
-    """Phase 3: bottleneck_chain against its plain version; the largest error."""
-    cases = [
-        ((8, 56, 56, 256), 64, 2),     # ResNet-50 stage 0
-        ((8, 28, 28, 512), 128, 3),    # ResNet-50 stage 1
-        ((2, 7, 7, 256), 64, 2),       # a whole image in one tile, W not a multiple of 8
-        ((1, 14, 14, 1024), 256, 1),   # the widest inner width, a short last tile
+    """Phase 3: bottleneck_chain against its plain version; the largest error.
+    The tiling depends on the batch, so both ResNet-50 chains run at each of
+    the server's buckets, with the tile rows and ring stages that the wrapper
+    takes there in the log. Every case runs twice and must come out equal bit
+    for bit; the mma.sync kernel, which is kept to be timed beside the other,
+    is held to the same bar."""
+    # shape, Cm, N, tile_rows (None: the wrapper's own), large bias
+    cases = [((bucket, *shape), cm, n, None, False)
+             for bucket in SERVER_BUCKETS
+             for shape, cm, n in (((56, 56, 256), 64, 2),     # ResNet-50 stage 0
+                                  ((28, 28, 512), 128, 3))]   # ResNet-50 stage 1
+    cases += [
+        ((2, 7, 7, 256), 64, 2, None, False),       # a whole image in one tile, H*W = 49 < an M tile
+        ((1, 14, 14, 1024), 256, 1, None, False),   # the widest inner width
+        ((3, 9, 13, 256), 64, 1, None, False),      # H*W = 117: no multiple of 64 or of 128
+        ((2, 14, 14, 512), 128, 2, 4, False),       # TH 4 on H 14: a short last tile of 2 rows
+        ((2, 30, 20, 256), 64, 3, 7, False),        # TH 7 on H 30: last tile 2 rows, 5 passes
+        ((1, 10, 9, 1024), 256, 2, 3, False),       # Cm 256 with a short last tile
+        ((2, 12, 12, 256), 64, 2, 5, True),         # relu(b1) on the zero ring would show
     ]
     worst = 0.0
-    for shape, cm, n in cases:
-        packed = make_chain(torch, n, shape[-1], cm, seed=0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for shape, cm, n, tile_rows, big_bias in cases:
+        packed = make_chain(torch, n, shape[-1], cm, seed=3 if big_bias else 0)
+        if big_bias:
+            packed["b1"] = packed["b1"] + 2.0
+            packed["w2"] = (packed["w2"].float() * 0.3).bfloat16()
         x = chain_input(torch, shape, seed=1)
-        out = bottleneck.bottleneck_chain(x, packed)
-        torch.cuda.synchronize()
         ref = bottleneck.bottleneck_chain_reference(x, packed)
-        diff = (out.float() - ref.float()).abs()
-        err, mean = diff.max().item(), diff.mean().item()
         top = ref.float().abs().max().item()
-        log(f"  bottleneck_chain {list(shape)} Cm={cm} N={n} bf16: max_abs_err={err:.3e} "
-            f"(tol {CHAIN_TOL:g}), mean {mean:.2e} (tol {CHAIN_MEAN_TOL:g}), max|y|={top:.2f}")
-        if not bool(torch.isfinite(out).all()) or top >= 4 or err > CHAIN_TOL \
-                or mean > CHAIN_MEAN_TOL:
-            fail(f"bottleneck_chain disagrees with its plain version at {shape} "
-                 f"Cm={cm} N={n}: err {err}, mean {mean}, max|y| {top}")
-        worst = max(worst, err)
+        for variant in ("wgmma", "mma"):
+            runs = [bottleneck.bottleneck_chain(x, packed, tile_rows=tile_rows, variant=variant)
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            diff = (runs[0].float() - ref.float()).abs()
+            err, mean = diff.max().item(), diff.mean().item()
+            same = torch.equal(runs[0], runs[1])
+            th = tile_rows or bottleneck.pick_tile_rows(*shape[1:3], cm, variant, shape[0], sms)
+            took = f"tile_rows={th}{'' if tile_rows else ' (its own)'}"
+            if variant == "wgmma":
+                took += f" stages={bottleneck.ring_stages(th, shape[2], cm)}"
+            log(f"  bottleneck_chain {variant} {list(shape)} Cm={cm} N={n} {took}"
+                f"{' large bias' if big_bias else ''} bf16: max_abs_err={err:.3e} (tol "
+                f"{CHAIN_TOL:g}), mean {mean:.2e} (tol {CHAIN_MEAN_TOL:g}), max|y|={top:.2f}, "
+                f"twice the same {same}")
+            if not bool(torch.isfinite(runs[0]).all()) or top >= 4 or err > CHAIN_TOL \
+                    or mean > CHAIN_MEAN_TOL or not same:
+                fail(f"bottleneck_chain ({variant}) disagrees with its plain version at {shape} "
+                     f"Cm={cm} N={n} tile_rows={tile_rows}: err {err}, mean {mean}, max|y| "
+                     f"{top}, twice the same {same}")
+            if variant == "wgmma":
+                worst = max(worst, err)
     return worst
 
 
@@ -382,30 +421,62 @@ def check_normalize(torch, normalize) -> float:
 
 
 def time_chain(torch, bottleneck) -> dict:
-    """Phase 4: both ResNet-50 chains of one bucket-32 step (5 launches)."""
-    total = {"ms": 0.0, "plain_ms": 0.0}
+    """Phase 4: both ResNet-50 chains of one bucket-32 step (5 launches). The
+    library yardstick is what the chains replace: the same bottlenecks as
+    ``Bottleneck.apply_folded``, cuDNN convolutions with scale, bias, ReLU and
+    the shortcut as PyTorch ops between them (another rounding, so it is
+    timed, not compared). The mma.sync kernel runs in the same turns."""
+    from torch import nn
+
+    from ics_tpu_torch.models.resnet import Bottleneck
+    from ics_tpu_torch.nn.blocks import fold_convbn
+    from ics_tpu_torch.nn.layers import reset_all_parameters
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "mma_ms": 0.0}
     n_bytes = n_ops = 0.0
     for shape, cm, n in [((32, 56, 56, 256), 64, 2), ((32, 28, 28, 512), 128, 3)]:
-        packed = make_chain(torch, n, shape[-1], cm, seed=0)
-        x = chain_input(torch, shape, seed=1)
-        ms, plain_ms = in_turns(
-            f"bottleneck_chain {list(shape)} Cm={cm} N={n} bf16",
-            lambda: bottleneck.bottleneck_chain(x, packed),
-            lambda: bottleneck.bottleneck_chain_reference(x, packed), iters=10)
         c = shape[-1]
+        blocks = nn.ModuleList([Bottleneck(c, cm) for _ in range(n)])
+        reset_all_parameters(blocks, torch.Generator().manual_seed(0))
+        fold_convbn(blocks)
+        blocks = blocks.to(device="cuda", dtype=torch.bfloat16).eval()
+        packed = bottleneck.ChainWeights(bottleneck.pack_chain_weights(blocks)).cuda()
+        x = chain_input(torch, shape, seed=1)
+
+        def unfused():
+            y = x
+            for blk in blocks:
+                y = blk.apply_folded(y)
+            return y
+
+        with torch.inference_mode():
+            ms, plain_ms = in_turns(
+                f"bottleneck_chain {list(shape)} Cm={cm} N={n} bf16",
+                lambda: bottleneck.bottleneck_chain(x, packed),
+                lambda: bottleneck.bottleneck_chain_reference(x, packed), iters=10)
+            mma_ms, lib = in_turns(
+                "  the mma.sync kernel (kernel) beside the cuDNN blocks it "
+                "replaced (under 'plain')",
+                lambda: bottleneck.bottleneck_chain(x, packed, variant="mma"), unfused, iters=10)
+            small = x[:1].contiguous()
+            host = host_us(lambda: bottleneck.bottleneck_chain(small, packed)) / n
         # x read once, the output written once, the weights read once; per
         # pixel and bottleneck 2 * (C*Cm + 9*Cm*Cm + Cm*C) operations
         case_bytes = 2 * x.numel() * 2 + sum(
-            v.numel() * v.element_size() for v in packed.values())
+            v.numel() * v.element_size() for v in packed.packed().values())
         case_ops = 2.0 * n * (x.numel() // c) * (2 * c * cm + 9 * cm * cm)
         b = bound(case_bytes, case_ops, BF16_FLOPS)
         log(f"    {case_bytes / 1e6:.1f} MB, {case_ops / 1e9:.1f} GFLOP: bound "
-            f"{b['bound_ms']:.4f} ms by {b['bound_by']}; {case_ops / ms / 1e9:.1f} TFLOP/s")
-        total["ms"] += ms
-        total["plain_ms"] += plain_ms
+            f"{b['bound_ms']:.4f} ms by {b['bound_by']}; {case_ops / ms / 1e9:.1f} TFLOP/s; "
+            f"host {host:.1f} us a launch")
+        for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib),
+                           ("mma_ms", mma_ms)):
+            total[key] += value
         n_bytes += case_bytes
         n_ops += case_ops
-    return {**total, "library_ms": None, **bound(n_bytes, n_ops, BF16_FLOPS)}
+    log(f"    both chains: kernel {total['ms']:.4f} ms, mma.sync kernel {total['mma_ms']:.4f} ms, "
+        f"cuDNN blocks {total['library_ms']:.4f} ms")
+    return {**total, **bound(n_bytes, n_ops, BF16_FLOPS)}
 
 
 def time_normalize(torch, normalize) -> dict:
@@ -438,9 +509,10 @@ def check_bf16_exp(torch, attention) -> float:
     return max(attention_case(torch, attention, *case, bf16_exp=True) for case in cases)
 
 
-def depthwise_inputs(torch, shape, k: int, bias: bool, dtype, seed: int = 0):
+def depthwise_inputs(torch, shape, k: int, bias: bool, dtype, seed: int = 0,
+                     scale: float = 1.0):
     g = torch.Generator().manual_seed(seed)
-    x = torch.randn(shape, generator=g).to(dtype).cuda()
+    x = (scale * torch.randn(shape, generator=g)).to(dtype).cuda()
     w = (torch.randn((k, k, shape[-1]), generator=g) / k).to(dtype).cuda()
     b = torch.randn(shape[-1], generator=g).to(dtype).cuda() if bias else None
     return x, w, b
@@ -449,35 +521,104 @@ def depthwise_inputs(torch, shape, k: int, bias: bool, dtype, seed: int = 0):
 CONVNEXT_SHAPES = [(56, 96), (28, 192), (14, 384), (7, 768)]   # (H = W, C) per stage
 
 
-def check_depthwise(torch, depthwise) -> float:
-    """Phase 3: depthwise_conv against its plain version; the largest error."""
-    cases = [((8, hw, hw, c), 7, True) for hw, c in CONVNEXT_SHAPES] + [
-        ((8, 28, 28, 88), 3, False),      # MobileNetV3: C not a multiple of 8
-        ((8, 14, 14, 240), 5, True),
-        ((8, 14, 14, 240), 5, False),
-        ((4, 12, 12, 2688), 5, False),    # EfficientNet-B4's widest
-        ((4, 24, 24, 672), 3, False),
-        ((8, 7, 7, 576), 5, False),       # W = 7: one ragged tile
-        ((16, 1, 1, 96), 3, True),        # a 1x1 image: only the centre tap lands
-        ((2, 10, 6, 15), 3, True),        # an odd C: the direct kernel
-    ]
-    worst = 0.0
-    for shape, k, bias in cases:
-        for dtype in (torch.bfloat16, torch.float32):
-            x, w, b = depthwise_inputs(torch, shape, k, bias, dtype)
-            out = depthwise.depthwise_conv(x, w, b)
-            torch.cuda.synchronize()
-            ref = depthwise.depthwise_reference(x, w, b)
-            top = ref.float().abs().max().item()
-            tol = DW_BF16_TOL if dtype == torch.bfloat16 else FP32_TOL * max(top, 1.0)
-            err = (out.float() - ref.float()).abs().max().item()
-            log(f"  depthwise_conv {list(shape)} k={k} bias={bias} {str(dtype)[6:]}: "
-                f"max_abs_err={err:.3e} (tol {tol:.3g}), max|y|={top:.2f}")
-            if not bool(torch.isfinite(out).all()) or top >= 8 or err > tol:
-                fail(f"depthwise_conv disagrees with its plain version at {shape} k={k} "
-                     f"bias={bias} {dtype}: err {err}, max|y| {top}")
-            worst = max(worst, err)
-    return worst
+def depthwise_case(torch, depthwise, shape, k, bias, dtype, layout="kkc", variant=None,
+                   geometry=None, scale=1.0) -> float:
+    """One phase-3 case of depthwise_conv, run twice; returns its error. x is
+    the middle of a larger tensor of NaN: a kernel that read a value outside x
+    into a result would show it. ``layout``: the weight as [k, k, C] or as a
+    module's OIHW in channels_last memory."""
+    x, w, b = depthwise_inputs(torch, shape, k, bias, dtype, scale=scale)
+    store = torch.full((shape[0] + 2, *shape[1:]), float("nan"), dtype=dtype, device="cuda")
+    store[1:-1] = x
+    x = store[1:-1]
+    if layout == "oihw":
+        w = w.permute(2, 0, 1).reshape(shape[-1], 1, k, k).contiguous(
+            memory_format=torch.channels_last)
+    runs = [depthwise.depthwise_conv(x, w, b, variant=variant, geometry=geometry)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    ref = depthwise.depthwise_reference(x, w, b)
+    top = ref.float().abs().max().item()
+    tol = DW_BF16_TOL if dtype == torch.bfloat16 else FP32_TOL * max(top, 1.0)
+    err = (runs[0].float() - ref.float()).abs().max().item()
+    same = torch.equal(runs[0], runs[1])
+    took = variant
+    if took is None:     # what the wrapper takes on its own, with the strip kernel's geometry
+        took, plan = depthwise.pick_plan(*shape, k, x.element_size())
+        took += "" if plan is None else f" {plan}"
+    log(f"  depthwise_conv {took}{'' if geometry is None else ' ' + str(geometry)} {list(shape)} "
+        f"k={k} bias={bias} {layout} {str(dtype)[6:]}: max_abs_err={err:.3e} (tol {tol:.3g}), "
+        f"max|y|={top:.2f}")
+    if not bool(torch.isfinite(runs[0]).all()) or top >= 8 or not (err <= tol) or not same:
+        fail(f"depthwise_conv ({took}) disagrees with its plain version at {shape} k={k} "
+             f"bias={bias} {layout} {dtype} geometry {geometry}: err {err}, max|y| {top}, "
+             f"twice the same {same}")
+    return err
+
+
+def check_depthwise(torch, depthwise) -> dict:
+    """Phase 3: depthwise_conv against its plain version; the largest error
+    at k 7 and at k 3 and 5. Every depthwise call of ConvNeXt-T,
+    MobileNetV3-Small and EfficientNet-B4 at each of the server's buckets (the
+    kernel and its geometry depend on the batch; the plan taken is in the
+    log), then shapes on both sides of the strip kernel's block edges (with the thread shape and the block
+    geometry named, so that the edges are where the case says), H and W
+    smaller than k, C of 8, 24, 40, 88 and an odd C and k 9 (the direct
+    kernel), the tile kernel; bias and none, bf16 and fp32, both weight layouts."""
+    bf16, fp32 = torch.bfloat16, torch.float32
+    worst = {3: 0.0, 5: 0.0, 7: 0.0, 9: 0.0}
+
+    def case(shape, k, bias, dtypes=(bf16, fp32), **kw):
+        for dtype in dtypes:
+            worst[k] = max(worst[k], depthwise_case(torch, depthwise, shape, k, bias, dtype, **kw))
+
+    from ics_tpu_torch.tools.bench_depthwise import depthwise_calls
+
+    for model in (CONVNEXT, MOBILENET, EFFICIENTNET):
+        for bucket in SERVER_BUCKETS:
+            for shape, k, bias in sorted(depthwise_calls(model, bucket)):
+                # halved: among tens of millions of outputs of unit deviation one passes 8
+                case(shape, k, bias, (bf16,), scale=0.5)
+    for hw, c in CONVNEXT_SHAPES:
+        case((8, hw, hw, c), 7, True, (fp32,))
+    case((8, 28, 28, 88), 3, False, layout="oihw")     # MobileNetV3-Small
+    case((8, 14, 14, 240), 5, True)
+    case((8, 14, 14, 240), 5, False, layout="oihw")
+    case((4, 12, 12, 2688), 5, False)                  # EfficientNet-B4's widest
+    case((4, 24, 24, 672), 3, False)
+    case((2, 190, 190, 24), 3, False, layout="oihw")   # and its largest image: 3 units a pixel
+    case((8, 7, 7, 576), 5, False)
+    case((16, 1, 1, 96), 3, True)                      # a 1x1 image: only the centre tap lands
+    case((2, 10, 6, 15), 3, True)                      # an odd C: the direct kernel
+    case((1, 11, 11, 32), 9, True)                     # k 9: the direct kernel
+    # W and H one under, at and one over a block of 8 rows by 8 columns (7 where
+    # a thread has 7 columns), with the wide and the narrow thread shape
+    for k in (3, 5, 7):
+        for dtype in (bf16, fp32):
+            itemsize = 2 if dtype == bf16 else 4
+            for ch, cols in depthwise.STRIP_SHAPES[(itemsize, k)]:
+                tw = max(8 // cols, 1)
+                edge = tw * cols
+                for h, w in ((7, edge + 1), (8, edge), (9, edge - 1)):
+                    case((2, h, w, 8), k, h == 8, (dtype,), variant="strip",
+                         geometry=(ch, cols, 8 // ch, tw, 8))
+    # H and W smaller than k; C 24, 40, 88 with a last channel block that is part empty
+    case((3, 2, 3, 24), 7, True)
+    case((3, 3, 2, 40), 5, False, layout="oihw")
+    case((2, 9, 11, 88), 3, True, (bf16,), variant="strip", geometry=(8, 1, 8, 11, 5))
+    case((2, 9, 11, 88), 3, True, (bf16,), variant="strip", geometry=(4, 4, 16, 3, 5))
+    case((2, 9, 11, 40), 7, True, (bf16,), variant="strip", geometry=(2, 1, 16, 4, 9))
+    case((2, 9, 11, 40), 7, True, (bf16,), variant="strip", geometry=(1, 7, 32, 2, 9))
+    case((5, 9, 11, 24), 5, False, variant="strip", geometry=(4, 1, 6, 11, 9))
+    case((5, 9, 11, 24), 5, False, variant="strip", geometry=(2, 4, 12, 3, 9))
+    case((5, 6, 6, 40), 7, True, (bf16,), variant="strip", geometry=(2, 1, 20, 6, 6))
+    for k in (3, 5, 7):                                # the tile kernel: serves the small calls
+        case((4, 14, 20, 48), k, True, variant="tile")
+    case((2, 60, 60, 96), 7, True)                     # k 7 on a wide image, a few images
+    case((16, 56, 56, 96), 7, True, (bf16,))           # and enough of them for the wide threads
+    case((16, 24, 24, 672), 3, False, (bf16,))
+    case((16, 24, 24, 960), 5, False, (bf16,))
+    return {"k7": worst[7], "k35": max(worst[3], worst[5])}
 
 
 def window_inputs(torch, batch: int, grid: int, heads: int, hd: int, window: int,
@@ -549,7 +690,8 @@ def time_depthwise(torch, depthwise) -> dict:
         case = bound(2 * x.numel() * 2 + (w.numel() + b.numel()) * 2,
                      2.0 * 49 * x.numel(), FP32_FLOPS)
         log(f"    F.conv2d(groups=C) channels_last (yardstick only) {lib:.4f} ms; bound "
-            f"{case['bound_ms']:.4f} ms by {case['bound_by']}; x{count} a step")
+            f"{case['bound_ms']:.4f} ms by {case['bound_by']}; x{count} a step; served by "
+            f"{depthwise.pick_variant(shape, 7, torch.bfloat16)}")
         for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib),
                            ("bound_ms", case["bound_ms"])):
             total[key] += count * value
@@ -557,6 +699,53 @@ def time_depthwise(torch, depthwise) -> dict:
     # the step's bound is the sum of its launches' bounds; it is named after
     # the side most of them are on
     return {**total, "bound_by": "operations" if "operations" in by else "bytes"}
+
+
+def time_depthwise_k35(torch, depthwise) -> dict:
+    """Phase 4: the k 3 and k 5 depthwise convolutions of one bucket-32 step of
+    EfficientNet-B4 (28) and of MobileNetV3-Small (7), through the module that
+    serves them (``Conv2D``, its taps kept beside its weight), beside cuDNN's
+    grouped convolution on the same module, with the host's time a launch of
+    each."""
+    from ics_tpu_torch.nn.layers import Conv2D
+    from ics_tpu_torch.tools.bench_depthwise import depthwise_calls
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for model in (EFFICIENTNET, MOBILENET):
+        step = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "launches": 0}
+        for (shape, k, bias), count in sorted(depthwise_calls(model, 32).items()):
+            c = shape[-1]
+            conv = Conv2D(c, c, k, 1, padding=k // 2, groups=c, use_bias=bias)
+            conv.reset_parameters(torch.Generator().manual_seed(k))
+            conv = conv.to(device="cuda", dtype=torch.bfloat16,
+                           memory_format=torch.channels_last)     # as fold() stores it
+            x, _, _ = depthwise_inputs(torch, shape, k, False, torch.bfloat16)
+            cudnn = Conv2D(c, c, k, 1, padding=k // 2, groups=c, use_bias=bias)
+            cudnn.load_state_dict(conv.state_dict())
+            cudnn = cudnn.to(device="cuda", dtype=torch.bfloat16,
+                             memory_format=torch.channels_last)
+            cudnn.use_kernel = False
+            with torch.inference_mode():
+                ms, plain_ms = in_turns(
+                    f"depthwise_conv {list(shape)} k={k} bias={bias} bf16 ({model})",
+                    lambda: conv(x), lambda: depthwise.depthwise_reference(x, conv.weight, conv.bias),
+                    iters=10)
+                lib = library_ms(lambda: cudnn(x))
+                hosts = (host_us(lambda: conv(x)), host_us(lambda: cudnn(x)))
+            case = bound(2 * x.numel() * 2 + (k * k + bias) * c * 2, 2.0 * k * k * x.numel(),
+                         FP32_FLOPS)
+            log(f"    cuDNN F.conv2d(groups=C) (yardstick only) {lib:.4f} ms; bound "
+                f"{case['bound_ms']:.4f} ms by {case['bound_by']}; host {hosts[0]:.1f} us a "
+                f"launch, cuDNN {hosts[1]:.1f}; x{count} a step")
+            for key, value in (("ms", ms), ("library_ms", lib), ("bound_ms", case["bound_ms"])):
+                step[key] += count * value
+            total["plain_ms"] += count * plain_ms
+            step["launches"] += count
+        log(f"  {model}: {step['launches']} launches a step, kernel {step['ms']:.4f} ms, cuDNN "
+            f"{step['library_ms']:.4f} ms, bound {step['bound_ms']:.4f} ms")
+        for key in ("ms", "library_ms", "bound_ms"):
+            total[key] += step[key]
+    return {**total, "bound_by": "bytes"}
 
 
 def time_window(torch, window_attention) -> dict:
@@ -908,7 +1097,7 @@ def serve_and_drive() -> dict:
             TPU_FUSED_CHAINS="true",
             TPU_PRECISION="bf16",
             TPU_DEVICE_DECODE="false",
-            TPU_BATCH_BUCKETS="1,8,32",
+            TPU_BATCH_BUCKETS=",".join(map(str, SERVER_BUCKETS)),
             TPU_WARMUP_ON_STARTUP="true",
         )
         server_log = Path(tmp) / "server.log"
@@ -989,8 +1178,9 @@ def check_drive(drive: dict) -> dict:
         "flash_attention": jpg["launches"]["flash_attention"] + png["launches"]["flash_attention"],
         "bottleneck_chain": res["launches"]["bottleneck_chain"],
         "normalize_u8": png["launches"]["normalize_u8"],
-        "depthwise_conv": drive[CONVNEXT]["launches"]["depthwise_conv"]
-        + drive[MOBILENET]["launches"]["depthwise_conv"],
+        # ConvNeXt-T's launches are the kernel at k 7, MobileNetV3-Small's at k 3 and 5
+        "depthwise_conv": drive[CONVNEXT]["launches"]["depthwise_conv"],
+        "depthwise_conv_k35": drive[MOBILENET]["launches"]["depthwise_conv"],
         "window_attention": drive[SWIN]["launches"]["window_attention"],
     }
 
@@ -1032,10 +1222,11 @@ def main() -> None:
         "flash_attention": check_attention(torch, attention),
         "bottleneck_chain": check_chain(torch, bottleneck),
         "normalize_u8": check_normalize(torch, normalize),
-        "depthwise_conv": check_depthwise(torch, depthwise),
         "window_attention": check_window(torch, window_attention),
         "flash_attention_bf16_exp": check_bf16_exp(torch, attention),
     }
+    dw_errs = check_depthwise(torch, depthwise)
+    errs["depthwise_conv"], errs["depthwise_conv_k35"] = dw_errs["k7"], dw_errs["k35"]
 
     log("[4] CUDA-event times at the bucket-32 shapes, and the card's bound:")
     times = {
@@ -1043,6 +1234,7 @@ def main() -> None:
         "bottleneck_chain": time_chain(torch, bottleneck),
         "normalize_u8": time_normalize(torch, normalize),
         "depthwise_conv": time_depthwise(torch, depthwise),
+        "depthwise_conv_k35": time_depthwise_k35(torch, depthwise),
         "window_attention": time_window(torch, window_attention),
         "flash_attention_bf16_exp": time_attention(torch, attention, bf16_exp=True),
     }
@@ -1076,6 +1268,8 @@ def main() -> None:
                          "ics_tpu/ops/pallas_preproc.py:67"),
         "depthwise_conv": ("ics_tpu_torch/ops/csrc/depthwise_conv.cu",
                            "ics_tpu/ops/pallas_depthwise.py:88"),
+        "depthwise_conv_k35": ("ics_tpu_torch/ops/csrc/depthwise_conv.cu",
+                               "ics_tpu/ops/pallas_depthwise.py:88"),
         "window_attention": ("ics_tpu_torch/ops/csrc/window_attention.cu",
                              "scripts/proto_window_attn.py:82"),
         "flash_attention_bf16_exp": ("ics_tpu_torch/ops/csrc/flash_attention.cu",

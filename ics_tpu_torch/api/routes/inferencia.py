@@ -77,6 +77,7 @@ async def warmup(request: Request):
     return JSONResponse({
         "message": "warmup concluído",
         "buckets": list(service.engine.buckets),
+        "replicas": 1,  # hedged replicas are not ported: one engine serves
     })
 
 
@@ -96,7 +97,14 @@ async def classificar_direto(request: Request):
             raise HTTPException(
                 422, f"Modelo desconhecido: {modelo}. Use /inferencia/modelos."
             )
-        service = await pool.get(modelo)
+        try:
+            service = await pool.get(modelo)
+        except (RuntimeError, ValueError) as exc:
+            # the client picked a model this deployment cannot build (a
+            # setting the model does not go with, a stopped pool): 422, not 500
+            raise HTTPException(
+                422, f"Modelo '{modelo}' indisponível nesta configuração: {exc}"
+            )
     else:
         service = _engine(request)
     form = await request.form()

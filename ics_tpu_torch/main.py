@@ -60,8 +60,10 @@ async def lifespan(app: App):
             from ics_tpu_torch.runtime.service import (
                 InferenceService,
                 InferenceServicePool,
+                warn_unserved_settings,
             )
 
+            warn_unserved_settings()
             service = InferenceService.from_settings()
             await service.start(warm=settings.TPU_WARMUP_ON_STARTUP)
             pool = InferenceServicePool(
@@ -207,8 +209,23 @@ def create_app(db: Database | None = None) -> App:
         engine = request.app.state.get("engine")
         if engine is not None:
             stats = engine.status()
-            registry.gauge("gpu_images_total", "images inferred").set(stats["images"])
-            registry.gauge("gpu_batches_total", "batches executed").set(stats["batches"])
+            # the scrape keeps the JAX package's names: one dashboard reads both
+            registry.gauge("tpu_images_total", "images inferred").set(stats["images"])
+            registry.gauge("tpu_batches_total", "batches executed").set(stats["batches"])
+            registry.gauge("tpu_host_decoded_total", "images via host_decoded lane").set(
+                stats.get("host_decoded", 0))
+            batcher = stats.get("batcher") or {}
+            registry.gauge(
+                "tpu_pipelined_flushes_total",
+                "flushes whose staging/H2D overlapped prior compute",
+            ).set(batcher.get("pipelined", 0))
+            registry.gauge(
+                "tpu_lane_flushes_pixel_total", "batch flushes on the pixel lane"
+            ).set(batcher.get("flushes", 0))
+            registry.gauge(
+                "tpu_lane_pipelined_pixel_total",
+                "pipelined (overlapped) flushes on the pixel lane",
+            ).set(batcher.get("pipelined", 0))
             for name, count in stats["kernel_launches"].items():
                 registry.gauge(
                     f"gpu_kernel_launches_{name}_total", f"launches of the {name} kernel"

@@ -143,6 +143,12 @@ class ResNet(nn.Module):
                 y = blk(y)
         return self.head(global_avg_pool(y))
 
+    @property
+    def can_fuse_chains(self) -> bool:
+        """Whether ``fold(fused_chains=True)`` has a chain path for this
+        model: dense bottlenecks at the standard inner width."""
+        return self.block_cls is Bottleneck and self.groups == 1 and self.base_width == 64
+
     def fold(self, fused_chains: bool = False) -> "ResNet":
         """Fold every BatchNorm into (scale, bias) for ``apply_folded``.
         ``fused_chains``: also pack the identity blocks (all but the first)
@@ -153,7 +159,7 @@ class ResNet(nn.Module):
                 "fused_chains packs bottleneck (cbr1/2/3) weights; "
                 "basic-block ResNets have no fused-chain path"
             )
-        if fused_chains and (self.groups != 1 or self.base_width != 64):
+        if fused_chains and not self.can_fuse_chains:
             raise ValueError(
                 "fused_chains assumes dense 3x3 convs; grouped/wide "
                 "bottlenecks (ResNeXt/Wide-ResNet) have no fused-chain path"

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ics_tpu_torch.ops.depthwise import depthwise_conv
+from ics_tpu_torch.ops.depthwise import depthwise_conv_taps, kernel_taps
 
 
 def trunc_normal_(t: torch.Tensor, generator: Optional[torch.Generator],
@@ -52,7 +52,10 @@ class Conv2D(nn.Module):
     (``ics_tpu_torch.ops.depthwise``), bias included; on the CPU it is the
     same ``F.conv2d`` as every other convolution. ``use_kernel = False``
     (``set_use_kernels``) sends it to cuDNN on the card too, for measuring
-    the two side by side.
+    the two side by side. The kernel reads its taps as a dense [k * k, C]
+    tensor in the activation's dtype: the module makes it once beside its
+    weight (``kernel_operands``) and again only when the weight has moved,
+    been cast or been written; the parameter and the state dict stay OIHW.
 
     ``padding`` is symmetric, as an int; ``"SAME"`` is taken where it is
     symmetric too (stride 1 with an odd kernel, or a 1x1 kernel at any
@@ -81,6 +84,8 @@ class Conv2D(nn.Module):
             and kernel % 2 == 1 and self.padding == kernel // 2
         )
         self.use_kernel = True
+        self.kernel_size = kernel
+        self._kernel_operands: Optional[tuple] = None   # (key, taps, bias)
         self.weight = nn.Parameter(
             torch.empty(out_ch, in_ch // groups, kernel, kernel, device=device)
         )
@@ -94,10 +99,34 @@ class Conv2D(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
+    def _apply(self, fn, *args, **kwargs):
+        self._kernel_operands = None   # a move or a cast: the taps are made anew
+        return super()._apply(fn, *args, **kwargs)
+
+    def kernel_operands(self, dtype: torch.dtype) -> tuple:
+        """(taps [k * k, C], bias [C] or None) in ``dtype`` on the weight's
+        device, as the depthwise kernel reads them. Kept until the weight or
+        the bias is replaced or written in place (``load_state_dict`` writes
+        in place: the version counter tells)."""
+        w, b = self.weight, self.bias
+        # (a tensor made under inference_mode has no version counter: it
+        # cannot be written in place either)
+        key = (dtype,) + tuple(
+            (t.data_ptr(), 0 if t.is_inference() else t._version)
+            for t in (w, b) if t is not None)
+        cached = self._kernel_operands
+        if cached is None or cached[0] != key:
+            with torch.no_grad():
+                taps = kernel_taps(w.detach(), w.shape[0], dtype)
+                bias = None if b is None else b.detach().to(dtype).contiguous()
+            cached = self._kernel_operands = (key, taps, bias)
+        return cached[1], cached[2]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
         if self.depthwise and self.use_kernel and x.is_cuda:
-            return depthwise_conv(x.contiguous(), self.weight.to(x.dtype), bias)
+            taps, bias = self.kernel_operands(x.dtype)
+            return depthwise_conv_taps(x.contiguous(), taps, bias, self.kernel_size)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), bias,
                      self.stride, self.padding, 1, self.groups)
         return y.permute(0, 2, 3, 1)

@@ -32,10 +32,15 @@ from ics_tpu_torch.ops import LAUNCHES, stream_and_device
 # inner widths the kernel is built for; the block's width is C = 4 * Cm in
 # ResNet, and any multiple of Cm here
 KERNEL_INNER_WIDTHS = (64, 128, 256)
-# shared memory of one thread block: what two blocks can hold together on
-# one multiprocessor, and what one block may ask for at most
-_SMEM_TWO_BLOCKS = 113 * 1024
+# what one thread block may ask for in shared memory on sm_90
 _SMEM_MAX = 232448
+VARIANTS = {"wgmma": 0, "mma": 1}
+# the wgmma kernel's ring: 2 to 4 stages of a [128 pixels, 64] x tile and a
+# [Cm, 64] weight tile
+_X_TILE_ROWS = 128
+_MAX_STAGES = 4
+_MIN_STAGES = 2
+_H100_MULTIPROCESSORS = 132  # what pick_tile_rows counts with where no device is named
 _WEIGHT_KEYS = ("w1", "w2", "w3")
 _KEYS = ("w1", "s1", "b1", "w2", "s2", "b2", "w3", "s3", "b3")
 
@@ -100,14 +105,34 @@ class ChainWeights(nn.Module):
         return {key: getattr(self, key) for key in _KEYS}
 
     def kernel_layout(self) -> tuple:
-        """(w1t [n, Cm, C], w2t [n, Cm, 9*Cm], w3t [n, C, Cm]): the output
-        channel outermost and K contiguous, which is how the kernel's B
-        fragments read them. Made once per device placement."""
+        """(w1t [n, Cm, C], w2t [n, Cm, 9*Cm], w3t [n, C, Cm], w3t in
+        ``expand_row_order``): the output channel outermost and K contiguous,
+        which is how the kernel's B fragments read them. Made once per device
+        placement."""
         if self._kernel_layout is None:
-            self._kernel_layout = tuple(
-                getattr(self, key).transpose(1, 2).contiguous() for key in _WEIGHT_KEYS
-            )
+            self._kernel_layout = _kernel_layout(self.packed())
         return self._kernel_layout
+
+
+def expand_row_order(c: int) -> torch.Tensor:
+    """The order of the last 1x1's output channels in the wgmma kernel's
+    weight tile. A thread of an accumulator fragment holds columns 8 j + 2 t
+    and 8 j + 2 t + 1 of every 8-column block j (t: its place in its quad of
+    lanes). With channel ``32 G + 8 t + 2 jj + e`` in column ``32 G + 8 jj +
+    2 t + e`` its eight values of four blocks are eight neighbouring channels:
+    16 bytes of the shortcut and of the output, read and written as they
+    lie, where the natural order costs two transpositions among the quad's
+    lanes for every such block. Returns ``order`` with ``order[column] =
+    channel``; ``c`` is a multiple of 32."""
+    column = torch.arange(c)
+    group, jj, t, e = column // 32, (column % 32) // 8, (column % 8) // 2, column % 2
+    return 32 * group + 8 * t + 2 * jj + e
+
+
+def _kernel_layout(weights: dict[str, torch.Tensor]) -> tuple:
+    w1t, w2t, w3t = (weights[key].transpose(1, 2).contiguous() for key in _WEIGHT_KEYS)
+    order = expand_row_order(w3t.shape[1]).to(w3t.device)
+    return w1t, w2t, w3t, w3t.index_select(1, order).contiguous()
 
 
 def _as_packed(packed) -> dict[str, torch.Tensor]:
@@ -118,9 +143,24 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _smem_bytes(th: int, w: int, cm: int) -> int:
-    """Shared memory of one thread block at ``th`` tile rows (the formula of
-    ``launch`` in ``csrc/bottleneck_chain.cu``)."""
+def _stage_bytes(cm: int) -> int:
+    return _X_TILE_ROWS * 128 + cm * 128
+
+
+def _smem_bytes(th: int, w: int, cm: int, stages: int = _MIN_STAGES) -> int:
+    """Shared memory of one thread block of the wgmma kernel at ``th`` tile
+    rows and ``stages`` ring stages (the formula of ``launch_wgmma`` in
+    ``csrc/bottleneck_chain.cu``): room to align the ring to 1024 bytes, the
+    ring, ``a`` with its halo rows and zero columns, ``cmid``, the barriers."""
+    arow = cm + 8
+    cmid = _ceil_div(2 * th * w * arow, 16) * 16
+    return 1024 + stages * _stage_bytes(cm) + 2 * (th + 2) * (w + 2) * arow + cmid \
+        + 2 * 8 * _MAX_STAGES
+
+
+def _smem_bytes_mma(th: int, w: int, cm: int) -> int:
+    """Shared memory of one thread block of the mma.sync kernel (the formula
+    of ``launch_mma``)."""
     round16 = lambda v: _ceil_div(v, 16) * 16  # noqa: E731
     arow, wrow = cm + 8, 72
     x_rows = min(256 // (cm // 64), round16((th + 2) * w))
@@ -128,28 +168,56 @@ def _smem_bytes(th: int, w: int, cm: int) -> int:
     return 2 * ((th + 2) * (w + 2) * arow + u_elems + cm * wrow)
 
 
+def ring_stages(th: int, w: int, cm: int) -> int:
+    """Ring stages of the wgmma kernel at ``th`` tile rows: as many of 2 to 4
+    as fit beside ``a`` and ``cmid``; 0 if two do not fit."""
+    for stages in range(_MAX_STAGES, _MIN_STAGES - 1, -1):
+        if _smem_bytes(th, w, cm, stages) <= _SMEM_MAX:
+            return stages
+    return 0
+
+
 @functools.lru_cache(maxsize=None)
-def pick_tile_rows(h: int, w: int, cm: int) -> int:
+def pick_tile_rows(h: int, w: int, cm: int, variant: str = "wgmma", batch: int = 32,
+                   multiprocessors: int = _H100_MULTIPROCESSORS) -> int:
     """Image rows per thread block (cached: the serving path asks for the
-    same few shapes on every step). The kernel cuts each product into items
-    of 16 pixels x 64 columns and runs 16 items per pass over its K loop,
-    so a tile costs passes, not pixels: per tile ``4 * passes(first 1x1,
-    with its two halo rows) + 13 * passes(3x3 and last 1x1)`` (the weights
-    are the products' FLOP shares). The cheapest tiling whose shared memory
-    lets two blocks share a multiprocessor wins; if none does, the cheapest
-    that fits at all."""
-    nch = cm // 64
+    same few shapes on every step).
 
-    def passes(pixels: int) -> int:
-        return _ceil_div(_ceil_div(pixels, 16) * nch, 16)
+    The wgmma kernel runs each product in passes: 128 pixels a pass for the
+    first 1x1 (over the tile and its two halo rows), ``512 * 64 / cm`` pixels
+    a pass for the 3x3 and the last 1x1, and a pass costs its full size
+    whatever share of it is pixels. Per tile that is ``4 * passes * 128 + 13
+    * passes * pass size`` (the weights are the products' FLOP shares, 4 : 9
+    : 4), and the ``batch * tiles`` blocks, one a multiprocessor at a time,
+    run in whole rounds of the card's ``multiprocessors``. The cheapest tiling
+    that leaves the ring at least three stages wins; if none does, the
+    cheapest with two. The mma.sync kernel, which serves no shape and is kept
+    to be timed beside this one, has its own rule: passes of 16 items of 16
+    pixels x 64 columns, two blocks a multiprocessor where they fit."""
+    if variant == "mma":
+        nch = cm // 64
 
-    def cost(th: int) -> int:
-        return _ceil_div(h, th) * (4 * passes((th + 2) * w) + 13 * passes(th * w))
+        def passes(pixels: int) -> int:
+            return _ceil_div(_ceil_div(pixels, 16) * nch, 16)
 
-    for limit in (_SMEM_TWO_BLOCKS, _SMEM_MAX):
-        fits = [th for th in range(1, h + 1) if _smem_bytes(th, w, cm) <= limit]
-        if fits:
-            return min(fits, key=lambda th: (cost(th), -th))
+        # two of its blocks share a multiprocessor where their shared memory allows
+        for limit in (113 * 1024, _SMEM_MAX):
+            fits = [th for th in range(1, h + 1) if _smem_bytes_mma(th, w, cm) <= limit]
+            if fits:
+                return min(fits, key=lambda th: (
+                    _ceil_div(h, th) * (4 * passes((th + 2) * w) + 13 * passes(th * w)), -th))
+    else:
+        big = 512 * 64 // cm
+
+        def cost(th: int) -> int:
+            rounds = _ceil_div(_ceil_div(h, th) * batch, multiprocessors)
+            return rounds * (4 * _ceil_div((th + 2) * w, _X_TILE_ROWS) * _X_TILE_ROWS
+                             + 13 * _ceil_div(th * w, big) * big)
+
+        for least in (3, _MIN_STAGES):
+            fits = [th for th in range(1, h + 1) if ring_stages(th, w, cm) >= least]
+            if fits:
+                return min(fits, key=lambda th: (cost(th), -th))
     raise ValueError(f"bottleneck_chain: a row of width {w} at Cm={cm} does not fit "
                      "a thread block's shared memory")
 
@@ -160,20 +228,24 @@ def _kernel():
     lib = _build.load("bottleneck_chain")
     fn = lib.ics_bottleneck_block
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int]
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p, ctypes.c_int]
         fn.restype = ctypes.c_int
         lib.ics_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ics_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def bottleneck_chain(x: torch.Tensor, packed, tile_rows: Optional[int] = None) -> torch.Tensor:
+def bottleneck_chain(x: torch.Tensor, packed, tile_rows: Optional[int] = None,
+                     variant: str = "wgmma") -> torch.Tensor:
     """Run a chain of stride-1 identity bottlenecks over x [B, H, W, C].
 
     ``packed``: a ``ChainWeights`` or the dict of ``pack_chain_weights``.
     CUDA tensors go through the kernel, one launch per bottleneck (bf16,
     contiguous NHWC, Cm in 64/128/256); anything it does not take raises.
-    CPU tensors take the plain version.
+    CPU tensors take the plain version. ``variant``: "wgmma", which serves
+    every call, or "mma", the earlier mma.sync kernel: it serves nothing and
+    is there only to be timed beside the other (a shape that the wgmma
+    kernel's shared memory cannot take raises, it does not fall back).
     """
     weights = _as_packed(packed)
     n, c, cm = weights["w1"].shape
@@ -190,7 +262,7 @@ def bottleneck_chain(x: torch.Tensor, packed, tile_rows: Optional[int] = None) -
             f"the bottleneck_chain kernel takes bf16 activations and weights; got "
             f"{x.dtype} and {weights['w1'].dtype}"
         )
-    if cm not in KERNEL_INNER_WIDTHS or c % cm:
+    if cm not in KERNEL_INNER_WIDTHS or c % cm:  # (so C is a multiple of 64)
         raise ValueError(
             f"the bottleneck_chain kernel takes Cm in {KERNEL_INNER_WIDTHS} and C a "
             f"multiple of Cm; got Cm={cm}, C={c}"
@@ -202,13 +274,19 @@ def bottleneck_chain(x: torch.Tensor, packed, tile_rows: Optional[int] = None) -
         raise ValueError(f"bottleneck_chain: shape {tuple(x.shape)} is too large")
     if x.numel() == 0 or n == 0:
         return x.clone()
-    th = pick_tile_rows(h, w, cm) if tile_rows is None else int(tile_rows)
-    if not 1 <= th <= h or _smem_bytes(th, w, cm) > _SMEM_MAX:
-        raise ValueError(f"bottleneck_chain: tile_rows={th} does not fit (H={h}, W={w}, Cm={cm})")
-    if isinstance(packed, ChainWeights):
-        w1t, w2t, w3t = packed.kernel_layout()
+    if variant not in VARIANTS:
+        raise ValueError(f"bottleneck_chain: variant must be one of {sorted(VARIANTS)}")
+    if tile_rows is None:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        th = pick_tile_rows(h, w, cm, variant, b, sms)
     else:
-        w1t, w2t, w3t = (weights[k].transpose(1, 2).contiguous() for k in _WEIGHT_KEYS)
+        th = int(tile_rows)
+    stages = ring_stages(th, w, cm) if variant == "wgmma" else 0
+    if not 1 <= th <= h or (_smem_bytes_mma(th, w, cm) > _SMEM_MAX if variant == "mma"
+                            else stages < _MIN_STAGES):
+        raise ValueError(f"bottleneck_chain: tile_rows={th} does not fit (H={h}, W={w}, Cm={cm})")
+    layout = packed.kernel_layout() if isinstance(packed, ChainWeights) else _kernel_layout(weights)
+    w1t, w2t, w3t = layout[0], layout[1], layout[3 if variant == "wgmma" else 2]
     scales = [weights[k].contiguous() for k in ("s1", "b1", "s2", "b2", "s3", "b3")]
     if any(t.dtype != torch.float32 for t in scales):
         raise ValueError("bottleneck_chain wants fp32 scale and bias")
@@ -226,7 +304,7 @@ def bottleneck_chain(x: torch.Tensor, packed, tile_rows: Optional[int] = None) -
             w1t[j].data_ptr(), s1[j].data_ptr(), b1[j].data_ptr(),
             w2t[j].data_ptr(), s2[j].data_ptr(), b2[j].data_ptr(),
             w3t[j].data_ptr(), s3[j].data_ptr(), b3[j].data_ptr(),
-            b, h, w, c, cm, th, stream, device,
+            b, h, w, c, cm, th, stages, VARIANTS[variant], stream, device,
         )
         if rc != 0:
             msg = lib.ics_cuda_error_string(rc).decode()

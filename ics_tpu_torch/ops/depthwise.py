@@ -8,11 +8,20 @@ stride 1, zero padding ``k // 2`` for any odd ``k``, the ``k * k``
 multiply-adds of an output and its bias summed in fp32, one rounding to
 ``x.dtype``. Nothing is padded in device memory: the kernel masks its own
 borders and reads and writes the unpadded tensor.
+
+The source holds three kernels. Which one a call takes, and the strip
+kernel's thread shape and block geometry, is decided here (``pick_plan``,
+``strip_geometry``), where the CPU tests reach it. The kernels read the taps
+as a dense ``[k * k, C]`` tensor: ``kernel_taps`` makes it from any of the
+weight layouts, and a ``Conv2D`` module keeps it beside its weight, so the
+serving path (``depthwise_conv_taps``) makes no copy and repeats no check
+that depends on the module alone.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -21,30 +30,74 @@ import torch.nn.functional as F
 from ics_tpu_torch.ops import LAUNCHES, stream_and_device
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+_ITEMSIZE = {torch.bfloat16: 2, torch.float32: 4}
+VARIANTS = {"direct": 0, "strip": 1, "tile": 2}
+# What a thread of the strip kernel owns, by (bytes a value, k): (CH
+# neighbouring channels, Q neighbouring columns), the wide shape first and
+# the narrow one second (``strip_by_shape`` in the source builds these). The
+# kernel is bound by the instructions it issues, so the wide shapes give a
+# thread as many multiply-adds a row as its registers hold (Q * k * k * CH: 144,
+# 200, 343), each input value it reads from shared memory feeding up to k * k of
+# them; their threads are few and walk long, so a call too small to fill the
+# card with them takes the narrow shape (one column a thread), and a smaller
+# one still the tile kernel (``pick_plan``).
+STRIP_SHAPES = {(2, 3): ((4, 4), (8, 1)), (2, 5): ((2, 4), (4, 1)), (2, 7): ((1, 7), (2, 1)),
+                (4, 3): ((2, 4), (4, 1)), (4, 5): ((2, 4), (4, 1)), (4, 7): ((1, 7), (2, 1))}
+STRIP_STAGES = 6            # row buffers of the strip kernel's ring
+STRIP_MAX_PIECES = 4        # 16-byte pieces a thread copies for one row, at most
+STRIP_MAX_SMEM = 48 * 1024
+STRIP_MAX_THREADS = 128
+# a block's share of a pixel, unless it is all of C: two sectors, and four at
+# k 3, where bytes are the bound ((cb, tw) = (8, 16) against (4, 32) on
+# [32, 95, 95, 192] bf16 on an H100: 0.098 against 0.106 ms)
+STRIP_MIN_RUN_BYTES = {3: 128, 5: 64, 7: 64}
+# H is cut into strips until the grid has this many blocks (about 8, 4 and 1.5
+# for each of the card's 132 multiprocessors: the more registers a thread
+# holds, the fewer blocks fit), in strips no shorter than this many rows (a
+# strip computes k - 1 rows of halo that its neighbour computes too)
+STRIP_TARGET_BLOCKS = {3: 1056, 5: 528, 7: 192}
+STRIP_MIN_ROWS = {3: 12, 5: 20, 7: 14}
+# Which grids a thread shape serves (``pick_plan``), from times taken in turns on
+# an H100 (``tools.bench_depthwise --bucket 1 8 32``). The wide shape wants about
+# a block a multiprocessor, and at k 5 a block and a half: [32, 7, 7, 576] with 192
+# and [32, 14, 14, 240] with 160 blocks lose to the narrow shape, [8, 12, 12, 1632]
+# with 208 wins. The narrow shape wants about a block a multiprocessor too (a
+# whole one at k 3: [1, 95, 95, 192] with 126 loses to the tile kernel), but no
+# more than one round of two blocks a multiprocessor (past that the tile kernel
+# is the faster of the two); at k 5 and 7 it also takes a smaller grid whose
+# blocks walk at most 12 rows, where its walk is shorter than the tile kernel's
+# one pass.
+STRIP_MIN_BLOCKS_WIDE = {3: 120, 5: 200, 7: 120}
+STRIP_MIN_BLOCKS_NARROW = {3: 132, 5: 120, 7: 120}
+STRIP_MAX_BLOCKS_NARROW = 264
+STRIP_SHORT_ROWS = 12
 
 _launches = LAUNCHES["depthwise_conv"]
+_lib = None
 
 
 def _kernel():
-    from ics_tpu_torch.ops import _build
+    global _lib
+    if _lib is None:
+        from ics_tpu_torch.ops import _build
 
-    lib = _build.load("depthwise_conv")
-    fn = lib.ics_depthwise_conv
-    if fn.argtypes is None:
+        lib = _build.load("depthwise_conv")
+        fn = lib.ics_depthwise_conv
         fn.argtypes = [
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_void_p, ctypes.c_int,
-        ]
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ]   # dtype, variant, x, taps, bias, y, B, H, W, C, k, ch, cols, cb, tw, rh, ...
         fn.restype = ctypes.c_int
         lib.ics_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ics_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+        _lib = lib
+    return _lib
 
 
 def _taps(w: torch.Tensor, channels: int) -> torch.Tensor:
-    """The taps as a [k*k, C] view (no copy) of ``w``: [k, k, C], HWIO
+    """The taps as a [k, k, C] view (no copy) of ``w``: [k, k, C], HWIO
     [k, k, 1, C], or a module's OIHW [C, 1, k, k]."""
     if w.dim() == 4 and w.shape[1] == 1 and w.shape[0] == channels \
             and w.shape[2] == w.shape[3]:
@@ -65,18 +118,195 @@ def _taps(w: torch.Tensor, channels: int) -> torch.Tensor:
     return taps
 
 
-def depthwise_conv(x: torch.Tensor, w: torch.Tensor,
-                   b: Optional[torch.Tensor] = None) -> torch.Tensor:
+def kernel_taps(w: torch.Tensor, channels: int,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The taps as the kernels read them: a dense [k * k, C] tensor in
+    ``dtype`` (default: ``w``'s), tap (dy, dx) of channel c at
+    ``[dy * k + dx, c]``. A view where ``w`` already lies so, else a copy."""
+    taps = _taps(w, channels)
+    k = taps.shape[0]
+    if dtype is not None:
+        taps = taps.to(dtype)
+    return taps.reshape(k * k, channels).contiguous()
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def strip_geometry(b: int, h: int, w: int, c: int, k: int, itemsize: int, ch: int,
+                   cols: int) -> Optional[tuple[int, int, int, int, int]]:
+    """(ch, cols, cb, tw, rh) of the strip kernel for a [b, h, w, c] call
+    with threads of ``ch`` channels by ``cols`` columns, or None where the
+    kernel does not take the shape so.
+
+    A block is ``tw`` threads side by side along W (``tw * cols`` output
+    columns) by ``cb`` along C (``cb * ch`` channels) and walks down ``rh``
+    rows. The cheapest (cb, tw) wins, counting per row of a block the columns
+    its threads compute (whole warps) and the 16-byte pieces it stages,
+    ``tw * cols + k - 1`` columns of them, over all blocks of a row; a block's
+    share of a pixel is at least ``STRIP_MIN_RUN_BYTES``, or all of C. ``rh``
+    cuts H as ``STRIP_TARGET_BLOCKS`` and ``STRIP_MIN_ROWS`` say."""
+    if c % ch or (c * itemsize) % 16 or w * c * itemsize >= 2**31 or b > 65535:
+        return None
+    unit = ch * itemsize
+    units = c // ch
+    best = None
+    for cb in range(1, min(units, STRIP_MAX_THREADS) + 1):
+        run = cb * unit
+        if run % 16 or (cb < units and run < STRIP_MIN_RUN_BYTES[k]):
+            continue
+        for tw in range(1, min(_ceil_div(w, cols), STRIP_MAX_THREADS // cb) + 1):
+            threads = cb * tw
+            pieces = (tw * cols + k - 1) * run // 16
+            if not strip_fits((ch, cols, cb, tw, 1), k, itemsize):
+                continue
+            blocks = _ceil_div(units, cb) * _ceil_div(w, tw * cols)
+            cost = blocks * (_ceil_div(threads, 32) * 32 * cols + pieces)
+            if best is None or (cost, -threads) < best[0]:
+                best = ((cost, -threads), cb, tw, blocks)
+    if best is None:
+        return None
+    _, cb, tw, blocks = best
+    strips = max(1, min(_ceil_div(STRIP_TARGET_BLOCKS[k], blocks * b), h // STRIP_MIN_ROWS[k]))
+    rh = _ceil_div(h, strips)
+    if _ceil_div(h, rh) > 65535:
+        return None
+    return ch, cols, cb, tw, rh
+
+
+def strip_fits(geometry, k: int, itemsize: int) -> bool:
+    """Whether a block of ``geometry`` is within what ``launch_strip`` in the
+    source takes: whole 16-byte pieces, at most ``STRIP_MAX_PIECES`` of them a
+    thread and row, at most 256 threads, the ring within ``STRIP_MAX_SMEM``."""
+    ch, cols, cb, tw, rh = geometry
+    run = cb * ch * itemsize
+    pieces = (tw * cols + k - 1) * run // 16
+    return (run % 16 == 0 and 1 <= cb * tw <= 256 and rh >= 1
+            and pieces <= STRIP_MAX_PIECES * cb * tw
+            and STRIP_STAGES * pieces * 16 <= STRIP_MAX_SMEM)
+
+
+def strip_blocks(geometry, b: int, h: int, w: int, c: int) -> int:
+    """Thread blocks of a strip-kernel launch with ``geometry``."""
+    ch, cols, cb, tw, rh = geometry
+    return _ceil_div(c, cb * ch) * _ceil_div(w, tw * cols) * _ceil_div(h, rh) * b
+
+
+@functools.lru_cache(maxsize=None)
+def pick_plan(b: int, h: int, w: int, c: int, k: int, itemsize: int,
+              aligned: bool = True) -> tuple[str, Optional[tuple]]:
+    """(variant, geometry) of a [b, h, w, c] call (cached: a model asks for the
+    same few shapes on every step): the strip kernel with the first of its
+    thread shapes (``STRIP_SHAPES``: wide, then narrow) whose grid is one that
+    the shape serves (``STRIP_MIN_BLOCKS_WIDE`` and the constants beside it); for
+    any other call, or a pixel that is no multiple of 16 bytes, the tile
+    kernel, whose threads are many and short (k 3, 5, 7 and an even C); and
+    "direct" (one thread an output: any odd k, any C, any alignment) for what
+    neither takes."""
+    for i, (ch, cols) in enumerate(STRIP_SHAPES.get((itemsize, k), ()) if aligned else ()):
+        geometry = strip_geometry(b, h, w, c, k, itemsize, ch, cols)
+        if geometry is None:
+            continue
+        blocks = strip_blocks(geometry, b, h, w, c)
+        if i == 0:
+            serves = blocks >= STRIP_MIN_BLOCKS_WIDE[k]
+        else:
+            serves = blocks <= STRIP_MAX_BLOCKS_NARROW and (
+                blocks >= STRIP_MIN_BLOCKS_NARROW[k] or (k >= 5 and geometry[4] <= STRIP_SHORT_ROWS))
+        if serves:
+            return "strip", geometry
+    if aligned and k in (3, 5, 7) and c % 2 == 0:
+        return "tile", None
+    return "direct", None
+
+
+def pick_variant(x_shape, k: int, dtype: torch.dtype, aligned: bool = True) -> str:
+    """Which kernel of the source a call takes (see ``pick_plan``)."""
+    return pick_plan(*x_shape, k, _ITEMSIZE[dtype], aligned)[0]
+
+
+def pick_geometry(b: int, h: int, w: int, c: int, k: int,
+                  itemsize: int) -> Optional[tuple[int, int, int, int, int]]:
+    """The strip kernel's geometry for a call that ``pick_plan`` gives to it,
+    else the geometry of the first thread shape that takes the call, or None."""
+    variant, geometry = pick_plan(b, h, w, c, k, itemsize)
+    if variant == "strip":
+        return geometry
+    for ch, cols in STRIP_SHAPES.get((itemsize, k), ()):
+        geometry = strip_geometry(b, h, w, c, k, itemsize, ch, cols)
+        if geometry is not None:
+            return geometry
+    return None
+
+
+def _launch(x: torch.Tensor, taps: torch.Tensor, b: Optional[torch.Tensor], k: int,
+            variant: Optional[str] = None,
+            geometry: Optional[tuple[int, int, int, int, int]] = None) -> torch.Tensor:
+    """One launch on CUDA tensors that the caller has checked: x contiguous
+    [B, H, W, C] in bf16 or fp32, taps dense [k * k, C] and b [C] of x's
+    dtype on x's device."""
+    bsz, h, wd, c = x.shape
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    bias_ptr = None if b is None else b.data_ptr()
+    if variant is None:
+        aligned = not ((x.data_ptr() | out.data_ptr() | taps.data_ptr() | (bias_ptr or 0)) & 15)
+        variant, geometry = pick_plan(bsz, h, wd, c, k, x.element_size(), aligned)
+    ch = cols = cb = tw = rh = 0
+    if variant == "strip":
+        geometry = geometry or pick_geometry(bsz, h, wd, c, k, x.element_size())
+        if geometry is None:
+            raise ValueError(f"depthwise_conv: the strip kernel does not take {tuple(x.shape)} "
+                             f"at k={k} in {x.dtype}")
+        if not strip_fits(geometry, k, x.element_size()):
+            raise ValueError(f"depthwise_conv: the strip kernel does not take the geometry "
+                             f"{geometry} at k={k} in {x.dtype}")
+        ch, cols, cb, tw, rh = geometry
+    lib = _kernel()
+    rc = lib.ics_depthwise_conv(
+        _DTYPE_CODES[x.dtype], VARIANTS[variant], x.data_ptr(), taps.data_ptr(), bias_ptr,
+        out.data_ptr(), bsz, h, wd, c, k, ch, cols, cb, tw, rh, *stream_and_device(x),
+    )
+    if rc != 0:
+        msg = lib.ics_cuda_error_string(rc).decode()
+        raise RuntimeError(f"depthwise_conv kernel ({variant}) launch failed: {msg} "
+                           f"(cudaError {rc})")
+    _launches.add()
+    return out
+
+
+def depthwise_conv_taps(x: torch.Tensor, taps: torch.Tensor, b: Optional[torch.Tensor],
+                        k: int) -> torch.Tensor:
+    """The serving path of a module that keeps its own ``kernel_taps``: CUDA
+    tensors only, ``taps`` and ``b`` made for ``x.dtype`` on ``x``'s device
+    by the module. Checks what changes from call to call and launches."""
+    if not x.is_cuda or x.dtype not in _DTYPE_CODES or taps.dtype != x.dtype \
+            or x.dim() != 4 or taps.shape[1] != x.shape[3] or not x.is_contiguous() \
+            or x.numel() >= 2**31:
+        raise ValueError(
+            f"depthwise_conv_taps wants a contiguous CUDA [B, H, W, {taps.shape[1]}] x of "
+            f"{taps.dtype} with fewer than 2^31 elements; got {tuple(x.shape)} {x.dtype} "
+            f"on {x.device}")
+    return _launch(x, taps, b, k)
+
+
+def depthwise_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+                   variant: Optional[str] = None,
+                   geometry: Optional[tuple[int, int, int, int, int]] = None) -> torch.Tensor:
     """x [B, H, W, C], w [k, k, C] (or [C, 1, k, k]), optional bias [C]
     -> [B, H, W, C] in ``x.dtype``: stride 1, zero padding ``k // 2``.
 
     CUDA tensors go through the kernel (bf16 or fp32, x contiguous, w and b
     of x's dtype, fewer than 2^31 elements); anything it does not take
-    raises. CPU tensors take the plain version.
+    raises. CPU tensors take the plain version. ``variant`` ("strip",
+    "tile", "direct") and ``geometry`` (the strip kernel's (ch, cols, cb, tw,
+    rh)) override ``pick_plan``, for measurements.
     """
     if x.dim() != 4:
         raise ValueError(f"depthwise_conv wants x as [B, H, W, C]; got {tuple(x.shape)}")
-    bsz, h, wd, c = x.shape
+    c = x.shape[3]
     taps = _taps(w, c)
     k = taps.shape[0]
     if b is not None and tuple(b.shape) != (c,):
@@ -98,23 +328,11 @@ def depthwise_conv(x: torch.Tensor, w: torch.Tensor,
         raise ValueError("depthwise_conv wants a contiguous bias")
     if x.numel() >= 2**31:
         raise ValueError(f"depthwise_conv: shape {tuple(x.shape)} is too large")
-    out = torch.empty_like(x)
-    if out.numel() == 0:
-        return out
-    tap_stride = taps.stride(1)
-    if taps.stride(0) != k * tap_stride:
-        raise ValueError(f"depthwise_conv wants dense taps; w has strides {w.stride()}")
-    lib = _kernel()
-    rc = lib.ics_depthwise_conv(
-        _DTYPE_CODES[x.dtype], x.data_ptr(), taps.data_ptr(),
-        None if b is None else b.data_ptr(), out.data_ptr(), bsz, h, wd, c, k,
-        tap_stride, taps.stride(2), *stream_and_device(x),
-    )
-    if rc != 0:
-        msg = lib.ics_cuda_error_string(rc).decode()
-        raise RuntimeError(f"depthwise_conv kernel launch failed: {msg} (cudaError {rc})")
-    _launches.add()
-    return out
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"depthwise_conv: variant must be one of {sorted(VARIANTS)}")
+    if variant == "tile" and (k not in (3, 5, 7) or c % 2):
+        raise ValueError(f"depthwise_conv: the tile kernel does not take C={c} at k={k}")
+    return _launch(x, kernel_taps(w, c), b, k, variant, geometry)
 
 
 def depthwise_reference(x: torch.Tensor, w: torch.Tensor,

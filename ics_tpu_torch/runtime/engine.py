@@ -80,9 +80,10 @@ class InferenceEngine:
             model.init_weights(torch.Generator().manual_seed(seed))
         else:
             model.load_state_dict(state_dict, strict=True)
-        # fused_chains reaches fold() of the models that have bottleneck
-        # chains (ResNet); fold raises for those among them it cannot chain
-        fused_chains = bool(fused_chains) and hasattr(model, "chains")
+        # fused_chains is a deployment-wide setting: it reaches fold() of the
+        # models that fold can chain (dense-bottleneck ResNets) and is off for
+        # every other model, basic-block, grouped and wide ResNets included
+        fused_chains = bool(fused_chains) and bool(getattr(model, "can_fuse_chains", False))
         if fused_chains and self.device.type == "cuda" and precision != "bf16":
             raise ValueError("fused_chains on the GPU needs precision='bf16': "
                              "the bottleneck_chain kernel takes bf16 activations")

@@ -29,6 +29,43 @@ logger = logging.getLogger(__name__)
 _warned: set[str] = set()  # notices already given in this process
 
 
+def _warn_once(key: str, message: str) -> None:
+    if key not in _warned:
+        _warned.add(key)
+        logger.warning(message)
+
+
+def warn_unserved_settings() -> None:
+    """Say once, at warning level, each setting that the port takes and does
+    not serve yet, so that a deployment that relies on one is not left to
+    find out from its traffic."""
+    if settings.TPU_DEVICE_DECODE:
+        _warn_once("device_decode",
+                   "TPU_DEVICE_DECODE is set, but the device-decode lane is not "
+                   "ported yet (ROADMAP.md slice 4): images are decoded on the host")
+    if settings.TPU_SERVING_REPLICAS > 1:
+        _warn_once("serving_replicas",
+                   f"TPU_SERVING_REPLICAS={settings.TPU_SERVING_REPLICAS}, but hedged "
+                   "replicas are not ported yet: one engine serves, without hedging")
+    if settings.get_mesh_shape() is not None:
+        _warn_once("mesh_shape",
+                   f"TPU_MESH_SHAPE={settings.TPU_MESH_SHAPE!r}, but the device mesh is "
+                   "not ported yet: the engine runs on one GPU")
+    if settings.TPU_PP_STAGES >= 2:
+        _warn_once("pp_stages",
+                   f"TPU_PP_STAGES={settings.TPU_PP_STAGES}, but pipeline parallelism is "
+                   "not ported yet: the whole model runs on one GPU")
+    if settings.TPU_EMBED_ON_SYNC:
+        _warn_once("embed_on_sync",
+                   "TPU_EMBED_ON_SYNC is set, but the embed lane is not ported yet: "
+                   "synced images are not embedded")
+    if settings.NEXTCLOUD_BASE_URL.strip() and settings.TPU_CLASSIFY_ON_SYNC:
+        _warn_once("classify_on_sync",
+                   "NEXTCLOUD_BASE_URL is set with TPU_CLASSIFY_ON_SYNC, but the sync "
+                   "engine and classify-on-sync are not ported yet: synced images get "
+                   "no suggestion")
+
+
 class InferenceService:
     def __init__(self, engine: InferenceEngine, deadline_us: int = 2000,
                  max_deadline_us: int = 50_000, pipelined: bool = True):
@@ -50,10 +87,7 @@ class InferenceService:
     @classmethod
     def from_settings(cls) -> "InferenceService":
         """The serving engine and service the ``TPU_*`` settings describe."""
-        if settings.TPU_DEVICE_DECODE and "device_decode" not in _warned:
-            _warned.add("device_decode")
-            logger.warning("TPU_DEVICE_DECODE is set, but the device-decode lane is not "
-                           "ported yet (ROADMAP.md slice 4): images are decoded on the host")
+        warn_unserved_settings()
         engine = InferenceEngine(
             model_name=settings.TPU_DEFAULT_MODEL,
             num_classes=settings.TPU_NUM_CLASSES,

@@ -3,9 +3,15 @@
     python -m ics_tpu_torch.tools.profile_step --model resnet50 --bucket 32 [--fused-chains]
     python -m ics_tpu_torch.tools.profile_step --model convnext_tiny [--no-kernels]
 
+    python -m ics_tpu_torch.tools.profile_step --model mobilenetv3_small --in-turns 6 [--off-first]
+
 ``--model`` takes any name of the port's registry. ``--no-kernels`` sends the
 depthwise convolutions to cuDNN and Swin's window attention to its plain
 version, to see the same step without the hand-written kernels.
+``--in-turns N`` builds two engines in one process, kernels on and kernels
+off (``--off-first``: in the other order), and times them N times in turns:
+the step by CUDA events and the host's time to queue a step, which is the
+step's time wherever the device waits for the host.
 
 Builds the engine with random weights from seed 0, stages random images of
 300-512 px (or ``--exact``: all exactly the model's input size, the
@@ -22,6 +28,7 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import threading
 import time
 from collections import defaultdict
 
@@ -34,9 +41,10 @@ from ics_tpu_torch.ops.preproc import preprocess_batch
 from ics_tpu_torch.runtime.engine import InferenceEngine
 
 GROUPS = (
-    ("port kernels", ("flash_wgmma", "flash_mma", "flash_f32", "bottleneck_block", "normalize_vec",
-                      "normalize_scalar", "dw_tile", "dw_direct", "window_bf16",
-                      "window_f32")),
+    # every __global__ of ops/csrc (tests/test_torch_standalone.py holds the two in line)
+    ("port kernels", ("flash_wgmma", "flash_mma", "flash_f32", "bottleneck_wgmma",
+                      "bottleneck_mma", "normalize_vec", "normalize_scalar", "dw_strip",
+                      "dw_tile", "dw_direct", "window_bf16", "window_f32")),
     ("convolution and GEMM", ("gemm", "cutlass", "nvjet", "xmma", "conv", "cudnn", "wgrad",
                               "implicit", "sm90_", "sm80_")),
     ("pooling, softmax, top-k", ("pool", "softmax", "topk", "sort", "gather", "reduce")),
@@ -61,6 +69,44 @@ def events_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, iters: int) -> float:
+    """The host's time to queue one call (the device runs behind)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def in_turns(args, card: str) -> None:
+    """Kernels on and off in one process, ``args.in_turns`` times in turns."""
+    rng = np.random.default_rng(0)
+    canvas = rng.integers(0, 256, (args.bucket, args.canvas, args.canvas, 3), np.uint8)
+    sizes = rng.integers(300, args.canvas + 1, (args.bucket, 2)).astype(np.int32)
+    steps = {}
+    for name in ("off", "on") if args.off_first else ("on", "off"):
+        eng = InferenceEngine(args.model, precision="bf16", buckets=(args.bucket,),
+                              canvas=args.canvas, fused_chains=args.fused_chains)
+        set_use_kernels(eng.model, name == "on")
+        staged = eng._to_device(canvas, sizes)
+        steps[name] = (lambda e, s: lambda: e._step(*s))(eng, staged)
+        events_ms(steps[name], 3)
+    rounds = {name: [] for name in steps}
+    for _ in range(args.in_turns):
+        for name, step in steps.items():
+            rounds[name].append((events_ms(step, 20), host_ms(step, 20)))
+    for name, values in rounds.items():
+        print(f"{args.model} kernels {name}: step by events "
+              f"{[round(e, 2) for e, _ in values]} ms, host to queue a step "
+              f"{[round(h, 2) for _, h in values]} ms")
+    print(json.dumps({"card": card, "model": args.model, "bucket": args.bucket,
+                      "order": list(steps), "python_threads": threading.active_count(),
+                      "event_ms": {n: [e for e, _ in v] for n, v in rounds.items()},
+                      "host_ms": {n: [h for _, h in v] for n, v in rounds.items()}}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="resnet50")
@@ -72,12 +118,19 @@ def main() -> None:
                     help="depthwise convolutions by cuDNN, window attention by its plain version")
     ap.add_argument("--exact", action="store_true",
                     help="every image exactly the model's input size (fixed-size lane)")
+    ap.add_argument("--in-turns", type=int, default=0,
+                    help="two engines, kernels on and off, timed this many times in turns")
+    ap.add_argument("--off-first", action="store_true",
+                    help="with --in-turns: build and time the kernels-off engine first")
     args = ap.parse_args()
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card)
+    if args.in_turns:
+        in_turns(args, card)
+        return
     eng = InferenceEngine(args.model, precision="bf16", buckets=(args.bucket,),
                           canvas=args.canvas, fused_chains=args.fused_chains)
     set_use_kernels(eng.model, not args.no_kernels)

@@ -111,8 +111,9 @@ async def test_routes_of_the_port(served):
         "window_attention", "flash_attention_bf16_exp"}
     r = await client.post("/inferencia/warmup", headers=h)
     assert r.status_code == 200 and r.json()["buckets"] == [1, 4]
+    assert r.json()["replicas"] == 1                      # as the JAX route answers
     assert (await client.get("/health")).json()["status"] == "healthy"
-    assert "gpu_images_total" in (await client.get("/monitor/metrics")).text
+    assert "tpu_images_total" in (await client.get("/monitor/metrics")).text
     paths = {route.path for route in app.router.routes}
     assert "/classificacoes/ambiente/{id_amb}/inicializar" in paths
     assert "/classificacoes/ambiente/{id_amb}/explicar" not in paths
@@ -282,3 +283,136 @@ def test_from_settings_hands_fused_chains_on_and_says_device_decode_once(monkeyp
     assert "slice 4" in notices[0].getMessage()
     status = first.status()
     assert status["device_decode"] is False and status["fused_chains"] is True
+
+
+@pytest.mark.anyio
+async def test_metrics_scrape_uses_the_reference_names(served):
+    """``/monitor/metrics`` emits the JAX package's gauge names with the
+    port's numbers; the kernel-launch gauges are the port's own."""
+    app, client, service = served
+    h = await _admin(client)
+    files = [("files", (f"img{i}.jpg", _jpeg(i), "image/jpeg")) for i in range(3)]
+    r = await client.post("/inferencia/classificar", files=files, headers=h)
+    assert r.status_code == 200, r.text
+    text = (await client.get("/monitor/metrics")).text
+    values = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, _, value = line.rpartition(" ")
+            values[name] = float(value)
+    st = service.status()
+    assert values["tpu_images_total"] == st["images"] == 3
+    assert values["tpu_batches_total"] == st["batches"] >= 1
+    assert values["tpu_host_decoded_total"] == 3
+    assert values["tpu_lane_flushes_pixel_total"] == st["batcher"]["flushes"] >= 1
+    assert values["tpu_pipelined_flushes_total"] == st["batcher"]["pipelined"]
+    assert values["tpu_lane_pipelined_pixel_total"] == st["batcher"]["pipelined"]
+    assert "gpu_kernel_launches_depthwise_conv_total" in values
+    assert not any(name.startswith(("gpu_images", "gpu_batches")) for name in values)
+
+
+@pytest.mark.anyio
+@pytest.mark.parametrize("name", ["resnet18", "resnext50_32x4d"])
+async def test_modelo_without_a_chain_path_is_served_under_fused_chains(served, name):
+    """``TPU_FUSED_CHAINS`` is handed to every engine of the pool: a ResNet
+    that fold cannot chain is built without chains and answers 200."""
+    app, client, _ = served
+    app.state.engine_pool.engine_kwargs.update(
+        num_classes=10, precision="fp32", buckets=(1,), canvas=64, fused_chains=True)
+    h = await _admin(client)
+    try:
+        r = await client.post(f"/inferencia/classificar?modelo={name}", headers=h,
+                              files=[("files", ("a.jpg", _jpeg(0), "image/jpeg"))])
+        assert r.status_code == 200, r.text
+        assert r.json()["resultados"][0]["model"] == name
+        st = (await client.get(f"/inferencia/status?modelo={name}", headers=h)).json()
+        assert st["fused_chains"] is False
+    finally:
+        await app.state.engine_pool.stop()
+
+
+@pytest.mark.anyio
+@pytest.mark.parametrize("error", [ValueError("no chain path"), RuntimeError("pool stopped")])
+async def test_modelo_that_cannot_be_built_answers_422(served, monkeypatch, error):
+    """A build that raises RuntimeError or ValueError is the deployment not
+    going with the client's model: 422 with the reason, as the JAX route."""
+    app, client, _ = served
+
+    async def refuse(name=None):
+        raise error
+
+    monkeypatch.setattr(app.state.engine_pool, "get", refuse)
+    h = await _admin(client)
+    r = await client.post("/inferencia/classificar?modelo=resnet50", headers=h,
+                          files=[("files", ("a.jpg", _jpeg(0), "image/jpeg"))])
+    assert r.status_code == 422
+    assert "resnet50" in r.text and str(error) in r.text
+
+
+_UNSERVED = {
+    "TPU_SERVING_REPLICAS": ("2", "TPU_SERVING_REPLICAS"),
+    "TPU_MESH_SHAPE": ("2,1", "TPU_MESH_SHAPE"),
+    "TPU_PP_STAGES": ("2", "TPU_PP_STAGES"),
+    "TPU_EMBED_ON_SYNC": ("true", "TPU_EMBED_ON_SYNC"),
+    "NEXTCLOUD_BASE_URL": ("https://cloud.example.com", "TPU_CLASSIFY_ON_SYNC"),
+}
+
+
+@pytest.mark.parametrize("setting", sorted(_UNSERVED))
+def test_settings_taken_but_not_served_are_said_once(monkeypatch, caplog, setting):
+    import logging
+
+    from ics_tpu_torch.core.config import reload_settings
+    from ics_tpu_torch.runtime import service as service_mod
+
+    value, word = _UNSERVED[setting]
+    monkeypatch.setattr(service_mod, "_warned", set())
+    reload_settings(**{"TPU_DEVICE_DECODE": "false", "NEXTCLOUD_BASE_URL": "",
+                       setting: value})
+    try:
+        with caplog.at_level(logging.INFO, logger=service_mod.__name__):
+            service_mod.warn_unserved_settings()
+            service_mod.warn_unserved_settings()
+    finally:
+        reload_settings()
+    notices = [r for r in caplog.records if r.levelno == logging.WARNING]
+    assert len(notices) == 1 and word in notices[0].getMessage()
+    assert "not ported yet" in notices[0].getMessage()
+
+
+def test_default_settings_say_nothing_of_unserved_modules(monkeypatch, caplog):
+    import logging
+
+    from ics_tpu_torch.core.config import reload_settings
+    from ics_tpu_torch.runtime import service as service_mod
+
+    monkeypatch.setattr(service_mod, "_warned", set())
+    reload_settings(TPU_DEVICE_DECODE="false", NEXTCLOUD_BASE_URL="")
+    try:
+        with caplog.at_level(logging.INFO, logger=service_mod.__name__):
+            service_mod.warn_unserved_settings()
+    finally:
+        reload_settings()
+    assert [r for r in caplog.records if r.levelno >= logging.WARNING] == []
+
+
+@pytest.mark.anyio
+async def test_lifespan_says_unserved_settings_before_the_engine_is_built(
+        tmp_path, monkeypatch, caplog):
+    import logging
+
+    from ics_tpu_torch.core.config import reload_settings
+    from ics_tpu_torch.main import create_app
+    from ics_tpu_torch.runtime import service as service_mod
+
+    monkeypatch.setattr(service_mod, "_warned", set())
+    reload_settings(TPU_ENABLE_INFERENCE="true", TPU_DEFAULT_MODEL="no_such_model",
+                    TPU_SERVING_REPLICAS="3", TPU_DEVICE_DECODE="false")
+    try:
+        app = create_app(db=Database(f"sqlite:///{tmp_path}/warn.db"))
+        with caplog.at_level(logging.WARNING, logger=service_mod.__name__):
+            with pytest.raises(KeyError, match="no_such_model"):
+                await app.startup()
+    finally:
+        reload_settings()
+    assert any("TPU_SERVING_REPLICAS=3" in r.getMessage() for r in caplog.records)

@@ -195,17 +195,68 @@ def test_chain_weights_keep_their_dtypes_when_the_model_is_cast():
     assert torch.equal(holder["c"].s3, packed["s3"])          # not rounded there and back
     holder = holder.to(torch.float32)
     assert holder["c"].w2.dtype == torch.bfloat16
-    w1t, w2t, w3t = chain.kernel_layout()
+    w1t, w2t, w3t, w3t_blocked = chain.kernel_layout()
     assert w1t.shape == (2, 32, 128) and w2t.shape == (2, 32, 288) and w3t.shape == (2, 128, 32)
     assert torch.equal(w2t[1], packed["w2"][1].t()) and w2t.is_contiguous()
+    # the wgmma kernel's order of the last 1x1's output channels: a permutation
+    # within every 32, in which the 8 values a fragment's thread holds of four
+    # 8-column blocks are 8 neighbouring channels
+    order = torch_chain.expand_row_order(128)
+    assert sorted(order.tolist()) == list(range(128))
+    assert torch.equal(order // 32, torch.arange(128) // 32)
+    for t in range(4):
+        held = [int(order[32 + 8 * jj + 2 * t + e]) for jj in range(4) for e in range(2)]
+        assert held == list(range(32 + 8 * t, 32 + 8 * t + 8))
+    assert torch.equal(w3t_blocked, w3t[:, order]) and w3t_blocked.is_contiguous()
 
 
 @pytest.mark.parametrize("h,w,cm,expected", [
-    (56, 56, 64, 4), (28, 28, 128, 4), (7, 7, 64, 7), (8, 8, 64, 8)])
+    (56, 56, 64, 7), (28, 28, 128, 7), (7, 7, 64, 7), (8, 8, 64, 8)])
 def test_pick_tile_rows_for_the_resnet50_stages(h, w, cm, expected):
+    """The wgmma kernel's tiling at bucket 32: the tile rows that cost the
+    fewest passes over whole rounds of the card's multiprocessors, with at
+    least three ring stages beside ``a`` and ``cmid``."""
     th = torch_chain.pick_tile_rows(h, w, cm)
     assert th == expected
-    assert torch_chain._smem_bytes(th, w, cm) <= 113 * 1024
+    stages = torch_chain.ring_stages(th, w, cm)
+    assert stages >= 3 and torch_chain._smem_bytes(th, w, cm, stages) <= 232448
+    # the mma.sync kernel keeps its own rule: two blocks a multiprocessor
+    mma = torch_chain.pick_tile_rows(h, w, cm, "mma")
+    assert torch_chain._smem_bytes_mma(mma, w, cm) <= 113 * 1024
+
+
+# every chained stage of the zoo: (H = W, Cm) of ResNet-50/101/152 stages 0 to
+# 3 at 224 px; fold() chains 0 and 1, the kernel is built for all four widths
+_CHAIN_SHAPES = [(56, 64), (28, 128), (14, 256)]
+
+
+@pytest.mark.parametrize("hw,cm", _CHAIN_SHAPES)
+@pytest.mark.parametrize("batch", [1, 8, 32, 128])
+def test_wgmma_geometry_fits_a_block_at_every_chain_shape(hw, cm, batch):
+    th = torch_chain.pick_tile_rows(hw, hw, cm, "wgmma", batch)
+    stages = torch_chain.ring_stages(th, hw, cm)
+    assert 1 <= th <= hw and 2 <= stages <= 4
+    assert torch_chain._smem_bytes(th, hw, cm, stages) <= 232448
+    if stages < 4:      # and one more stage would not have fitted
+        assert torch_chain._smem_bytes(th, hw, cm, stages + 1) > 232448
+
+
+@pytest.mark.parametrize("th,w,cm,stages", [(7, 56, 64, 4), (7, 28, 128, 3), (4, 14, 256, 3),
+                                            (1, 5, 64, 2)])
+def test_smem_formula_of_the_wgmma_kernel(th, w, cm, stages):
+    """``_smem_bytes`` against the layout written out: 1024 bytes to align
+    the ring, per stage a [128, 64] x tile and a [Cm, 64] weight tile in bf16,
+    ``a`` as (th + 2) x (w + 2) pixels and ``cmid`` as th x w pixels of Cm + 8
+    bf16 (rounded to 16 bytes), two mbarriers of 8 bytes for each of 4 stages."""
+    ring = stages * (128 * 64 * 2 + cm * 64 * 2)
+    a = (th + 2) * (w + 2) * (cm + 8) * 2
+    cmid = -(-(th * w * (cm + 8) * 2) // 16) * 16
+    assert torch_chain._smem_bytes(th, w, cm, stages) == 1024 + ring + a + cmid + 64
+
+
+def test_ring_stages_shrink_with_the_tile_and_end_at_zero():
+    stages = [torch_chain.ring_stages(th, 56, 64) for th in range(1, 20)]
+    assert stages == sorted(stages, reverse=True) and stages[0] == 4 and stages[-1] == 0
 
 
 def test_pick_tile_rows_refuses_a_row_that_cannot_fit():

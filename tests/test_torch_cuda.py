@@ -33,6 +33,11 @@ from ics_tpu_torch.ops.preproc import normalize_only
 
 
 @pytest.fixture()
+def anyio_backend():
+    return "asyncio"
+
+
+@pytest.fixture()
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc (the CUDA kernel has no CPU mode)")
@@ -193,6 +198,9 @@ def make_chain(n, c, cm, seed, device):
 @pytest.mark.parametrize("shape,cm,n", [
     ((4, 56, 56, 256), 64, 2), ((4, 28, 28, 512), 128, 3), ((2, 7, 7, 256), 64, 2),
     ((1, 14, 14, 1024), 256, 1), ((1, 9, 5, 128), 64, 1),
+    # the tiling depends on the batch: both ResNet-50 chains at the serving buckets
+    ((1, 56, 56, 256), 64, 2), ((8, 56, 56, 256), 64, 2), ((32, 56, 56, 256), 64, 2),
+    ((1, 28, 28, 512), 128, 3), ((8, 28, 28, 512), 128, 3), ((32, 28, 28, 512), 128, 3),
 ])
 def test_bottleneck_chain_kernel_matches_plain_version(cuda_device, shape, cm, n):
     packed = make_chain(n, shape[-1], cm, 0, cuda_device)
@@ -357,6 +365,211 @@ def test_depthwise_conv2d_module_launches_the_kernel_only_within_its_contract(cu
             library = set_use_kernels(conv, False)(x)
             assert LAUNCHES["depthwise_conv"].value == before + launches
         assert (out.float() - library.float()).abs().max().item() <= 2.0 ** -5
+
+
+# ---- the redesigned kernels at the edges of their tiles ------------------------------
+
+def _dw_inputs(shape, k, bias, dtype, device, scale=1.0):
+    g = torch.Generator().manual_seed(shape[-1] * 7 + k)
+    x = (scale * torch.randn(shape, generator=g)).to(dtype)
+    w = (torch.randn((k, k, shape[-1]), generator=g) / k).to(dtype).to(device)
+    b = torch.randn(shape[-1], generator=g).to(dtype).to(device) if bias else None
+    # x is the middle of a tensor of NaN: a read outside x would reach a result
+    store = torch.full((shape[0] + 2, *shape[1:]), float("nan"), dtype=dtype, device=device)
+    store[1:-1] = x.to(device)
+    return store[1:-1], w, b
+
+
+def _dw_check(x, w, b, **kw):
+    runs = [depthwise.depthwise_conv(x, w, b, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    ref = depthwise.depthwise_reference(x, w, b)
+    top = ref.float().abs().max().item()
+    tol = 2.0 ** -5 if x.dtype == torch.bfloat16 else 1e-5 * max(top, 1.0)
+    assert top < 8 and bool(torch.isfinite(runs[0]).all())
+    assert (runs[0].float() - ref.float()).abs().max().item() <= tol
+    assert torch.equal(runs[0], runs[1])                       # twice, bit for bit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [3, 5, 7])
+@pytest.mark.parametrize("threads", ["wide", "narrow"])
+@pytest.mark.parametrize("h,w", [(7, 9), (8, 8), (9, 7), (8, 6), (16, 17), (2, 3), (1, 1)])
+def test_strip_kernel_on_both_sides_of_its_block_edges(cuda_device, dtype, k, threads, h, w):
+    """Blocks of 8 columns (7 with 7 columns a thread) and 8 rows on images one
+    under, at and one over them, two blocks and a bit, and smaller than k, with
+    the wide and with the narrow thread shape."""
+    x, wt, b = _dw_inputs((2, h, w, 8), k, True, dtype, cuda_device)
+    ch, cols = depthwise.STRIP_SHAPES[(x.element_size(), k)][threads == "narrow"]
+    tw = min(max(8 // cols, 1), -(-w // cols))
+    geometry = (ch, cols, 8 // ch, tw, min(8, h))            # all 8 channels in one block
+    before = LAUNCHES["depthwise_conv"].value
+    if depthwise.strip_fits(geometry, k, x.element_size()):
+        _dw_check(x, wt, b, variant="strip", geometry=geometry)
+    else:   # too narrow for a block's copy plan at the larger k: whatever serves the shape
+        with pytest.raises(ValueError, match="geometry"):
+            depthwise.depthwise_conv(x, wt, b, variant="strip", geometry=geometry)
+        _dw_check(x, wt, b)
+    assert LAUNCHES["depthwise_conv"].value == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k,bias,geometry", [
+    ((2, 9, 11, 24), 3, True, None), ((2, 9, 11, 40), 5, False, None),
+    ((2, 9, 11, 88), 7, True, None),
+    ((2, 9, 11, 88), 3, False, (8, 1, 8, 11, 5)),        # a last channel block that is part empty
+    ((2, 9, 11, 88), 3, False, (4, 4, 16, 3, 5)),
+    ((2, 9, 11, 40), 7, True, (2, 1, 16, 4, 9)),
+    ((2, 9, 11, 40), 7, True, (1, 7, 32, 2, 9)),
+    ((5, 9, 11, 24), 5, False, (4, 1, 6, 11, 9)),        # whole pixels of 24 channels a block
+    ((5, 9, 11, 24), 5, False, (2, 4, 12, 3, 9)),
+    ((5, 6, 6, 40), 7, True, (2, 1, 20, 6, 6)),
+    ((3, 60, 60, 24), 3, False, None), ((2, 60, 60, 96), 7, True, None),
+    ((16, 24, 24, 672), 3, False, None), ((16, 24, 24, 960), 5, False, None),   # served wide
+    ((16, 56, 56, 96), 7, True, None),
+])
+def test_strip_kernel_channel_counts_and_part_empty_blocks(cuda_device, shape, k, bias, geometry):
+    x, w, b = _dw_inputs(shape, k, bias, torch.bfloat16, cuda_device)
+    _dw_check(x, w, b, variant="strip", geometry=geometry)
+    _dw_check(x, w, b)                                # and whatever pick_plan serves
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket", [1, 8, 32])
+@pytest.mark.parametrize("model", ["convnext_tiny", "mobilenetv3_small", "efficientnet_b4"])
+def test_depthwise_kernel_at_every_served_call_of_a_model(cuda_device, model, bucket):
+    """The kernel and its geometry depend on the batch (``pick_plan``): every
+    depthwise call of a model's forward at each serving bucket, through
+    whatever the wrapper takes there."""
+    from ics_tpu_torch.tools.bench_depthwise import depthwise_calls
+
+    for shape, k, bias in sorted(depthwise_calls(model, bucket)):
+        # halved: among tens of millions of outputs of unit deviation one passes 8
+        x, w, b = _dw_inputs(shape, k, bias, torch.bfloat16, cuda_device, scale=0.5)
+        _dw_check(x, w, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,k,variant", [
+    ((4, 14, 20, 48), 3, "tile"), ((4, 14, 20, 48), 5, "tile"), ((4, 14, 20, 48), 7, "tile"),
+    ((2, 10, 6, 15), 5, "direct"), ((1, 11, 11, 32), 9, "direct"), ((2, 6, 5, 8), 3, "direct"),
+])
+def test_the_other_depthwise_kernels_hold_the_same_bar(cuda_device, dtype, shape, k, variant):
+    x, w, b = _dw_inputs(shape, k, True, dtype, cuda_device)
+    _dw_check(x, w, b, variant=variant)
+    with pytest.raises(ValueError, match="variant"):
+        depthwise.depthwise_conv(x, w, b, variant="no_such_kernel")
+
+
+@pytest.mark.cuda
+def test_module_taps_follow_the_weight_on_the_card(cuda_device):
+    from ics_tpu_torch.nn.layers import Conv2D, set_use_kernels
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 12, 12, 24), generator=g).bfloat16().to(cuda_device)
+    conv = Conv2D(24, 24, 3, 1, padding=1, groups=24, use_bias=True)
+    conv.reset_parameters(g)
+    conv = conv.to(cuda_device)
+    other = Conv2D(24, 24, 3, 1, padding=1, groups=24, use_bias=True)
+    other.reset_parameters(g)
+    with torch.inference_mode():
+        first = conv(x)
+        conv.load_state_dict(other.state_dict())               # written in place
+        second = conv(x)
+        library = set_use_kernels(conv, False)(x)
+    assert not torch.equal(first, second)
+    assert (second.float() - library.float()).abs().max().item() <= 2.0 ** -5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["wgmma", "mma"])
+@pytest.mark.parametrize("shape,cm,n,tile_rows", [
+    ((3, 9, 13, 256), 64, 1, None),        # H * W = 117: no multiple of an M tile
+    ((2, 14, 14, 512), 128, 2, 4),         # a short last tile of 2 rows
+    ((2, 30, 20, 256), 64, 3, 7),          # five passes of the first 1x1, last tile 2 rows
+    ((1, 10, 9, 1024), 256, 2, 3),         # Cm 256, a short last tile
+    ((2, 5, 40, 256), 64, 2, 1),           # one row a tile: both halo rows are other tiles'
+])
+def test_bottleneck_chain_variants_at_tile_edges(cuda_device, variant, shape, cm, n, tile_rows):
+    packed = make_chain(n, shape[-1], cm, 0, cuda_device)
+    x = (0.5 * torch.randn(shape, generator=torch.Generator().manual_seed(1))
+         ).bfloat16().to(cuda_device)
+    # NaN around x: the x tile's rows above and below the image must be zeros
+    store = torch.full((shape[0] + 2, *shape[1:]), float("nan"), dtype=torch.bfloat16,
+                       device=cuda_device)
+    store[1:-1] = x
+    x = store[1:-1]
+    runs = [bottleneck.bottleneck_chain(x, packed, tile_rows=tile_rows, variant=variant)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    ref = bottleneck.bottleneck_chain_reference(x, packed)
+    diff = (runs[0].float() - ref.float()).abs()
+    assert bool(torch.isfinite(runs[0]).all()) and ref.float().abs().max().item() < 4
+    assert diff.max().item() <= 2.0 ** -5 and diff.mean().item() < 1e-3
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+def test_bottleneck_chain_wgmma_zero_border_with_large_bias_at_every_tiling(cuda_device):
+    packed = make_chain(2, 256, 64, 3, cuda_device)
+    packed["b1"] = packed["b1"] + 2.0
+    packed["w2"] = (packed["w2"].float() * 0.3).bfloat16()
+    x = (0.5 * torch.randn((2, 12, 12, 256), generator=torch.Generator().manual_seed(4))
+         ).bfloat16().to(cuda_device)
+    ref = bottleneck.bottleneck_chain_reference(x, packed)
+    scale = max(1.0, ref.float().abs().max().item())
+    for tile_rows in (1, 5, 12):
+        out = bottleneck.bottleneck_chain(x, packed, tile_rows=tile_rows)
+        assert (out.float() - ref.float()).abs().max().item() <= 2.0 ** -7 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.anyio
+@pytest.mark.parametrize("name", ["resnet18"])
+async def test_modelo_without_a_chain_path_is_served_on_the_card_under_fused_chains(
+        cuda_device, tmp_path, name):
+    """``TPU_FUSED_CHAINS=true`` with ``?modelo=resnet18``: 200 from the card,
+    without chains, where the pool used to answer 500."""
+    import io
+
+    import httpx
+    from PIL import Image
+
+    from ics_tpu_torch.core.config import settings
+    from ics_tpu_torch.db.engine import Database
+    from ics_tpu_torch.main import create_app
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+    from ics_tpu_torch.runtime.service import InferenceService, InferenceServicePool
+
+    kw = dict(num_classes=10, precision="bf16", buckets=(1,), canvas=256, fused_chains=True)
+    service = InferenceService(InferenceEngine("resnet_tiny", device=cuda_device, **kw))
+    await service.start()
+    app = create_app(db=Database(f"sqlite:///{tmp_path}/cuda_app.db"))
+    app.state.engine = service
+    app.state.engine_pool = InferenceServicePool("resnet_tiny", device=cuda_device, **kw)
+    app.state.engine_pool.add("resnet_tiny", service)
+    await app.startup()
+    buf = io.BytesIO()
+    Image.fromarray(np.random.default_rng(0).integers(0, 256, (64, 64, 3), np.uint8)).save(
+        buf, "PNG")
+    try:
+        async with httpx.AsyncClient(transport=httpx.ASGITransport(app=app),
+                                     base_url="http://test") as client:
+            r = await client.post("/auth/login", data={
+                "username": settings.ADMIN_EMAIL, "password": settings.ADMIN_SENHA})
+            client.cookies.clear()
+            h = {"Authorization": f"Bearer {r.json()['access_token']}"}
+            r = await client.post(f"/inferencia/classificar?modelo={name}", headers=h,
+                                  files=[("files", ("a.png", buf.getvalue(), "image/png"))])
+            assert r.status_code == 200, r.text
+            st = (await client.get(f"/inferencia/status?modelo={name}", headers=h)).json()
+            assert st["backend"] == "cuda" and st["fused_chains"] is False
+    finally:
+        await app.state.engine_pool.stop()
+        await app.shutdown()
+        await service.stop()
 
 
 # ---- window_attention -------------------------------------------------------------

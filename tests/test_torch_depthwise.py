@@ -125,3 +125,175 @@ def test_depthwise_conv2d_module_matches_jax_with_bridged_weights(k, bias):
             torch.from_numpy(x), conv.weight, conv.bias if bias else None)
     np.testing.assert_allclose(out.numpy(), ref, **TOL)
     np.testing.assert_allclose(same.numpy(), ref, **TOL)
+
+
+# ---- what the kernel's host side decides in Python -----------------------------------
+
+_B4 = [((32, 190, 190, 24), 3), ((32, 190, 190, 48), 3), ((32, 95, 95, 192), 3),
+       ((32, 48, 48, 336), 5), ((32, 24, 24, 672), 3), ((32, 24, 24, 672), 5),
+       ((32, 24, 24, 960), 5), ((32, 12, 12, 1632), 3), ((32, 12, 12, 1632), 5),
+       ((32, 12, 12, 2688), 3)]
+_MNV3 = [((32, 28, 28, 88), 3), ((32, 14, 14, 120), 5), ((32, 14, 14, 144), 5),
+         ((32, 14, 14, 240), 5), ((32, 7, 7, 576), 5)]
+_CONVNEXT = [((32, 56, 56, 96), 7), ((32, 28, 28, 192), 7), ((32, 14, 14, 384), 7),
+             ((32, 7, 7, 768), 7)]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape,k", _B4 + _MNV3 + _CONVNEXT + [((1, 1, 1, 8), 3),
+                                                              ((2, 3, 2, 40), 7)])
+def test_strip_geometry_holds_the_kernels_limits_at_every_zoo_shape(shape, k, itemsize):
+    """``strip_geometry`` against what ``launch_strip`` in the source refuses,
+    for the wide and the narrow thread shape: runs of whole 16-byte pieces, at
+    most 4 pieces a thread and row, the ring within 48 KB, at most 256
+    threads, full coverage of W, H and C."""
+    b, h, w, c = shape
+    shapes = depthwise.STRIP_SHAPES[(itemsize, k)]
+    assert len(shapes) == 2 and shapes[1][1] == 1            # wide, then one column a thread
+    for ch, cols in shapes:
+        geometry = depthwise.strip_geometry(b, h, w, c, k, itemsize, ch, cols)
+        assert geometry is not None
+        assert geometry[:2] == (ch, cols)
+        _, _, cb, tw, rh = geometry
+        run = cb * ch * itemsize
+        pieces = (tw * cols + k - 1) * run // 16
+        threads = cb * tw
+        assert c % ch == 0 and run % 16 == 0 and 1 <= threads <= 256
+        assert pieces <= depthwise.STRIP_MAX_PIECES * threads
+        assert depthwise.STRIP_STAGES * pieces * 16 <= depthwise.STRIP_MAX_SMEM
+        assert 1 <= tw <= -(-w // cols) and 1 <= rh <= h
+        assert cb == c // ch or run >= depthwise.STRIP_MIN_RUN_BYTES[k]
+        assert depthwise.strip_blocks(geometry, b, h, w, c) == (
+            -(-c // (cb * ch)) * -(-w // (tw * cols)) * -(-h // rh) * b)
+        # no lane of a C = 24 or 48 tensor idles: a pixel's channels are one run
+        if c * itemsize <= 128:
+            assert cb * ch == c
+
+
+@pytest.mark.parametrize("bucket", [1, 8, 32])
+@pytest.mark.parametrize("shape,k", _B4 + _MNV3 + _CONVNEXT)
+def test_plan_fills_the_card_or_falls_back(shape, k, bucket):
+    """``pick_plan`` at the three serving buckets: the wide thread shape
+    wherever its grid has ``STRIP_MIN_BLOCKS_WIDE`` blocks; else the narrow one
+    with a grid of ``STRIP_MIN_BLOCKS_NARROW`` to ``STRIP_MAX_BLOCKS_NARROW`` blocks,
+    or a smaller one of short strips at k 5 and 7; else the tile kernel;
+    ``pick_variant`` and ``pick_geometry`` say the same."""
+    call = (bucket, *shape[1:])
+    variant, geometry = depthwise.pick_plan(*call, k, 2)
+    wide, narrow = (depthwise.strip_geometry(*call, k, 2, ch, cols)
+                    for ch, cols in depthwise.STRIP_SHAPES[(2, k)])
+    blocks = [depthwise.strip_blocks(g, *call) for g in (wide, narrow)]
+    short = k >= 5 and narrow[4] <= depthwise.STRIP_SHORT_ROWS
+    if blocks[0] >= depthwise.STRIP_MIN_BLOCKS_WIDE[k]:
+        assert (variant, geometry) == ("strip", wide)
+    elif blocks[1] <= depthwise.STRIP_MAX_BLOCKS_NARROW and (
+            blocks[1] >= depthwise.STRIP_MIN_BLOCKS_NARROW[k] or short):
+        assert (variant, geometry) == ("strip", narrow)
+    else:
+        assert (variant, geometry) == ("tile", None)
+    assert depthwise.pick_variant(call, k, torch.bfloat16) == variant
+    assert depthwise.pick_geometry(*call, k, 2) == (geometry or wide)
+    if bucket == 32 and shape[1] * shape[2] * shape[3] >= 24 * 24 * 672:
+        assert geometry == wide                               # the large calls of a full batch
+
+
+@pytest.mark.parametrize("shape,k,expected", [
+    ((32, 14, 14, 240), 5, "narrow"),     # 160 wide blocks: too few at k 5
+    ((32, 7, 7, 576), 5, "narrow"),       # 192
+    ((8, 12, 12, 1632), 5, "wide"),       # 208
+    ((8, 24, 24, 672), 5, "tile"),        # 168 wide blocks, 336 narrow: over one round
+    ((8, 7, 7, 576), 5, "narrow"),        # a small grid of short strips
+    ((1, 12, 12, 1632), 5, "narrow"),
+    ((1, 7, 7, 768), 7, "narrow"),
+    ((1, 12, 12, 1632), 3, "tile"),       # k 3: the tile kernel's pass is the shorter
+    ((8, 14, 14, 240), 5, "tile"),        # 14 rows: no short strip
+    ((32, 7, 7, 768), 7, "wide"),
+    ((8, 28, 28, 192), 7, "narrow"),
+    ((1, 95, 95, 192), 3, "tile"),        # 126 narrow blocks: under one a multiprocessor
+    ((8, 12, 12, 1632), 3, "narrow"),     # 208
+])
+def test_plan_at_the_small_calls_is_the_one_measured_fastest(shape, k, expected):
+    """The kernel that was fastest in turns on an H100 at the small bf16 calls
+    of MobileNetV3-Small, EfficientNet-B4 and ConvNeXt-T."""
+    variant, geometry = depthwise.pick_plan(*shape, k, 2)
+    if expected == "tile":
+        assert variant == "tile"
+    else:
+        assert variant == "strip"
+        assert geometry[:2] == depthwise.STRIP_SHAPES[(2, k)][expected == "narrow"]
+
+
+@pytest.mark.parametrize("shape,k,dtype,aligned,expected", [
+    ((32, 190, 190, 24), 3, torch.bfloat16, True, "strip"),
+    ((32, 24, 24, 960), 5, torch.bfloat16, True, "strip"),
+    ((32, 28, 28, 192), 7, torch.bfloat16, True, "strip"),
+    ((32, 56, 56, 96), 7, torch.bfloat16, True, "strip"),
+    ((32, 56, 56, 96), 7, torch.float32, True, "strip"),
+    ((1, 56, 56, 96), 7, torch.bfloat16, True, "tile"),       # one image: too few strip blocks
+    ((2, 10, 6, 15), 3, torch.bfloat16, True, "direct"),      # an odd C
+    ((2, 10, 6, 20), 3, torch.bfloat16, True, "tile"),        # 40 bytes a pixel: no 16-byte pieces
+    ((64, 40, 40, 20), 3, torch.bfloat16, True, "tile"),      # the same, however large
+    ((64, 40, 40, 20), 3, torch.float32, True, "strip"),      # 80 bytes a pixel
+    ((1, 11, 11, 32), 9, torch.bfloat16, True, "direct"),     # k 9
+    ((32, 24, 24, 672), 3, torch.bfloat16, False, "direct"),  # a pointer off 16 bytes
+])
+def test_variant_choice(shape, k, dtype, aligned, expected):
+    assert depthwise.pick_variant(shape, k, dtype, aligned) == expected
+
+
+@pytest.mark.parametrize("k", [3, 5, 7])
+@pytest.mark.parametrize("layout", ["kkc", "hwio", "oihw", "oihw_channels_last"])
+def test_kernel_taps_are_dense_tap_major_whatever_the_layout(k, layout):
+    c = 24
+    w = torch.from_numpy(np.random.default_rng(k).standard_normal((k, k, c)).astype(np.float32))
+    given = {"kkc": w, "hwio": w.reshape(k, k, 1, c),
+             "oihw": w.permute(2, 0, 1).reshape(c, 1, k, k).contiguous(),
+             "oihw_channels_last": w.permute(2, 0, 1).reshape(c, 1, k, k).contiguous(
+                 memory_format=torch.channels_last)}[layout]
+    taps = depthwise.kernel_taps(given, c)
+    assert taps.shape == (k * k, c) and taps.is_contiguous()
+    assert torch.equal(taps, w.reshape(k * k, c))
+    assert depthwise.kernel_taps(given, c, torch.bfloat16).dtype == torch.bfloat16
+    if layout in ("kkc", "hwio"):
+        assert taps.data_ptr() == w.data_ptr()               # a view, no copy
+
+
+def test_module_keeps_its_taps_until_the_weight_moves_is_cast_or_is_written():
+    """``Conv2D.kernel_operands``: made once, equal to the module's weight
+    in the kernel's layout, made anew after ``.to(dtype)``, after
+    ``load_state_dict`` and after ``fold``'s change of memory format; the
+    state dict never carries them."""
+    c, k = 16, 5
+    conv = Conv2D(c, c, k, 1, padding=2, groups=c, use_bias=True)
+    conv.reset_parameters(torch.Generator().manual_seed(0))
+
+    def expected(dtype):
+        return conv.weight.detach().to(dtype).permute(2, 3, 1, 0).reshape(k * k, c)
+
+    taps, bias = conv.kernel_operands(torch.float32)
+    assert torch.equal(taps, expected(torch.float32)) and torch.equal(bias, conv.bias)
+    again, _ = conv.kernel_operands(torch.float32)
+    assert again is taps                                       # kept, not made again
+    half, half_bias = conv.kernel_operands(torch.bfloat16)     # another activation dtype
+    assert half.dtype == half_bias.dtype == torch.bfloat16
+    assert torch.equal(half, expected(torch.bfloat16))
+    conv.to(torch.bfloat16)
+    cast, _ = conv.kernel_operands(torch.bfloat16)
+    assert cast is not half and torch.equal(cast, expected(torch.bfloat16))
+    fresh = Conv2D(c, c, k, 1, padding=2, groups=c, use_bias=True)
+    fresh.reset_parameters(torch.Generator().manual_seed(1))
+    conv.to(torch.float32).load_state_dict(fresh.state_dict())
+    first, first_bias = conv.kernel_operands(torch.float32)
+    first_bias = first_bias.clone()        # in the weight's dtype the bias is the parameter itself
+    assert torch.equal(first, fresh.weight.detach().permute(2, 3, 1, 0).reshape(k * k, c))
+    fresh.reset_parameters(torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        fresh.bias.add_(1.5)
+    conv.load_state_dict(fresh.state_dict())                   # written in place
+    second, second_bias = conv.kernel_operands(torch.float32)
+    assert second is not first and torch.equal(second, expected(torch.float32))
+    assert torch.equal(second_bias, fresh.bias) and not torch.equal(second_bias, first_bias)
+    conv.weight.data = conv.weight.data.contiguous(memory_format=torch.channels_last)
+    assert torch.equal(conv.kernel_operands(torch.float32)[0], second)
+    assert sorted(conv.state_dict()) == ["bias", "weight"]
+    assert tuple(conv.state_dict()["weight"].shape) == (c, 1, k, k)

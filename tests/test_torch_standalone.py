@@ -418,3 +418,22 @@ def test_nextcloud_client_is_importable_without_the_sync_engine():
 
     assert callable(nextcloud_client.get_nextcloud_client)
     assert not (REPO / "ics_tpu_torch" / "sync" / "service.py").exists()
+
+
+def test_profile_step_names_every_kernel_of_the_port():
+    """``tools.profile_step`` sorts device time by kernel name: every
+    ``__global__`` function of ``ops/csrc`` must fall into its "port kernels"
+    group, or the tool counts a hand-written kernel as glue."""
+    import re
+
+    from ics_tpu_torch.tools import profile_step
+
+    names = []
+    for src in sorted((REPO / "ics_tpu_torch" / "ops" / "csrc").glob("*.cu")):
+        names += re.findall(r"__global__[^;{]*?\b(\w+_kernel)\s*\(", src.read_text())
+    assert len(names) >= 12
+    for name in names:
+        assert profile_step.group_of(name) == "port kernels", name
+    needles = dict(profile_step.GROUPS)["port kernels"]
+    for needle in needles:
+        assert any(needle in name for name in names), needle   # and no stale name stays
