@@ -13,14 +13,19 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    on both sides of its tile edges, every head_dim, masked keys, strided
    views of a fused qkv product and ``flash_attention_qkv``, NaN behind
    ``seq_len`` and behind the last image, each case twice),
-   ``bottleneck_chain`` (the wgmma kernel and the mma.sync variant; both
-   ResNet-50 chains at every bucket of phase 6's server, since the tiling
-   depends on the batch; pixels that are no multiple of an M tile, a short last tile, Cm 64, 128 and 256, the
+   ``bottleneck_chain`` (both ResNet-50 chains at every bucket of phase 6's
+   server, since the tiling depends on the batch; pixels that are no
+   multiple of an M tile, a short last tile, Cm 64, 128 and 256, the
    large-bias border case, each case twice), ``normalize_u8``,
    ``depthwise_conv`` (every call of ConvNeXt-T, MobileNetV3-Small and
    EfficientNet-B4 at every bucket; both sides of the strip kernel's block edges, images
    smaller than k, C of 8 to 88 and an odd C, k 3 to 9, both weight layouts,
-   NaN around x, each case twice), ``window_attention``.
+   NaN around x, each case twice), ``window_attention`` through both of its
+   entries (the 4-D one at Swin-T's stages and swin_micro's; the qkv one at
+   every Swin-T call at each bucket of phase 6's server, the windows of
+   shifted blocks wrapping round the image's edge, ww 16, 25, 9 and 64, NaN
+   in the image behind the batch, with the heads a work item takes in the
+   log; each case twice).
 4. CUDA-event times of each kernel and its plain version, in turns, at the
    bucket-32 shapes, with the least time the card could take computed from
    the shapes, and one library call as a yardstick where there is one
@@ -30,7 +35,9 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    of its own, at EfficientNet-B4's and MobileNetV3-Small's k 3 and 5 shapes,
    with the host's time a launch beside cuDNN's. The flash kernel is also timed
    through ``flash_attention_qkv`` beside the copies it replaced, with the
-   host's time per launch.
+   host's time per launch. The window-attention kernel is timed as Swin
+   serves it, through ``window_attention_qkv`` on the qkv product, beside the
+   4-D entry with the roll, partition, copies and merge it replaced.
 4b. The ``bf16_exp`` variant's own path, ``tools.bench_vit_attn``, with the
    launch counts set to 0 before and read after.
 5. ViT-B/16 @384 at full width (random weights from seed 0) in this
@@ -347,8 +354,7 @@ def check_chain(torch, bottleneck) -> float:
     The tiling depends on the batch, so both ResNet-50 chains run at each of
     the server's buckets, with the tile rows and ring stages that the wrapper
     takes there in the log. Every case runs twice and must come out equal bit
-    for bit; the mma.sync kernel, which is kept to be timed beside the other,
-    is held to the same bar."""
+    for bit."""
     # shape, Cm, N, tile_rows (None: the wrapper's own), large bias
     cases = [((bucket, *shape), cm, n, None, False)
              for bucket in SERVER_BUCKETS
@@ -373,28 +379,24 @@ def check_chain(torch, bottleneck) -> float:
         x = chain_input(torch, shape, seed=1)
         ref = bottleneck.bottleneck_chain_reference(x, packed)
         top = ref.float().abs().max().item()
-        for variant in ("wgmma", "mma"):
-            runs = [bottleneck.bottleneck_chain(x, packed, tile_rows=tile_rows, variant=variant)
-                    for _ in range(2)]
-            torch.cuda.synchronize()
-            diff = (runs[0].float() - ref.float()).abs()
-            err, mean = diff.max().item(), diff.mean().item()
-            same = torch.equal(runs[0], runs[1])
-            th = tile_rows or bottleneck.pick_tile_rows(*shape[1:3], cm, variant, shape[0], sms)
-            took = f"tile_rows={th}{'' if tile_rows else ' (its own)'}"
-            if variant == "wgmma":
-                took += f" stages={bottleneck.ring_stages(th, shape[2], cm)}"
-            log(f"  bottleneck_chain {variant} {list(shape)} Cm={cm} N={n} {took}"
-                f"{' large bias' if big_bias else ''} bf16: max_abs_err={err:.3e} (tol "
-                f"{CHAIN_TOL:g}), mean {mean:.2e} (tol {CHAIN_MEAN_TOL:g}), max|y|={top:.2f}, "
-                f"twice the same {same}")
-            if not bool(torch.isfinite(runs[0]).all()) or top >= 4 or err > CHAIN_TOL \
-                    or mean > CHAIN_MEAN_TOL or not same:
-                fail(f"bottleneck_chain ({variant}) disagrees with its plain version at {shape} "
-                     f"Cm={cm} N={n} tile_rows={tile_rows}: err {err}, mean {mean}, max|y| "
-                     f"{top}, twice the same {same}")
-            if variant == "wgmma":
-                worst = max(worst, err)
+        runs = [bottleneck.bottleneck_chain(x, packed, tile_rows=tile_rows) for _ in range(2)]
+        torch.cuda.synchronize()
+        diff = (runs[0].float() - ref.float()).abs()
+        err, mean = diff.max().item(), diff.mean().item()
+        same = torch.equal(runs[0], runs[1])
+        th = tile_rows or bottleneck.pick_tile_rows(*shape[1:3], cm, shape[0], sms)
+        took = (f"tile_rows={th}{'' if tile_rows else ' (its own)'} "
+                f"stages={bottleneck.ring_stages(th, shape[2], cm)}")
+        log(f"  bottleneck_chain {list(shape)} Cm={cm} N={n} {took}"
+            f"{' large bias' if big_bias else ''} bf16: max_abs_err={err:.3e} (tol "
+            f"{CHAIN_TOL:g}), mean {mean:.2e} (tol {CHAIN_MEAN_TOL:g}), max|y|={top:.2f}, "
+            f"twice the same {same}")
+        if not bool(torch.isfinite(runs[0]).all()) or top >= 4 or err > CHAIN_TOL \
+                or mean > CHAIN_MEAN_TOL or not same:
+            fail(f"bottleneck_chain disagrees with its plain version at {shape} "
+                 f"Cm={cm} N={n} tile_rows={tile_rows}: err {err}, mean {mean}, max|y| "
+                 f"{top}, twice the same {same}")
+        worst = max(worst, err)
     return worst
 
 
@@ -425,14 +427,14 @@ def time_chain(torch, bottleneck) -> dict:
     library yardstick is what the chains replace: the same bottlenecks as
     ``Bottleneck.apply_folded``, cuDNN convolutions with scale, bias, ReLU and
     the shortcut as PyTorch ops between them (another rounding, so it is
-    timed, not compared). The mma.sync kernel runs in the same turns."""
+    timed, not compared)."""
     from torch import nn
 
     from ics_tpu_torch.models.resnet import Bottleneck
     from ics_tpu_torch.nn.blocks import fold_convbn
     from ics_tpu_torch.nn.layers import reset_all_parameters
 
-    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "mma_ms": 0.0}
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
     n_bytes = n_ops = 0.0
     for shape, cm, n in [((32, 56, 56, 256), 64, 2), ((32, 28, 28, 512), 128, 3)]:
         c = shape[-1]
@@ -454,10 +456,7 @@ def time_chain(torch, bottleneck) -> dict:
                 f"bottleneck_chain {list(shape)} Cm={cm} N={n} bf16",
                 lambda: bottleneck.bottleneck_chain(x, packed),
                 lambda: bottleneck.bottleneck_chain_reference(x, packed), iters=10)
-            mma_ms, lib = in_turns(
-                "  the mma.sync kernel (kernel) beside the cuDNN blocks it "
-                "replaced (under 'plain')",
-                lambda: bottleneck.bottleneck_chain(x, packed, variant="mma"), unfused, iters=10)
+            lib = library_ms(unfused, iters=10)
             small = x[:1].contiguous()
             host = host_us(lambda: bottleneck.bottleneck_chain(small, packed)) / n
         # x read once, the output written once, the weights read once; per
@@ -469,12 +468,11 @@ def time_chain(torch, bottleneck) -> dict:
         log(f"    {case_bytes / 1e6:.1f} MB, {case_ops / 1e9:.1f} GFLOP: bound "
             f"{b['bound_ms']:.4f} ms by {b['bound_by']}; {case_ops / ms / 1e9:.1f} TFLOP/s; "
             f"host {host:.1f} us a launch")
-        for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib),
-                           ("mma_ms", mma_ms)):
+        for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib)):
             total[key] += value
         n_bytes += case_bytes
         n_ops += case_ops
-    log(f"    both chains: kernel {total['ms']:.4f} ms, mma.sync kernel {total['mma_ms']:.4f} ms, "
+    log(f"    both chains: kernel {total['ms']:.4f} ms, "
         f"cuDNN blocks {total['library_ms']:.4f} ms")
     return {**total, **bound(n_bytes, n_ops, BF16_FLOPS)}
 
@@ -643,26 +641,87 @@ def window_inputs(torch, batch: int, grid: int, heads: int, hd: int, window: int
 SWIN_STAGES = [(56, 3), (28, 6), (14, 12), (7, 24)]   # (grid, heads) per stage; window 7, hd 32
 
 
+def qkv_inputs(torch, batch: int, grid: int, heads: int, hd: int, window: int, shift: int,
+               dtype, seed: int = 0):
+    """The qkv product [B, G, G, 3, H, hd] as Swin's qkv GEMM leaves it, a view
+    of one with an image of NaN behind the last one (a window of this batch
+    that read it would show it), Swin's fp32 table, int16 index and shift mask."""
+    from ics_tpu_torch.models.swin import _relative_position_index, _shift_attn_mask
+
+    g = torch.Generator().manual_seed(seed)
+    store = torch.randn((batch + 1, grid, grid, 3 * heads * hd), generator=g).to(dtype).cuda()
+    store[batch:] = float("nan")
+    qkv = store[:batch].unflatten(-1, (3, heads, hd))
+    table = torch.randn(((2 * window - 1) ** 2, heads), generator=g).cuda()
+    index = torch.from_numpy(_relative_position_index(window)).to(torch.int16).cuda()
+    mask = torch.from_numpy(_shift_attn_mask(grid, window, shift)).cuda() if shift else None
+    return qkv, table, index, mask
+
+
+def qkv_plan(torch, window_attention, qkv, table, window, masked) -> str:
+    """The heads a work item takes that the wrapper picks for this call."""
+    if qkv.dtype != torch.bfloat16:
+        return "fp32 SIMT, a block a (window, head)"
+    b, grid, _, _, heads, hd = qkv.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    group = window_attention.pick_head_group(
+        b * (grid // window) ** 2, heads, window * window, hd, table.shape[0], masked, sms)
+    return f"head_group={group}"
+
+
 def check_window(torch, window_attention) -> float:
-    """Phase 3: window_attention against its plain version; the largest error."""
+    """Phase 3: both entries against their plain versions; the largest error.
+    ``window_attention`` on [Bn, H, ww, hd] at Swin-T's stages and
+    swin_micro's; ``window_attention_qkv`` at every Swin-T call at each of
+    the server's buckets (the plan depends on the batch; it is in the log),
+    the windows of shifted blocks wrapping round the image's edge, swin_micro's
+    ww 16 / hd 16, ww 25 and 9 (no multiple of 8), ww 64, with NaN in the
+    image behind the batch. Every case runs twice and must come out equal bit
+    for bit."""
+    worst = 0.0
+
+    def judge(label, runs, ref, tol):
+        nonlocal worst
+        err = (runs[0].float() - ref.float()).abs().max().item()
+        same = torch.equal(runs[0], runs[1])
+        log(f"  {label}: max_abs_err={err:.3e} (tol {tol:g}), twice the same {same}")
+        if not bool(torch.isfinite(runs[0]).all()) or not (err <= tol) or not same:
+            fail(f"{label} disagrees with its plain version: err {err}, twice the same {same}")
+        worst = max(worst, err)
+
     cases = [(8, grid, heads, 32, 7, masked)
              for grid, heads in SWIN_STAGES for masked in (False, True) if masked <= (grid > 7)]
     cases += [(8, 16, 2, 16, 4, True), (8, 8, 4, 16, 4, False)]   # swin_micro: ww 16, hd 16
-    worst = 0.0
     for batch, grid, heads, hd, window, masked in cases:
         for dtype in (torch.bfloat16, torch.float32):
             args = window_inputs(torch, batch, grid, heads, hd, window, masked, dtype)
-            out = window_attention.window_attention(*args)
+            runs = [window_attention.window_attention(*args) for _ in range(2)]
             torch.cuda.synchronize()
-            ref = window_attention.window_attention_reference(*args)
-            tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
-            err = (out.float() - ref.float()).abs().max().item()
-            log(f"  window_attention {list(args[0].shape)} mask={masked} {str(dtype)[6:]}: "
-                f"max_abs_err={err:.3e} (tol {tol:g})")
-            if not bool(torch.isfinite(out).all()) or err > tol:
-                fail(f"window_attention disagrees with its plain version at "
-                     f"{tuple(args[0].shape)} mask={masked} {dtype}: err {err}")
-            worst = max(worst, err)
+            judge(f"window_attention {list(args[0].shape)} mask={masked} {str(dtype)[6:]}",
+                  runs, window_attention.window_attention_reference(*args),
+                  BF16_TOL if dtype == torch.bfloat16 else FP32_TOL)
+
+    from ics_tpu_torch.tools.bench_window import swin_t_calls
+
+    qkv_cases = [(bucket, grid, heads, 32, 7, shift, torch.bfloat16)
+                 for bucket in SERVER_BUCKETS for grid, heads, shift, _ in swin_t_calls()]
+    qkv_cases += [(8, grid, heads, 32, 7, shift, torch.float32)
+                  for grid, heads, shift, _ in swin_t_calls()]
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv_cases += [(8, 16, 2, 16, 4, 2, dtype), (8, 8, 4, 16, 4, 0, dtype),  # swin_micro
+                      (3, 10, 2, 16, 5, 2, dtype), (2, 9, 2, 32, 3, 1, dtype),   # ww 25, 9
+                      (2, 16, 1, 32, 8, 4, dtype)]                               # ww 64
+    for batch, grid, heads, hd, window, shift, dtype in qkv_cases:
+        qkv, table, index, mask = qkv_inputs(torch, batch, grid, heads, hd, window, shift, dtype)
+        runs = [window_attention.window_attention_qkv(qkv, table, index, mask, window, shift,
+                                                      hd ** -0.5) for _ in range(2)]
+        torch.cuda.synchronize()
+        ref = window_attention.window_attention_qkv_reference(qkv, table, index, mask, window,
+                                                              shift, hd ** -0.5)
+        plan = qkv_plan(torch, window_attention, qkv, table, window, shift > 0)
+        judge(f"window_attention_qkv {list(qkv.shape)} window={window} shift={shift} "
+              f"{str(dtype)[6:]} ({plan})", runs, ref,
+              BF16_TOL if dtype == torch.bfloat16 else FP32_TOL)
     return worst
 
 
@@ -749,41 +808,42 @@ def time_depthwise_k35(torch, depthwise) -> dict:
 
 
 def time_window(torch, window_attention) -> dict:
-    """Phase 4: the 12 window attentions of one Swin-T bucket-32 step: per
-    stage half unshifted (no mask) and half shifted (mask), the last stage's
-    single window never masked. The library yardstick is
-    ``F.scaled_dot_product_attention`` with bias + mask as ``attn_mask``."""
+    """Phase 4: the 12 window attentions of one Swin-T bucket-32 step as Swin
+    serves them, through ``window_attention_qkv`` on the qkv product, against
+    its plain version (roll, partition, split, scale, attention, merge, roll)
+    in turns; beside them the 4-D entry with the glue it needs, in turns with
+    the qkv entry, and the host's time a launch. The library yardstick is
+    ``F.scaled_dot_product_attention`` with bias + mask as ``attn_mask`` on
+    the partitioned q, k, v (it leaves the glue out)."""
     import torch.nn.functional as F
 
-    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    for (grid, heads), depth in zip(SWIN_STAGES, SWIN_DEPTHS):
-        shifted = depth // 2 if grid > 7 else 0
-        for masked, count in ((False, depth - shifted), (True, shifted)):
-            if count == 0:
-                continue
-            q, k, v, bias, mask = window_inputs(
-                torch, 32, grid, heads, 32, 7, masked, torch.bfloat16)
-            ms, plain_ms = in_turns(
-                f"window_attention {list(q.shape)} mask={masked} bf16",
-                lambda: window_attention.window_attention(q, k, v, bias, mask),
-                lambda: window_attention.window_attention_reference(q, k, v, bias, mask))
-            bn, h, ww, hd = q.shape
-            attn_mask = bias[None].expand(bn, h, ww, ww)
-            if masked:
-                n_w = mask.shape[0]
-                attn_mask = (attn_mask.reshape(bn // n_w, n_w, h, ww, ww)
-                             + mask[None, :, None]).reshape(bn, h, ww, ww)
-            attn_mask = attn_mask.to(torch.bfloat16).contiguous()
+    from ics_tpu_torch.tools import bench_window
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "glue_4d_ms": 0.0}
+    with torch.inference_mode():
+        for grid, heads, shift, count in bench_window.swin_t_calls():
+            call = bench_window.make_call(32, grid, heads, shift)
+            label = f"window_attention_qkv [32, {grid}, {grid}, 3, {heads}, 32] shift={shift} bf16"
+            ms, plain_ms = in_turns(label, lambda: bench_window.qkv_entry(call),
+                                    lambda: bench_window.plain(call))
+            _, glue_ms = in_turns("  the same (kernel) beside the 4-D entry with its glue "
+                                  "(under 'plain')", lambda: bench_window.qkv_entry(call),
+                                  lambda: bench_window.glue_4d(call))
+            attn_mask = bench_window.sdpa_mask(call)
             lib = library_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=attn_mask, scale=1.0))
-            n_bytes = 4 * q.numel() * 2 + bias.numel() * 4 + (mask.numel() * 4 if masked else 0)
-            case = bound(n_bytes, 4.0 * bn * h * ww * ww * hd, BF16_FLOPS)
+                call["q"], call["k"], call["v"], attn_mask=attn_mask, scale=1.0))
+            bound_ms = bench_window.bound_ms(call)
+            small = bench_window.make_call(1, grid, heads, shift)
+            host = host_us(lambda: bench_window.qkv_entry(small))
             log(f"    F.scaled_dot_product_attention with attn_mask (yardstick only) "
-                f"{lib:.4f} ms; bound {case['bound_ms']:.4f} ms by {case['bound_by']}; "
-                f"x{count} a step")
+                f"{lib:.4f} ms; bound {bound_ms:.4f} ms by bytes; head_group "
+                f"{bench_window.head_group_of(call)}; host {host:.1f} us a launch; x{count} a step")
             for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib),
-                               ("bound_ms", case["bound_ms"])):
+                               ("bound_ms", bound_ms), ("glue_4d_ms", glue_ms)):
                 total[key] += count * value
+    log(f"    Swin-T's 12: qkv entry {total['ms']:.4f} ms, 4-D entry with its glue "
+        f"{total['glue_4d_ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, SDPA "
+        f"{total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms")
     return {**total, "bound_by": "bytes"}
 
 

@@ -1,12 +1,16 @@
 """Swin Transformer v1 (counterpart of ``ics_tpu/models/swin.py``), inference.
 
-Window partition, merge and the cyclic shift are views and ``torch.roll``
-on static shapes. The attention of a window (QK^T, relative-position bias,
-shift mask, softmax, P·V) runs in the hand-written kernel on the card
-(``ics_tpu_torch.ops.window_attention``): 12 launches a forward for Swin-T.
-The shift mask and the relative-position index are built with numpy at
-construction, per block, and held as buffers that are not part of the
-state dict.
+A block's attention runs on the qkv product of the whole [B, G, G, C]
+image: the qkv and proj GEMMs are per token, so they commute with the
+cyclic shift and the window partition and merge. Between the two GEMMs one
+hand-written kernel on the card (``ops.window_attention.window_attention_qkv``)
+reads q, k and v of each window where they lie, through the shift, and
+writes the merged heads back in image order: 12 launches a forward for
+Swin-T, and no roll, partition, merge or q/k/v copy. Its plain version is
+the chain of PyTorch ops that it replaces (roll, partition, split, scale,
+attention, merge, roll), which is what the CPU runs. The shift mask and the
+relative-position index are built with numpy at construction, per block,
+and held as buffers that are not part of the state dict.
 
 Scores are fp32 in the kernel and in its plain version, which is what the
 JAX package's training forward computes; its serving forward keeps the
@@ -32,9 +36,13 @@ from ics_tpu_torch.nn.layers import (
     trunc_normal_,
 )
 from ics_tpu_torch.ops.window_attention import (
-    window_attention,
-    window_attention_reference,
+    relative_bias,
+    window_attention_qkv,
+    window_attention_qkv_reference,
 )
+# partition and merge under the names the tests and the JAX package use
+from ics_tpu_torch.ops.window_attention import window_merge as _window_merge  # noqa: F401
+from ics_tpu_torch.ops.window_attention import window_partition as _window_partition  # noqa: F401
 
 
 def _relative_position_index(window: int) -> np.ndarray:
@@ -67,20 +75,6 @@ def _shift_attn_mask(grid: int, window: int, shift: int) -> np.ndarray:
     return np.where(diff == 0, 0.0, -1e4).astype(np.float32)
 
 
-def _window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
-    """[B, H, W, C] -> [B*nH*nW, ww, C]."""
-    b, h, w, c = x.shape
-    x = x.reshape(b, h // window, window, w // window, window, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, c)
-
-
-def _window_merge(x: torch.Tensor, window: int, grid: int, batch: int) -> torch.Tensor:
-    """Inverse of ``_window_partition``."""
-    n = grid // window
-    x = x.reshape(batch, n, n, window, window, x.shape[-1])
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(batch, grid, grid, x.shape[-1])
-
-
 class WindowAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: int, device=None):
         super().__init__()
@@ -95,27 +89,47 @@ class WindowAttention(nn.Module):
         # timm: a trunc-normal(0.02) table [(2w-1)^2, heads]
         self.rel_bias = nn.Parameter(
             torch.empty((2 * window - 1) ** 2, num_heads, device=device))
-        self.register_buffer(
-            "rel_index", torch.from_numpy(_relative_position_index(window)).to(device),
-            persistent=False)
+        index = torch.from_numpy(_relative_position_index(window))
+        self.register_buffer("rel_index", index.to(device), persistent=False)
+        # the kernel's copy of the index (values below 169 at w 7)
+        self.register_buffer("rel_index16", index.to(device=device, dtype=torch.int16),
+                             persistent=False)
+        self._table: Optional[tuple] = None    # (key, fp32 table)
         self.use_kernel = True
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         trunc_normal_(self.rel_bias.data, generator)
 
+    def _apply(self, fn, *args, **kwargs):
+        self._table = None   # a move or a cast: the fp32 table is made anew
+        return super()._apply(fn, *args, **kwargs)
+
     def bias(self) -> torch.Tensor:
         """The relative-position bias [H, ww, ww] in fp32."""
-        return self.rel_bias.float()[self.rel_index].permute(2, 0, 1).contiguous()
+        return relative_bias(self.rel_bias, self.rel_index)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x [Bn, ww, C]; mask [nW, ww, ww] additive, fp32, or None."""
-        bn, ww, _ = x.shape
-        qkv = self.qkv(x).reshape(bn, ww, 3, self.num_heads, self.head_dim)
-        q, k, v = (t.contiguous() for t in qkv.permute(2, 0, 3, 1, 4).unbind(0))
-        q = q * self.head_dim ** -0.5           # pre-scaled in its own dtype
-        attend = window_attention if self.use_kernel else window_attention_reference
-        out = attend(q, k, v, self.bias(), mask)                # [Bn, H, ww, hd]
-        return self.proj(out.transpose(1, 2).reshape(bn, ww, self.dim))
+    def table(self) -> torch.Tensor:
+        """The relative-position table [(2w-1)^2, H] in fp32, as the kernel
+        gathers it. The parameter itself where it is fp32; in a cast model an
+        fp32 copy, kept until the parameter is replaced or written in place."""
+        t = self.rel_bias
+        if t.dtype == torch.float32:
+            return t.detach()
+        key = (t.data_ptr(), 0 if t.is_inference() else t._version)
+        if self._table is None or self._table[0] != key:
+            with torch.no_grad():
+                self._table = (key, t.detach().float())
+        return self._table[1]
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                shift: int = 0) -> torch.Tensor:
+        """x [B, G, G, C] (the whole image); mask [nW, ww, ww] additive,
+        fp32, or None; ``shift`` the block's cyclic shift -> [B, G, G, C]."""
+        b, g, _, _ = x.shape
+        qkv = self.qkv(x).view(b, g, g, 3, self.num_heads, self.head_dim)
+        attend = window_attention_qkv if self.use_kernel else window_attention_qkv_reference
+        return self.proj(attend(qkv, self.table(), self.rel_index16, mask, self.window, shift,
+                                self.head_dim ** -0.5))
 
 
 class SwinBlock(nn.Module):
@@ -151,15 +165,7 @@ class SwinBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, H, W, C] -> the same shape."""
-        b = x.shape[0]
-        y = self.ln1(x)
-        if self.shift > 0:
-            y = torch.roll(y, (-self.shift, -self.shift), dims=(1, 2))
-        windows = self.attn(_window_partition(y, self.window), self.mask())
-        y = _window_merge(windows, self.window, self.grid, b)
-        if self.shift > 0:
-            y = torch.roll(y, (self.shift, self.shift), dims=(1, 2))
-        x = x + y
+        x = x + self.attn(self.ln1(x), self.mask(), self.shift)
         y = self.fc2(gelu(self.fc1(self.ln2(x)), exact=self.gelu_exact))
         return x + y
 

@@ -34,7 +34,6 @@ from ics_tpu_torch.ops import LAUNCHES, stream_and_device
 KERNEL_INNER_WIDTHS = (64, 128, 256)
 # what one thread block may ask for in shared memory on sm_90
 _SMEM_MAX = 232448
-VARIANTS = {"wgmma": 0, "mma": 1}
 # the wgmma kernel's ring: 2 to 4 stages of a [128 pixels, 64] x tile and a
 # [Cm, 64] weight tile
 _X_TILE_ROWS = 128
@@ -105,10 +104,9 @@ class ChainWeights(nn.Module):
         return {key: getattr(self, key) for key in _KEYS}
 
     def kernel_layout(self) -> tuple:
-        """(w1t [n, Cm, C], w2t [n, Cm, 9*Cm], w3t [n, C, Cm], w3t in
+        """(w1t [n, Cm, C], w2t [n, Cm, 9*Cm], w3t [n, C, Cm] with its rows in
         ``expand_row_order``): the output channel outermost and K contiguous,
-        which is how the kernel's B fragments read them. Made once per device
-        placement."""
+        which is how the kernel reads them. Made once per device placement."""
         if self._kernel_layout is None:
             self._kernel_layout = _kernel_layout(self.packed())
         return self._kernel_layout
@@ -130,9 +128,9 @@ def expand_row_order(c: int) -> torch.Tensor:
 
 
 def _kernel_layout(weights: dict[str, torch.Tensor]) -> tuple:
-    w1t, w2t, w3t = (weights[key].transpose(1, 2).contiguous() for key in _WEIGHT_KEYS)
+    w1t, w2t, w3t = (weights[key].transpose(1, 2) for key in _WEIGHT_KEYS)
     order = expand_row_order(w3t.shape[1]).to(w3t.device)
-    return w1t, w2t, w3t, w3t.index_select(1, order).contiguous()
+    return w1t.contiguous(), w2t.contiguous(), w3t.index_select(1, order).contiguous()
 
 
 def _as_packed(packed) -> dict[str, torch.Tensor]:
@@ -158,16 +156,6 @@ def _smem_bytes(th: int, w: int, cm: int, stages: int = _MIN_STAGES) -> int:
         + 2 * 8 * _MAX_STAGES
 
 
-def _smem_bytes_mma(th: int, w: int, cm: int) -> int:
-    """Shared memory of one thread block of the mma.sync kernel (the formula
-    of ``launch_mma``)."""
-    round16 = lambda v: _ceil_div(v, 16) * 16  # noqa: E731
-    arow, wrow = cm + 8, 72
-    x_rows = min(256 // (cm // 64), round16((th + 2) * w))
-    u_elems = max(x_rows * wrow, round16(th * w) * arow)
-    return 2 * ((th + 2) * (w + 2) * arow + u_elems + cm * wrow)
-
-
 def ring_stages(th: int, w: int, cm: int) -> int:
     """Ring stages of the wgmma kernel at ``th`` tile rows: as many of 2 to 4
     as fit beside ``a`` and ``cmid``; 0 if two do not fit."""
@@ -178,7 +166,7 @@ def ring_stages(th: int, w: int, cm: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def pick_tile_rows(h: int, w: int, cm: int, variant: str = "wgmma", batch: int = 32,
+def pick_tile_rows(h: int, w: int, cm: int, batch: int = 32,
                    multiprocessors: int = _H100_MULTIPROCESSORS) -> int:
     """Image rows per thread block (cached: the serving path asks for the
     same few shapes on every step).
@@ -191,33 +179,18 @@ def pick_tile_rows(h: int, w: int, cm: int, variant: str = "wgmma", batch: int =
     : 4), and the ``batch * tiles`` blocks, one a multiprocessor at a time,
     run in whole rounds of the card's ``multiprocessors``. The cheapest tiling
     that leaves the ring at least three stages wins; if none does, the
-    cheapest with two. The mma.sync kernel, which serves no shape and is kept
-    to be timed beside this one, has its own rule: passes of 16 items of 16
-    pixels x 64 columns, two blocks a multiprocessor where they fit."""
-    if variant == "mma":
-        nch = cm // 64
+    cheapest with two."""
+    big = 512 * 64 // cm
 
-        def passes(pixels: int) -> int:
-            return _ceil_div(_ceil_div(pixels, 16) * nch, 16)
+    def cost(th: int) -> int:
+        rounds = _ceil_div(_ceil_div(h, th) * batch, multiprocessors)
+        return rounds * (4 * _ceil_div((th + 2) * w, _X_TILE_ROWS) * _X_TILE_ROWS
+                         + 13 * _ceil_div(th * w, big) * big)
 
-        # two of its blocks share a multiprocessor where their shared memory allows
-        for limit in (113 * 1024, _SMEM_MAX):
-            fits = [th for th in range(1, h + 1) if _smem_bytes_mma(th, w, cm) <= limit]
-            if fits:
-                return min(fits, key=lambda th: (
-                    _ceil_div(h, th) * (4 * passes((th + 2) * w) + 13 * passes(th * w)), -th))
-    else:
-        big = 512 * 64 // cm
-
-        def cost(th: int) -> int:
-            rounds = _ceil_div(_ceil_div(h, th) * batch, multiprocessors)
-            return rounds * (4 * _ceil_div((th + 2) * w, _X_TILE_ROWS) * _X_TILE_ROWS
-                             + 13 * _ceil_div(th * w, big) * big)
-
-        for least in (3, _MIN_STAGES):
-            fits = [th for th in range(1, h + 1) if ring_stages(th, w, cm) >= least]
-            if fits:
-                return min(fits, key=lambda th: (cost(th), -th))
+    for least in (3, _MIN_STAGES):
+        fits = [th for th in range(1, h + 1) if ring_stages(th, w, cm) >= least]
+        if fits:
+            return min(fits, key=lambda th: (cost(th), -th))
     raise ValueError(f"bottleneck_chain: a row of width {w} at Cm={cm} does not fit "
                      "a thread block's shared memory")
 
@@ -228,24 +201,21 @@ def _kernel():
     lib = _build.load("bottleneck_chain")
     fn = lib.ics_bottleneck_block
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p, ctypes.c_int]
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int]
         fn.restype = ctypes.c_int
         lib.ics_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ics_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def bottleneck_chain(x: torch.Tensor, packed, tile_rows: Optional[int] = None,
-                     variant: str = "wgmma") -> torch.Tensor:
+def bottleneck_chain(x: torch.Tensor, packed, tile_rows: Optional[int] = None) -> torch.Tensor:
     """Run a chain of stride-1 identity bottlenecks over x [B, H, W, C].
 
     ``packed``: a ``ChainWeights`` or the dict of ``pack_chain_weights``.
     CUDA tensors go through the kernel, one launch per bottleneck (bf16,
     contiguous NHWC, Cm in 64/128/256); anything it does not take raises.
-    CPU tensors take the plain version. ``variant``: "wgmma", which serves
-    every call, or "mma", the earlier mma.sync kernel: it serves nothing and
-    is there only to be timed beside the other (a shape that the wgmma
-    kernel's shared memory cannot take raises, it does not fall back).
+    CPU tensors take the plain version. A shape whose tile does not fit the
+    kernel's shared memory raises.
     """
     weights = _as_packed(packed)
     n, c, cm = weights["w1"].shape
@@ -274,19 +244,16 @@ def bottleneck_chain(x: torch.Tensor, packed, tile_rows: Optional[int] = None,
         raise ValueError(f"bottleneck_chain: shape {tuple(x.shape)} is too large")
     if x.numel() == 0 or n == 0:
         return x.clone()
-    if variant not in VARIANTS:
-        raise ValueError(f"bottleneck_chain: variant must be one of {sorted(VARIANTS)}")
     if tile_rows is None:
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        th = pick_tile_rows(h, w, cm, variant, b, sms)
+        th = pick_tile_rows(h, w, cm, b, sms)
     else:
         th = int(tile_rows)
-    stages = ring_stages(th, w, cm) if variant == "wgmma" else 0
-    if not 1 <= th <= h or (_smem_bytes_mma(th, w, cm) > _SMEM_MAX if variant == "mma"
-                            else stages < _MIN_STAGES):
+    stages = ring_stages(th, w, cm)
+    if not 1 <= th <= h or stages < _MIN_STAGES:
         raise ValueError(f"bottleneck_chain: tile_rows={th} does not fit (H={h}, W={w}, Cm={cm})")
     layout = packed.kernel_layout() if isinstance(packed, ChainWeights) else _kernel_layout(weights)
-    w1t, w2t, w3t = layout[0], layout[1], layout[3 if variant == "wgmma" else 2]
+    w1t, w2t, w3t = layout
     scales = [weights[k].contiguous() for k in ("s1", "b1", "s2", "b2", "s3", "b3")]
     if any(t.dtype != torch.float32 for t in scales):
         raise ValueError("bottleneck_chain wants fp32 scale and bias")
@@ -304,7 +271,7 @@ def bottleneck_chain(x: torch.Tensor, packed, tile_rows: Optional[int] = None,
             w1t[j].data_ptr(), s1[j].data_ptr(), b1[j].data_ptr(),
             w2t[j].data_ptr(), s2[j].data_ptr(), b2[j].data_ptr(),
             w3t[j].data_ptr(), s3[j].data_ptr(), b3[j].data_ptr(),
-            b, h, w, c, cm, th, stages, VARIANTS[variant], stream, device,
+            b, h, w, c, cm, th, stages, stream, device,
         )
         if rc != 0:
             msg = lib.ics_cuda_error_string(rc).decode()

@@ -1,24 +1,36 @@
 """Window attention (Swin): a hand-written CUDA kernel for Hopper and its plain
-version.
+versions, behind two entries.
 
 Counterpart of ``scripts/proto_window_attn.py::pallas_window_attention``.
-``window_attention`` on CUDA tensors launches ``csrc/window_attention.cu``;
-on CPU tensors, and only there, it computes ``window_attention_reference``.
-Both follow the TPU kernel's contract: per (window, head) QK^T with q
-pre-scaled by the caller, plus the relative-position bias [H, ww, ww] and
-the shift mask [nW, ww, ww] (window index = row mod nW, rows image-major),
-all in fp32; an fp32 softmax; P divided by its row sum and then rounded to
-``v.dtype``; P·V accumulated in fp32; one rounding of the output. The
-mask's -1e4 entries are finite on purpose and are added as they are. The
-[Bn, H, ww, ww] score tensor never reaches device memory.
+Both entries launch ``csrc/window_attention.cu`` on CUDA tensors; on CPU
+tensors, and only there, they compute their plain versions. The kernel
+follows the TPU kernel's contract: per (window, head) QK^T with q pre-scaled,
+plus the relative-position bias and the shift mask, all in fp32; an fp32
+softmax; P divided by its row sum and then rounded to the input's type; P·V
+accumulated in fp32; one rounding of the output. The mask's -1e4 entries are
+finite on purpose and are added as they are. The [Bn, H, ww, ww] score
+tensor never reaches device memory.
 
-bf16 inputs run the products on the tensor cores (``mma.sync`` m16n8k16);
-fp32 inputs take a SIMT kernel of plain fp32 FMAs (no TF32).
+- ``window_attention(q, k, v, bias, mask)``: the JAX contract, [Bn, H, ww, hd]
+  with rows image-major (window index = row mod nW), bias [H, ww, ww].
+- ``window_attention_qkv(qkv, rel_table, rel_index, mask, window, shift,
+  scale)``: what Swin serves. It reads q, k and v by strides from the qkv
+  product [B, G, G, 3, H, hd] as it leaves its GEMM and returns the merged
+  heads [B, G, G, H·hd] in image order: the same function as roll by -shift,
+  window partition, q/k/v split, ``q * scale`` rounded to the input's type,
+  ``window_attention``, head merge, window merge and roll by +shift, which
+  is its plain version, step for step. The bias is gathered from the
+  [(2w-1)², H] table through the [ww, ww] index.
+
+bf16 runs on the tensor cores (``mma.sync`` m16n8k16); fp32 takes a SIMT
+kernel of plain fp32 FMAs (no TF32). How many heads of a window a work item
+of the bf16 kernel takes is picked here from the shape (``pick_head_group``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -28,8 +40,13 @@ from ics_tpu_torch.ops import LAUNCHES, stream_and_device
 HEAD_DIMS = (16, 32)
 MAX_TOKENS = 64
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+_WARPS = 4                   # a block of the bf16 kernel: 16 query rows a warp
+_SMEM_MAX = 232448 - 256     # what one thread block may ask for on sm_90, less the
+                             # kernel's static token table
+_H100_MULTIPROCESSORS = 132  # what pick_head_group counts with where no device is named
 
 _launches = LAUNCHES["window_attention"]
+_identity_index: dict = {}
 
 
 def _kernel():
@@ -38,16 +55,126 @@ def _kernel():
     lib = _build.load("window_attention")
     fn = lib.ics_window_attention
     if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int,
-        ]
+        c_int, c_ll, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+        fn.argtypes = (
+            [c_int] + [ptr] * 4 + [c_ll] * 8 + [c_int] * 8 + [ptr, c_ll, c_ll, c_int]
+            + [ptr, ptr, c_int, ctypes.c_float, c_int, ptr, c_int]
+        )
         fn.restype = ctypes.c_int
         lib.ics_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ics_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def key_tiles(ww: int) -> int:
+    """8-key tiles of the scores the bf16 kernel is built for at ``ww``."""
+    return 2 if ww <= 16 else 4 if ww <= 32 else 7 if ww <= 56 else 8
+
+
+def index_stride(ww: int) -> int:
+    """Row stride (elements) of the index in shared memory: the keys of the
+    kernel's tiles as an odd multiple of 8, so that the eight rows a quad of
+    lanes reads in pairs lie on distinct banks."""
+    keys = 8 * key_tiles(ww)
+    return keys + 8 if keys % 16 == 0 else keys
+
+
+def smem_bytes(ww: int, hd: int, head_group: int, table_rows: int, masked: bool) -> int:
+    """Dynamic shared memory of one block of the bf16 kernel (the formula of
+    ``ics_window_attention``): the int16 index, then two ring stages, each
+    with q, k and v of ``head_group`` heads (the tiles' keys rounded up to 16
+    rows, padded by 8 bf16), their fp32 table columns and, with a mask, the
+    16-byte pieces of the window's fp32 [ww, ww] block (from up to 3 floats
+    before it to the last row's keys past ww, which are read and dropped)."""
+    keys = 8 * key_tiles(ww)
+    rows = _round_up(keys, 16)
+    stage = head_group * 3 * rows * (hd + 8) * 2 + _round_up(head_group * table_rows * 4, 16)
+    if masked:
+        stage += _round_up((3 + (ww - 1) * ww + keys) * 4, 16)
+    return _round_up(ww * index_stride(ww) * 2, 16) + 2 * stage
+
+
+@functools.lru_cache(maxsize=None)
+def pick_head_group(windows: int, heads: int, ww: int, hd: int, table_rows: int, masked: bool,
+              multiprocessors: int = _H100_MULTIPROCESSORS) -> int:
+    """Heads a work item of the bf16 kernel takes, for ``windows`` windows of
+    ``heads`` heads (cached: the serving path asks for the same few shapes on
+    every step).
+
+    A work item is a window and ``head_group`` of its heads; each of a
+    block's four warps takes 16 query rows of one head. The group is the
+    largest divisor of ``heads`` whose rows still leave no warp a second task
+    (``head_group * ceil(ww / 16) <= 4``) and that still makes two items for
+    every multiprocessor; one head where none does. A larger group stages a
+    window's mask once for more heads; a smaller one keeps the card full at
+    small batches."""
+    row_tiles = -(-ww // 16)
+    if smem_bytes(ww, hd, 1, table_rows, masked) > _SMEM_MAX:
+        raise ValueError(f"window_attention: a table of {table_rows} rows does not fit a "
+                         "thread block's shared memory")
+    fits = [g for g in range(1, heads + 1)
+            if heads % g == 0 and g * row_tiles <= _WARPS
+            and smem_bytes(ww, hd, g, table_rows, masked) <= _SMEM_MAX]
+    busy = [g for g in fits if windows * (heads // g) >= 2 * multiprocessors]
+    return max(busy) if busy else 1
+
+
+def _identity(ww: int, device: torch.device) -> torch.Tensor:
+    """[ww, ww] int16 index j = r * ww + c: the 4-D entry's bias as a table."""
+    key = (ww, device)
+    if key not in _identity_index:
+        _identity_index[key] = torch.arange(ww * ww, dtype=torch.int16, device=device).view(ww, ww)
+    return _identity_index[key]
+
+
+def _launch(q_ptr: int, k_ptr: int, v_ptr: int, out: torch.Tensor, strides, out_strides,
+            grid: tuple, window: tuple, shift: int, heads: int, hd: int, dtype: torch.dtype,
+            table: torch.Tensor, table_rows: int, table_strides: tuple, index: torch.Tensor,
+            mask: Optional[torch.Tensor], scale: float, head_group: Optional[int]) -> None:
+    """One launch of the kernel: ``grid`` (batch, gy, gx) tokens in windows of
+    ``window`` (wh, wwid), strides in elements; row j of head h of the table
+    at ``j * table_strides[0] + h * table_strides[1]``."""
+    batch, gy, gx = grid
+    wh, wwid = window
+    ww = wh * wwid
+    if head_group is None:
+        windows = batch * (gy // wh) * (gx // wwid)
+        sms = torch.cuda.get_device_properties(out.device).multi_processor_count
+        head_group = pick_head_group(windows, heads, ww, hd, table_rows, mask is not None, sms)
+    if head_group < 1 or heads % head_group:
+        raise ValueError(f"window_attention: a head group of {head_group} does not divide "
+                         f"{heads} heads")
+    if mask is not None and mask.data_ptr() % 16:
+        raise ValueError("window_attention wants a 16-byte aligned mask")
+    lib = _kernel()
+    rc = lib.ics_window_attention(
+        _DTYPE_CODES[dtype], q_ptr, k_ptr, v_ptr, out.data_ptr(), *strides, *out_strides,
+        batch, gy, gx, wh, wwid, shift, heads, hd, table.data_ptr(), *table_strides,
+        table_rows, index.data_ptr(), None if mask is None else mask.data_ptr(),
+        1 if mask is None else mask.shape[0], scale, head_group,
+        *stream_and_device(out),
+    )
+    if rc != 0:
+        msg = lib.ics_cuda_error_string(rc).decode()
+        raise RuntimeError(f"window_attention kernel launch failed: {msg} (cudaError {rc})")
+    _launches.add()
+
+
+def _check_device_and_types(name: str, tensors: list, dtype: torch.dtype, hd: int,
+                            ww: int) -> None:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1 or tensors[0].device.type != "cuda":
+        raise ValueError(f"{name} wants all tensors on one CUDA device; got {devices}")
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name} takes bf16 or fp32 q, k, v of one dtype; got {dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name} takes head_dim in {HEAD_DIMS}; got {hd}")
+    if ww > MAX_TOKENS:
+        raise ValueError(f"{name} takes windows of at most {MAX_TOKENS} tokens; got {ww}")
 
 
 def _check_shapes(q, k, v, bias, mask) -> None:
@@ -71,34 +198,29 @@ def _check_shapes(q, k, v, bias, mask) -> None:
 
 
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     bias: torch.Tensor,
-                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     bias: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                     head_group: Optional[int] = None) -> torch.Tensor:
     """q, k, v [Bn, H, ww, hd] (Bn = B·nW, image-major; q pre-scaled), bias
     [H, ww, ww] fp32, mask [nW, ww, ww] fp32 or None -> [Bn, H, ww, hd].
 
     CUDA tensors go through the kernel (bf16 or fp32 q, k, v, contiguous and
     16-byte aligned, hd in 16/32, ww <= 64, fp32 bias and mask); anything it
-    does not take raises. CPU tensors take the plain version.
+    does not take raises. CPU tensors take the plain version. ``head_group``:
+    heads a work item takes, instead of ``pick_head_group``'s (for measuring).
     """
     _check_shapes(q, k, v, bias, mask)
     tensors = [q, k, v, bias] + ([] if mask is None else [mask])
-    devices = {t.device for t in tensors}
-    if devices == {torch.device("cpu")}:
+    if {t.device for t in tensors} == {torch.device("cpu")}:
         return window_attention_reference(q, k, v, bias, mask)
-    if len(devices) != 1 or q.device.type != "cuda":
-        raise ValueError(f"window_attention wants all tensors on one CUDA device; got {devices}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    bn, h, ww, hd = q.shape
+    _check_device_and_types("window_attention", tensors, q.dtype, hd, ww)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
             f"window_attention takes bf16 or fp32 q, k, v of one dtype; got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
     if bias.dtype != torch.float32 or (mask is not None and mask.dtype != torch.float32):
         raise ValueError("window_attention takes fp32 bias and mask")
-    bn, h, ww, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"window_attention takes head_dim in {HEAD_DIMS}; got {hd}")
-    if ww > MAX_TOKENS:
-        raise ValueError(f"window_attention takes windows of at most {MAX_TOKENS} tokens; got {ww}")
     for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias), ("mask", mask)):
         if t is None:
             continue
@@ -111,16 +233,11 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = _kernel()
-    rc = lib.ics_window_attention(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(), bn, h, ww, hd,
-        1 if mask is None else mask.shape[0], *stream_and_device(q),
-    )
-    if rc != 0:
-        msg = lib.ics_cuda_error_string(rc).decode()
-        raise RuntimeError(f"window_attention kernel launch failed: {msg} (cudaError {rc})")
-    _launches.add()
+    # a window a row: one image row of ww tokens, heads ww * hd apart
+    strides = (q.stride(0), 0, q.stride(2), q.stride(1))
+    _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out, strides, strides, (bn, 1, ww),
+            (1, ww), 0, h, hd, q.dtype, bias, ww * ww, (1, ww * ww), _identity(ww, q.device), mask,
+            1.0, head_group)
     return out
 
 
@@ -138,3 +255,124 @@ def window_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                   + mask.float()[None, :, None]).reshape(bn, h, ww, ww)
     p = torch.softmax(scores, dim=-1)
     return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B*nH*nW, ww, C]."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // window, window, w // window, window, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, c)
+
+
+def window_merge(x: torch.Tensor, window: int, grid: int, batch: int) -> torch.Tensor:
+    """Inverse of ``window_partition``."""
+    n = grid // window
+    x = x.reshape(batch, n, n, window, window, x.shape[-1])
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(batch, grid, grid, x.shape[-1])
+
+
+def relative_bias(rel_table: torch.Tensor, rel_index: torch.Tensor) -> torch.Tensor:
+    """The relative-position bias [H, ww, ww] in fp32: the [(2w-1)², H] table
+    gathered through the [ww, ww] index."""
+    return rel_table.float()[rel_index.long()].permute(2, 0, 1).contiguous()
+
+
+def _check_qkv_shapes(qkv, rel_table, rel_index, mask, window: int, shift: int) -> None:
+    if qkv.dim() != 6 or qkv.shape[3] != 3 or qkv.shape[1] != qkv.shape[2]:
+        raise ValueError(
+            f"window_attention_qkv wants qkv as [B, G, G, 3, H, hd]; got {tuple(qkv.shape)}")
+    grid, heads = qkv.shape[1], qkv.shape[4]
+    ww = window * window
+    if window < 1 or grid % window:
+        raise ValueError(f"window_attention_qkv: grid {grid} is not a multiple of the window "
+                         f"{window}")
+    if not 0 <= shift < window:
+        raise ValueError(f"window_attention_qkv wants 0 <= shift < window {window}; got {shift}")
+    if rel_table.dim() != 2 or rel_table.shape[1] != heads:
+        raise ValueError(f"window_attention_qkv wants rel_table as [rows, H = {heads}]; got "
+                         f"{tuple(rel_table.shape)}")
+    if tuple(rel_index.shape) != (ww, ww) or rel_index.dtype.is_floating_point:
+        raise ValueError(f"window_attention_qkv wants an integer rel_index [ww, ww] = "
+                         f"{[ww, ww]}; got {tuple(rel_index.shape)} {rel_index.dtype}")
+    n_w = (grid // window) ** 2
+    if mask is not None and tuple(mask.shape) != (n_w, ww, ww):
+        raise ValueError(f"window_attention_qkv wants mask as [nW, ww, ww] = {[n_w, ww, ww]}; "
+                         f"got {tuple(mask.shape)}")
+
+
+def check_qkv_layout(qkv: torch.Tensor) -> None:
+    """What the kernel asks of the qkv product's layout: its last dimension
+    contiguous, its base and every other stride 16-byte aligned (each head's
+    row moves as 16-byte pieces). Raises ValueError otherwise."""
+    size = qkv.element_size()
+    if qkv.stride(-1) != 1:
+        raise ValueError("window_attention_qkv wants qkv's last dimension contiguous")
+    if qkv.data_ptr() % 16:
+        raise ValueError("window_attention_qkv wants qkv 16-byte aligned")
+    if any(qkv.stride(d) * size % 16 for d in range(qkv.dim() - 1) if qkv.shape[d] > 1):
+        raise ValueError(f"window_attention_qkv wants qkv's strides in 16-byte steps; got "
+                         f"{qkv.stride()} of {size}-byte elements")
+
+
+def window_attention_qkv(qkv: torch.Tensor, rel_table: torch.Tensor, rel_index: torch.Tensor,
+                         mask: Optional[torch.Tensor], window: int, shift: int, scale: float,
+                         head_group: Optional[int] = None) -> torch.Tensor:
+    """qkv [B, G, G, 3, H, hd] (any strides, the last dimension contiguous),
+    rel_table [(2w-1)², H] fp32, rel_index [ww, ww] int16 (values below the
+    table's rows), mask [nW, ww, ww] fp32 or None, ``shift`` the cyclic shift
+    of the block -> [B, G, G, H·hd] in image order.
+
+    CUDA tensors go through the kernel (bf16 or fp32 qkv with the layout of
+    ``check_qkv_layout``, hd in 16/32, ww <= 64, fp32 table and mask, int16
+    index); anything it does not take raises. CPU tensors take the plain
+    version. ``head_group``: heads a work item takes, instead of ``pick_head_group``'s.
+    """
+    _check_qkv_shapes(qkv, rel_table, rel_index, mask, window, shift)
+    tensors = [qkv, rel_table, rel_index] + ([] if mask is None else [mask])
+    if {t.device for t in tensors} == {torch.device("cpu")}:
+        return window_attention_qkv_reference(qkv, rel_table, rel_index, mask, window, shift,
+                                              scale)
+    b, grid, _, _, h, hd = qkv.shape
+    _check_device_and_types("window_attention_qkv", tensors, qkv.dtype, hd, window * window)
+    if rel_table.dtype != torch.float32 or (mask is not None and mask.dtype != torch.float32):
+        raise ValueError("window_attention_qkv takes fp32 rel_table and mask")
+    if rel_index.dtype != torch.int16 or not rel_index.is_contiguous():
+        raise ValueError("window_attention_qkv takes a contiguous int16 rel_index")
+    if mask is not None and not mask.is_contiguous():
+        raise ValueError("window_attention_qkv wants a contiguous mask")
+    check_qkv_layout(qkv)
+    if b * (grid // window) ** 2 * h >= 2**31:
+        raise ValueError(f"window_attention_qkv: shape {tuple(qkv.shape)} is too large")
+    out = torch.empty((b, grid, grid, h * hd), dtype=qkv.dtype, device=qkv.device)
+    if out.numel() == 0:
+        return out
+    step = qkv.stride(3) * qkv.element_size()
+    q_ptr = qkv.data_ptr()
+    strides = (qkv.stride(0), qkv.stride(1), qkv.stride(2), qkv.stride(4))
+    out_strides = (out.stride(0), out.stride(1), out.stride(2), hd)
+    _launch(q_ptr, q_ptr + step, q_ptr + 2 * step, out, strides, out_strides, (b, grid, grid),
+            (window, window), shift, h, hd, qkv.dtype, rel_table, rel_table.shape[0],
+            (rel_table.stride(0), rel_table.stride(1)), rel_index, mask, scale, head_group)
+    return out
+
+
+def window_attention_qkv_reference(qkv: torch.Tensor, rel_table: torch.Tensor,
+                                   rel_index: torch.Tensor, mask: Optional[torch.Tensor],
+                                   window: int, shift: int, scale: float) -> torch.Tensor:
+    """The plain version of ``window_attention_qkv``: the chain of PyTorch ops
+    it replaces, step for step."""
+    _check_qkv_shapes(qkv, rel_table, rel_index, mask, window, shift)
+    b, grid, _, _, h, hd = qkv.shape
+    x = qkv.reshape(b, grid, grid, 3 * h * hd)
+    if shift > 0:
+        x = torch.roll(x, (-shift, -shift), dims=(1, 2))
+    windows = window_partition(x, window)                          # [Bn, ww, 3C]
+    bn, ww, _ = windows.shape
+    q, k, v = (t.contiguous()
+               for t in windows.reshape(bn, ww, 3, h, hd).permute(2, 0, 3, 1, 4).unbind(0))
+    q = q * scale                                                  # rounded in its own dtype
+    out = window_attention_reference(q, k, v, relative_bias(rel_table, rel_index), mask)
+    y = window_merge(out.transpose(1, 2).reshape(bn, ww, h * hd), window, grid, b)
+    if shift > 0:
+        y = torch.roll(y, (shift, shift), dims=(1, 2))
+    return y

@@ -17,7 +17,8 @@ Builds the engine with random weights from seed 0, stages random images of
 300-512 px (or ``--exact``: all exactly the model's input size, the
 fixed-size lane) on a 512 canvas, and prints: the card's name and power
 limit; the step's time by CUDA events (whole step, preprocess alone); then
-``torch.profiler``'s device time by kernel over ``--steps`` steps, grouped
+``torch.profiler``'s device time by kernel over ``--steps`` steps (the
+``--top`` longest listed by name), grouped
 into convolution/GEMM, the port's own kernels, and elementwise glue, with
 the device's busy share of the profiled wall time. One JSON line at the end
 carries the same numbers.
@@ -43,8 +44,8 @@ from ics_tpu_torch.runtime.engine import InferenceEngine
 GROUPS = (
     # every __global__ of ops/csrc (tests/test_torch_standalone.py holds the two in line)
     ("port kernels", ("flash_wgmma", "flash_mma", "flash_f32", "bottleneck_wgmma",
-                      "bottleneck_mma", "normalize_vec", "normalize_scalar", "dw_strip",
-                      "dw_tile", "dw_direct", "window_bf16", "window_f32")),
+                      "normalize_vec", "normalize_scalar", "dw_strip", "dw_tile", "dw_direct",
+                      "window_bf16", "window_f32")),
     ("convolution and GEMM", ("gemm", "cutlass", "nvjet", "xmma", "conv", "cudnn", "wgrad",
                               "implicit", "sm90_", "sm80_")),
     ("pooling, softmax, top-k", ("pool", "softmax", "topk", "sort", "gather", "reduce")),
@@ -122,6 +123,7 @@ def main() -> None:
                     help="two engines, kernels on and off, timed this many times in turns")
     ap.add_argument("--off-first", action="store_true",
                     help="with --in-turns: build and time the kernels-off engine first")
+    ap.add_argument("--top", type=int, default=12, help="kernels to list by device time")
     args = ap.parse_args()
 
     card = subprocess.run(
@@ -184,7 +186,7 @@ def main() -> None:
         print("torch.profiler recorded no device time here; only the event times above hold")
     for group, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"  {group:32s} {ms:8.3f} ms/step  {ms / busy_ms:6.1%}")
-    for ms, count, key in sorted(by_kernel, reverse=True)[:12]:
+    for ms, count, key in sorted(by_kernel, reverse=True)[:args.top]:
         print(f"    {ms:8.3f} ms/step  x{count:<4d} {key[:100]}")
     busy_share = busy_ms * args.steps / wall_ms
     print(f"  device busy {busy_ms:.3f} ms/step of {wall_ms / args.steps:.3f} ms wall "

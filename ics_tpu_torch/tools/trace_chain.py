@@ -87,7 +87,7 @@ def trace_shape(lib: ctypes.CDLL, batch: int, hwc: tuple, cm: int) -> dict:
     rc = lib.ics_chain_trace(raw)
     if rc != 0:
         raise RuntimeError(f"reading the stamps failed (cudaError {rc})")
-    th = bottleneck.pick_tile_rows(h, w, cm, "wgmma", batch)
+    th = bottleneck.pick_tile_rows(h, w, cm, batch)
     blocks = min(TRACE_BLOCKS, -(-h // th) * batch)
     stamps = torch.tensor(list(raw), dtype=torch.int64).reshape(TRACE_BLOCKS, 2, TRACE_SLOTS)
     stamps = stamps[:blocks]

@@ -195,7 +195,8 @@ def test_chain_weights_keep_their_dtypes_when_the_model_is_cast():
     assert torch.equal(holder["c"].s3, packed["s3"])          # not rounded there and back
     holder = holder.to(torch.float32)
     assert holder["c"].w2.dtype == torch.bfloat16
-    w1t, w2t, w3t, w3t_blocked = chain.kernel_layout()
+    w1t, w2t, w3t_blocked = chain.kernel_layout()
+    w3t = packed["w3"].transpose(1, 2)
     assert w1t.shape == (2, 32, 128) and w2t.shape == (2, 32, 288) and w3t.shape == (2, 128, 32)
     assert torch.equal(w2t[1], packed["w2"][1].t()) and w2t.is_contiguous()
     # the wgmma kernel's order of the last 1x1's output channels: a permutation
@@ -220,9 +221,6 @@ def test_pick_tile_rows_for_the_resnet50_stages(h, w, cm, expected):
     assert th == expected
     stages = torch_chain.ring_stages(th, w, cm)
     assert stages >= 3 and torch_chain._smem_bytes(th, w, cm, stages) <= 232448
-    # the mma.sync kernel keeps its own rule: two blocks a multiprocessor
-    mma = torch_chain.pick_tile_rows(h, w, cm, "mma")
-    assert torch_chain._smem_bytes_mma(mma, w, cm) <= 113 * 1024
 
 
 # every chained stage of the zoo: (H = W, Cm) of ResNet-50/101/152 stages 0 to
@@ -233,7 +231,7 @@ _CHAIN_SHAPES = [(56, 64), (28, 128), (14, 256)]
 @pytest.mark.parametrize("hw,cm", _CHAIN_SHAPES)
 @pytest.mark.parametrize("batch", [1, 8, 32, 128])
 def test_wgmma_geometry_fits_a_block_at_every_chain_shape(hw, cm, batch):
-    th = torch_chain.pick_tile_rows(hw, hw, cm, "wgmma", batch)
+    th = torch_chain.pick_tile_rows(hw, hw, cm, batch)
     stages = torch_chain.ring_stages(th, hw, cm)
     assert 1 <= th <= hw and 2 <= stages <= 4
     assert torch_chain._smem_bytes(th, hw, cm, stages) <= 232448

@@ -15,8 +15,9 @@ of a rounding tie at the output and one for such flips of ``a`` and
 ``cmid`` carried forward, and a mean error below 1e-3 (the flips are few);
 depthwise_conv fp32 1e-5 times the largest output (the same k*k fp32 products
 summed in another order), bf16 one ulp of the largest output (|y| < 8: 2^-5,
-the two fp32 sums on the two sides of a rounding tie); window_attention bf16
-1e-2 and fp32 1e-5 as flash attention (outputs O(1)); flash attention with
+the two fp32 sums on the two sides of a rounding tie); window_attention and
+window_attention_qkv bf16 1e-2 and fp32 1e-5 as flash attention (outputs
+O(1)); flash attention with
 ``bf16_exp`` 2e-2 (each p within 2^-7 relative of the plain version's, the
 bound of ``ex2.approx.ftz.bf16x2``, on top of the bf16 bar). The same bars
 hold for strided views of a fused qkv product and for ``flash_attention_qkv``.
@@ -484,7 +485,6 @@ def test_module_taps_follow_the_weight_on_the_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["wgmma", "mma"])
 @pytest.mark.parametrize("shape,cm,n,tile_rows", [
     ((3, 9, 13, 256), 64, 1, None),        # H * W = 117: no multiple of an M tile
     ((2, 14, 14, 512), 128, 2, 4),         # a short last tile of 2 rows
@@ -492,7 +492,7 @@ def test_module_taps_follow_the_weight_on_the_card(cuda_device):
     ((1, 10, 9, 1024), 256, 2, 3),         # Cm 256, a short last tile
     ((2, 5, 40, 256), 64, 2, 1),           # one row a tile: both halo rows are other tiles'
 ])
-def test_bottleneck_chain_variants_at_tile_edges(cuda_device, variant, shape, cm, n, tile_rows):
+def test_bottleneck_chain_variants_at_tile_edges(cuda_device, shape, cm, n, tile_rows):
     packed = make_chain(n, shape[-1], cm, 0, cuda_device)
     x = (0.5 * torch.randn(shape, generator=torch.Generator().manual_seed(1))
          ).bfloat16().to(cuda_device)
@@ -501,8 +501,7 @@ def test_bottleneck_chain_variants_at_tile_edges(cuda_device, variant, shape, cm
                        device=cuda_device)
     store[1:-1] = x
     x = store[1:-1]
-    runs = [bottleneck.bottleneck_chain(x, packed, tile_rows=tile_rows, variant=variant)
-            for _ in range(2)]
+    runs = [bottleneck.bottleneck_chain(x, packed, tile_rows=tile_rows) for _ in range(2)]
     torch.cuda.synchronize()
     ref = bottleneck.bottleneck_chain_reference(x, packed)
     diff = (runs[0].float() - ref.float()).abs()
@@ -626,6 +625,91 @@ def test_window_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda_dev
     big = torch.zeros((1, 1, 81, 16), device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="at most 64"):
         attend(big, big, big, torch.zeros((1, 81, 81), device=cuda_device))
+
+
+def _qkv_case(batch, grid, heads, hd, window, shift, dtype, device, seed=0, nan_image=False):
+    """Random qkv [B, G, G, 3, H, hd] with Swin's table, index and shift mask.
+    ``nan_image``: the qkv product is a view of one with an image of NaN
+    behind the last one and NaN in 8 padding channels of every token."""
+    from ics_tpu_torch.models.swin import _relative_position_index, _shift_attn_mask
+
+    g = torch.Generator().manual_seed(seed)
+    c3 = 3 * heads * hd
+    store = torch.randn((batch + 1, grid, grid, c3 + 8), generator=g).to(dtype)
+    if nan_image:
+        store[batch:] = float("nan")
+        store[..., c3:] = float("nan")
+    qkv = store.to(device)[:batch, ..., :c3].unflatten(-1, (3, heads, hd))
+    table = torch.randn(((2 * window - 1) ** 2, heads), generator=g).to(device)
+    index = torch.from_numpy(_relative_position_index(window)).to(device)
+    mask = (torch.from_numpy(_shift_attn_mask(grid, window, shift)).to(device)
+            if shift else None)
+    return qkv, table, index, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("batch,grid,heads,hd,window,shift", [
+    # every Swin-T call at bucket 1 and 8, shifted where the grid has more than one window
+    (1, 56, 3, 32, 7, 0), (1, 56, 3, 32, 7, 3), (1, 28, 6, 32, 7, 3), (1, 14, 12, 32, 7, 3),
+    (1, 7, 24, 32, 7, 0), (8, 56, 3, 32, 7, 3), (8, 28, 6, 32, 7, 0), (8, 14, 12, 32, 7, 3),
+    (8, 7, 24, 32, 7, 0),
+    (4, 16, 2, 16, 4, 2), (4, 8, 4, 16, 4, 0),        # swin_micro: ww 16, hd 16
+    (3, 10, 2, 16, 5, 2), (2, 9, 2, 32, 3, 1),        # ww 25 and 9: no multiple of 8
+    (2, 16, 1, 32, 8, 4),                             # ww 64, the most a window may have
+])
+def test_window_attention_qkv_kernel_matches_plain_version(cuda_device, dtype, tol, batch, grid,
+                                                           heads, hd, window, shift):
+    qkv, table, index, mask = _qkv_case(batch, grid, heads, hd, window, shift, dtype,
+                                        cuda_device, nan_image=True)
+    before = LAUNCHES["window_attention"].value
+    runs = [window_attention.window_attention_qkv(qkv, table, index.to(torch.int16), mask,
+                                                  window, shift, hd ** -0.5) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert LAUNCHES["window_attention"].value == before + 2
+    ref = window_attention.window_attention_qkv_reference(
+        qkv, table, index, mask, window, shift, hd ** -0.5)
+    out = runs[0]
+    assert out.shape == ref.shape == (batch, grid, grid, heads * hd) and out.dtype == dtype
+    assert bool(torch.isfinite(out).all()) and torch.equal(runs[0], runs[1])
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_window_attention_qkv_every_head_group_gives_the_same_bits(cuda_device):
+    """How many heads a work item takes changes where a head is computed,
+    never how: every head group gives the same output."""
+    qkv, table, index, mask = _qkv_case(4, 16, 4, 16, 4, 2, torch.bfloat16, cuda_device)
+    index = index.to(torch.int16)
+    outs = [window_attention.window_attention_qkv(qkv, table, index, mask, 4, 2, 0.25,
+                                                  head_group=group) for group in (1, 2, 4)]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    with pytest.raises(ValueError, match="does not divide"):
+        window_attention.window_attention_qkv(qkv, table, index, mask, 4, 2, 0.25, head_group=3)
+
+
+@pytest.mark.cuda
+def test_window_attention_qkv_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    qkv, table, index, mask = _qkv_case(2, 16, 2, 16, 4, 2, torch.bfloat16, cuda_device)
+    index16 = index.to(torch.int16)
+    attend = window_attention.window_attention_qkv
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        attend(qkv.half(), table, index16, mask, 4, 2, 0.25)
+    with pytest.raises(ValueError, match="fp32 rel_table and mask"):
+        attend(qkv, table.bfloat16(), index16, mask, 4, 2, 0.25)
+    with pytest.raises(ValueError, match="int16 rel_index"):
+        attend(qkv, table, index, mask, 4, 2, 0.25)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        attend(qkv, table.cpu(), index16, mask, 4, 2, 0.25)
+    with pytest.raises(ValueError, match="last dimension contiguous"):
+        attend(qkv.transpose(4, 5).contiguous().transpose(4, 5), table, index16, mask, 4, 2,
+               0.25)
+    wide = torch.zeros((2, 16, 16, 3 * 2 * 64), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        attend(wide.unflatten(-1, (3, 2, 64)), table, index16, mask, 4, 2, 0.25)
+    odd = torch.zeros((2, 16, 16, 97), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        attend(odd[..., :96].unflatten(-1, (3, 2, 16)), table, index16, mask, 4, 2, 0.25)
 
 
 # ---- flash attention, bf16 exp ----------------------------------------------------

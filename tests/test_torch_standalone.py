@@ -375,6 +375,7 @@ def test_registry_is_the_jax_registry_minus_what_is_not_ported():
     "ics_tpu_torch.models.convnext", "ics_tpu_torch.models.mobilenetv3",
     "ics_tpu_torch.models.efficientnet", "ics_tpu_torch.models.swin",
     "ics_tpu_torch.tools.bench_vit_attn", "ics_tpu_torch.tools.bench_depthwise",
+    "ics_tpu_torch.tools.bench_window",
 ])
 def test_new_modules_import_alone_and_build_nothing_at_import(module):
     """Each module of this slice imports in a fresh interpreter with no JAX
@@ -431,7 +432,7 @@ def test_profile_step_names_every_kernel_of_the_port():
     names = []
     for src in sorted((REPO / "ics_tpu_torch" / "ops" / "csrc").glob("*.cu")):
         names += re.findall(r"__global__[^;{]*?\b(\w+_kernel)\s*\(", src.read_text())
-    assert len(names) >= 12
+    assert len(names) >= 11
     for name in names:
         assert profile_step.group_of(name) == "port kernels", name
     needles = dict(profile_step.GROUPS)["port kernels"]

@@ -180,3 +180,36 @@ def test_init_weights_draws_the_jax_initialisers_distributions():
     table = model.stages[1][0].attn.rel_bias
     assert table.abs().max().item() <= 0.04 + 1e-6 and table.std().item() > 0.01
     assert bool((model.ln.weight == 1).all())
+
+
+@pytest.mark.parametrize("shift", [0, 2])
+def test_swin_block_forward_goes_through_the_plain_qkv_entry_on_the_cpu(monkeypatch, shift):
+    """``SwinBlock.forward`` runs the qkv GEMM on the whole image and hands
+    the product to ``window_attention_qkv``, which takes its plain version on
+    CPU tensors (no launch); the block equals the JAX block, whose attention
+    runs on rolled and partitioned windows (fp32, 2e-4 of the largest output
+    as the model tests: the GEMMs see the same rows in another order)."""
+    from ics_tpu_torch.ops import LAUNCHES
+
+    jblock = jax_swin.SwinBlock(16, 2, 4, shift, 8)
+    variables = _randomise(jax.tree_util.tree_map(
+        np.asarray, jblock.init(jax.random.PRNGKey(3))), np.random.default_rng(4))
+    tblock = torch_swin.SwinBlock(16, 2, 4, shift, 8)
+    tblock.load_state_dict(weights.from_jax_variables(variables), strict=True)
+    x = np.random.default_rng(6).standard_normal((2, 8, 8, 16)).astype(np.float32)
+    ref = np.asarray(jblock.apply(jax.tree_util.tree_map(jnp.asarray, variables),
+                                  jnp.asarray(x)))
+    calls = []
+    entry = torch_swin.window_attention_qkv
+
+    def spy(qkv, *args):
+        calls.append((tuple(qkv.shape), args[3:5]))
+        return entry(qkv, *args)
+
+    monkeypatch.setattr(torch_swin, "window_attention_qkv", spy)
+    before = LAUNCHES["window_attention"].value
+    with torch.inference_mode():
+        out = tblock(torch.from_numpy(x)).numpy()
+    assert calls == [((2, 8, 8, 3, 2, 8), (4, shift))]
+    assert LAUNCHES["window_attention"].value == before
+    _close(out, ref)
