@@ -701,12 +701,13 @@ def check_window(torch, window_attention) -> float:
                   runs, window_attention.window_attention_reference(*args),
                   BF16_TOL if dtype == torch.bfloat16 else FP32_TOL)
 
-    from ics_tpu_torch.tools.bench_window import swin_t_calls
+    from ics_tpu_torch.tools.bench_window import swin_calls
 
-    qkv_cases = [(bucket, grid, heads, 32, 7, shift, torch.bfloat16)
-                 for bucket in SERVER_BUCKETS for grid, heads, shift, _ in swin_t_calls()]
-    qkv_cases += [(8, grid, heads, 32, 7, shift, torch.float32)
-                  for grid, heads, shift, _ in swin_t_calls()]
+    qkv_cases = [(bucket, grid, heads, hd, window, shift, torch.bfloat16)
+                 for bucket in SERVER_BUCKETS
+                 for grid, heads, shift, _, window, hd in swin_calls("swin_tiny")]
+    qkv_cases += [(8, grid, heads, hd, window, shift, torch.float32)
+                  for grid, heads, shift, _, window, hd in swin_calls("swin_tiny")]
     for dtype in (torch.bfloat16, torch.float32):
         qkv_cases += [(8, 16, 2, 16, 4, 2, dtype), (8, 8, 4, 16, 4, 0, dtype),  # swin_micro
                       (3, 10, 2, 16, 5, 2, dtype), (2, 9, 2, 32, 3, 1, dtype),   # ww 25, 9
@@ -821,8 +822,8 @@ def time_window(torch, window_attention) -> dict:
 
     total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "glue_4d_ms": 0.0}
     with torch.inference_mode():
-        for grid, heads, shift, count in bench_window.swin_t_calls():
-            call = bench_window.make_call(32, grid, heads, shift)
+        for grid, heads, shift, count, window, hd in bench_window.swin_calls("swin_tiny"):
+            call = bench_window.make_call(32, grid, heads, shift, window, hd)
             label = f"window_attention_qkv [32, {grid}, {grid}, 3, {heads}, 32] shift={shift} bf16"
             ms, plain_ms = in_turns(label, lambda: bench_window.qkv_entry(call),
                                     lambda: bench_window.plain(call))
@@ -833,7 +834,7 @@ def time_window(torch, window_attention) -> dict:
             lib = library_ms(lambda: F.scaled_dot_product_attention(
                 call["q"], call["k"], call["v"], attn_mask=attn_mask, scale=1.0))
             bound_ms = bench_window.bound_ms(call)
-            small = bench_window.make_call(1, grid, heads, shift)
+            small = bench_window.make_call(1, grid, heads, shift, window, hd)
             host = host_us(lambda: bench_window.qkv_entry(small))
             log(f"    F.scaled_dot_product_attention with attn_mask (yardstick only) "
                 f"{lib:.4f} ms; bound {bound_ms:.4f} ms by bytes; head_group "

@@ -40,9 +40,6 @@ from ics_tpu_torch.ops.window_attention import (
     window_attention_qkv,
     window_attention_qkv_reference,
 )
-# partition and merge under the names the tests and the JAX package use
-from ics_tpu_torch.ops.window_attention import window_merge as _window_merge  # noqa: F401
-from ics_tpu_torch.ops.window_attention import window_partition as _window_partition  # noqa: F401
 
 
 def _relative_position_index(window: int) -> np.ndarray:
@@ -99,6 +96,7 @@ class WindowAttention(nn.Module):
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         trunc_normal_(self.rel_bias.data, generator)
+        self._table = None   # a write through .data leaves the parameter's version as it was
 
     def _apply(self, fn, *args, **kwargs):
         self._table = None   # a move or a cast: the fp32 table is made anew

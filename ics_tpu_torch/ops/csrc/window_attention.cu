@@ -42,10 +42,12 @@
 //     image's edge costs nothing more.
 //   - Bias and mask come from shared memory: the int16 index is staged once a
 //     block; an item's stage holds its heads' table columns (676 bytes a head
-//     at w 7) and its window's mask, staged once for all its heads as whole
-//     16-byte pieces of the [ww, ww] block (the pieces at its two ends cut to
-//     the block). Index rows are padded so that a quad's pair loads hit
-//     distinct banks.
+//     at w 7) and its window's mask as whole 16-byte pieces of the [ww, ww]
+//     block (the pieces at its two ends cut to the block), staged once an
+//     item. Only a group of heads shares the mask: at ww 49 a head's rows
+//     already take the four warps, the group is one head, and the mask is
+//     copied from L2 once a (window, head). Index rows are padded so that a
+//     quad's pair loads hit distinct banks.
 //   - A warp takes 16 query rows of one head: Q by ldmatrix, K by ldmatrix and
 //     V by ldmatrix.trans from rows padded by 8 bf16 (no bank conflicts), both
 //     products on mma.sync m16n8k16, the scores as fp32 accumulators of KT

@@ -134,20 +134,16 @@ def _identity(ww: int, device: torch.device) -> torch.Tensor:
 def _launch(q_ptr: int, k_ptr: int, v_ptr: int, out: torch.Tensor, strides, out_strides,
             grid: tuple, window: tuple, shift: int, heads: int, hd: int, dtype: torch.dtype,
             table: torch.Tensor, table_rows: int, table_strides: tuple, index: torch.Tensor,
-            mask: Optional[torch.Tensor], scale: float, head_group: Optional[int]) -> None:
+            mask: Optional[torch.Tensor], scale: float) -> None:
     """One launch of the kernel: ``grid`` (batch, gy, gx) tokens in windows of
     ``window`` (wh, wwid), strides in elements; row j of head h of the table
-    at ``j * table_strides[0] + h * table_strides[1]``."""
+    at ``j * table_strides[0] + h * table_strides[1]``; the heads a work item
+    takes from ``pick_head_group``."""
     batch, gy, gx = grid
     wh, wwid = window
-    ww = wh * wwid
-    if head_group is None:
-        windows = batch * (gy // wh) * (gx // wwid)
-        sms = torch.cuda.get_device_properties(out.device).multi_processor_count
-        head_group = pick_head_group(windows, heads, ww, hd, table_rows, mask is not None, sms)
-    if head_group < 1 or heads % head_group:
-        raise ValueError(f"window_attention: a head group of {head_group} does not divide "
-                         f"{heads} heads")
+    windows = batch * (gy // wh) * (gx // wwid)
+    sms = torch.cuda.get_device_properties(out.device).multi_processor_count
+    head_group = pick_head_group(windows, heads, wh * wwid, hd, table_rows, mask is not None, sms)
     if mask is not None and mask.data_ptr() % 16:
         raise ValueError("window_attention wants a 16-byte aligned mask")
     lib = _kernel()
@@ -198,15 +194,13 @@ def _check_shapes(q, k, v, bias, mask) -> None:
 
 
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     bias: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                     head_group: Optional[int] = None) -> torch.Tensor:
+                     bias: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q, k, v [Bn, H, ww, hd] (Bn = B·nW, image-major; q pre-scaled), bias
     [H, ww, ww] fp32, mask [nW, ww, ww] fp32 or None -> [Bn, H, ww, hd].
 
     CUDA tensors go through the kernel (bf16 or fp32 q, k, v, contiguous and
     16-byte aligned, hd in 16/32, ww <= 64, fp32 bias and mask); anything it
-    does not take raises. CPU tensors take the plain version. ``head_group``:
-    heads a work item takes, instead of ``pick_head_group``'s (for measuring).
+    does not take raises. CPU tensors take the plain version.
     """
     _check_shapes(q, k, v, bias, mask)
     tensors = [q, k, v, bias] + ([] if mask is None else [mask])
@@ -237,7 +231,7 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = (q.stride(0), 0, q.stride(2), q.stride(1))
     _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out, strides, strides, (bn, 1, ww),
             (1, ww), 0, h, hd, q.dtype, bias, ww * ww, (1, ww * ww), _identity(ww, q.device), mask,
-            1.0, head_group)
+            1.0)
     return out
 
 
@@ -315,8 +309,8 @@ def check_qkv_layout(qkv: torch.Tensor) -> None:
 
 
 def window_attention_qkv(qkv: torch.Tensor, rel_table: torch.Tensor, rel_index: torch.Tensor,
-                         mask: Optional[torch.Tensor], window: int, shift: int, scale: float,
-                         head_group: Optional[int] = None) -> torch.Tensor:
+                         mask: Optional[torch.Tensor], window: int, shift: int,
+                         scale: float) -> torch.Tensor:
     """qkv [B, G, G, 3, H, hd] (any strides, the last dimension contiguous),
     rel_table [(2w-1)², H] fp32, rel_index [ww, ww] int16 (values below the
     table's rows), mask [nW, ww, ww] fp32 or None, ``shift`` the cyclic shift
@@ -325,7 +319,7 @@ def window_attention_qkv(qkv: torch.Tensor, rel_table: torch.Tensor, rel_index: 
     CUDA tensors go through the kernel (bf16 or fp32 qkv with the layout of
     ``check_qkv_layout``, hd in 16/32, ww <= 64, fp32 table and mask, int16
     index); anything it does not take raises. CPU tensors take the plain
-    version. ``head_group``: heads a work item takes, instead of ``pick_head_group``'s.
+    version.
     """
     _check_qkv_shapes(qkv, rel_table, rel_index, mask, window, shift)
     tensors = [qkv, rel_table, rel_index] + ([] if mask is None else [mask])
@@ -352,7 +346,7 @@ def window_attention_qkv(qkv: torch.Tensor, rel_table: torch.Tensor, rel_index: 
     out_strides = (out.stride(0), out.stride(1), out.stride(2), hd)
     _launch(q_ptr, q_ptr + step, q_ptr + 2 * step, out, strides, out_strides, (b, grid, grid),
             (window, window), shift, h, hd, qkv.dtype, rel_table, rel_table.shape[0],
-            (rel_table.stride(0), rel_table.stride(1)), rel_index, mask, scale, head_group)
+            (rel_table.stride(0), rel_table.stride(1)), rel_index, mask, scale)
     return out
 
 

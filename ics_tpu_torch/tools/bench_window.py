@@ -1,12 +1,13 @@
-"""Kernel 6 (window attention) at every window attention of Swin-T, on the card.
+"""Kernel 6 (window attention) at every window attention of a Swin forward, on the card.
 
-    python -m ics_tpu_torch.tools.bench_window [--bucket 32 8 1] [--groups]
-        [--first-port-source FILE]
-    python -m ics_tpu_torch.tools.bench_window --variants [--bucket 32]
+    python -m ics_tpu_torch.tools.bench_window [--model swin_tiny] [--bucket 32 8 1]
+        [--groups]
 
-For each bucket and each of the seven distinct calls of a Swin-T forward
-(per stage unshifted and shifted, 12 launches a forward), bf16, inputs from
-seed 0, times by CUDA events in turns (the order, then the order reversed):
+For each bucket and each distinct call of a forward of ``--model``
+(``swin_tiny``: per stage unshifted and shifted, 12 launches a forward;
+``swin_micro``: windows of 16 tokens, head_dim 16, 3 launches), bf16, inputs
+from seed 0, times by CUDA events in turns (the order, then the order
+reversed):
 
 - ``qkv``: ``window_attention_qkv`` on the qkv product, as Swin serves it;
 - ``glue_4d``: what Swin ran around the kernel before it read the qkv
@@ -14,10 +15,6 @@ seed 0, times by CUDA events in turns (the order, then the order reversed):
   gather, ``window_attention`` (this kernel through its 4-D entry), head
   merge, window merge, roll back;
 - ``4d``: ``window_attention`` alone on partitioned q, k, v and bias;
-- ``first_port``: with ``--first-port-source``, the first port of the
-  kernel (one block of four warps a window and head, bias and mask read per
-  warp from device memory) built from that source, on the same inputs as
-  ``4d``;
 - ``plain``: the plain version of the qkv entry;
 - ``sdpa``: ``F.scaled_dot_product_attention`` with bias and mask as a bf16
   ``attn_mask`` on the partitioned inputs (a yardstick, used nowhere in
@@ -27,65 +24,61 @@ Beside them: the least time the card could take (q, k, v read once, the
 output written once, table, index and mask read once, at 3.35 TB/s), the
 heads a work item takes (``pick_head_group``) and the host's time to launch
 the qkv entry. ``--groups`` also times the qkv entry at every head group
-that fits. Prints the card's name and power limit first and one JSON line
-at the end.
-
-``--variants`` instead times the qkv entry at every Swin-T call through the
-served kernel and through copies of its source with one change each (built
-under ``build/``, in turns): ``ieee_division``, ``e / l`` as the compiler
-divides, where the served kernel corrects ``e * (1 / l)`` to the same bits;
-``no_arithmetic``, the same loads, stores and ring with the products and
-the softmax taken out (its output is not attention). Beside them a clone of
-the stage-1 qkv tensor: the card's rate for a plain streaming copy.
+that fits, each forced by standing in for ``pick_head_group`` during the
+call. Prints the card's name and power limit first and one JSON line at the
+end.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import subprocess
-import time
-from pathlib import Path
+from unittest import mock
 
 import torch
 import torch.nn.functional as F
 
-from ics_tpu_torch.ops import _build
 from ics_tpu_torch.ops import window_attention as wa
+from ics_tpu_torch.tools.bench_depthwise import host_us, queued_ms
+from ics_tpu_torch.tools.profile_step import events_ms
 
-SWIN_T = [(56, 3, 2), (28, 6, 2), (14, 12, 6), (7, 24, 2)]   # (grid, heads, depth), window 7
-WINDOW = 7
-HEAD_DIM = 32
+# (grid, heads, depth) per stage, window, head_dim: the model constructors' widths
+MODELS = {
+    "swin_tiny": ([(56, 3, 2), (28, 6, 2), (14, 12, 6), (7, 24, 2)], 7, 32),
+    "swin_micro": ([(16, 2, 1), (8, 4, 2)], 4, 16),
+}
 HBM_BYTES_S = 3.35e12
+SMEM_MAX = 232448 - 256
 
 
-def swin_t_calls():
-    """(grid, heads, shift, count) of one Swin-T forward: per stage half the
-    blocks unshifted and half shifted by 3; the last stage's grid is one
-    window and never shifted."""
-    for grid, heads, depth in SWIN_T:
-        shifted = depth // 2 if grid > WINDOW else 0
-        for shift, count in ((0, depth - shifted), (WINDOW // 2, shifted)):
+def swin_calls(model: str = "swin_tiny"):
+    """(grid, heads, shift, count, window, head_dim) of one forward: per stage
+    the odd blocks shifted by half a window, none where the grid is one
+    window."""
+    stages, window, hd = MODELS[model]
+    for grid, heads, depth in stages:
+        shifted = depth // 2 if grid > window else 0
+        for shift, count in ((0, depth - shifted), (window // 2, shifted)):
             if count:
-                yield grid, heads, shift, count
+                yield grid, heads, shift, count, window, hd
 
 
-def make_call(batch: int, grid: int, heads: int, shift: int, dtype=torch.bfloat16,
-              seed: int = 0) -> dict:
-    """One call's inputs on the card: the qkv product [B, G, G, 3, H, 32] as the
+def make_call(batch: int, grid: int, heads: int, shift: int, window: int = 7, hd: int = 32,
+              dtype=torch.bfloat16, seed: int = 0) -> dict:
+    """One call's inputs on the card: the qkv product [B, G, G, 3, H, hd] as the
     qkv GEMM leaves it, Swin's table, index and mask, and the partitioned q
     (scaled), k, v and bias that the 4-D entry and the yardstick take."""
     from ics_tpu_torch.models.swin import _relative_position_index, _shift_attn_mask
 
     g = torch.Generator().manual_seed(seed)
-    qkv = torch.randn((batch, grid, grid, 3 * heads * HEAD_DIM), generator=g).to(dtype)
-    qkv = qkv.cuda().unflatten(-1, (3, heads, HEAD_DIM))
-    table = (0.02 * torch.randn(((2 * WINDOW - 1) ** 2, heads), generator=g)).cuda()
-    index = torch.from_numpy(_relative_position_index(WINDOW)).cuda()
-    mask = (torch.from_numpy(_shift_attn_mask(grid, WINDOW, shift)).cuda() if shift else None)
+    qkv = torch.randn((batch, grid, grid, 3 * heads * hd), generator=g).to(dtype)
+    qkv = qkv.cuda().unflatten(-1, (3, heads, hd))
+    table = (0.02 * torch.randn(((2 * window - 1) ** 2, heads), generator=g)).cuda()
+    index = torch.from_numpy(_relative_position_index(window)).cuda()
+    mask = (torch.from_numpy(_shift_attn_mask(grid, window, shift)).cuda() if shift else None)
     call = {"qkv": qkv, "table": table, "index": index, "index16": index.to(torch.int16),
-            "mask": mask, "shift": shift}
+            "mask": mask, "shift": shift, "window": window}
     call.update(zip(("q", "k", "v", "bias"), partitioned(call)))
     return call
 
@@ -98,7 +91,7 @@ def partitioned(call: dict) -> tuple:
     x = qkv.reshape(b, grid, grid, 3 * h * hd)
     if shift:
         x = torch.roll(x, (-shift, -shift), dims=(1, 2))
-    win = wa.window_partition(x, WINDOW)
+    win = wa.window_partition(x, call["window"])
     bn, ww, _ = win.shape
     q, k, v = (t.contiguous() for t in win.reshape(bn, ww, 3, h, hd).permute(2, 0, 3, 1, 4)
                .unbind(0))
@@ -112,19 +105,25 @@ def glue_4d(call: dict) -> torch.Tensor:
     q, k, v, bias = partitioned(call)
     out = wa.window_attention(q, k, v, bias, call["mask"])
     bn, _, ww, _ = out.shape
-    y = wa.window_merge(out.transpose(1, 2).reshape(bn, ww, h * hd), WINDOW, grid, b)
+    y = wa.window_merge(out.transpose(1, 2).reshape(bn, ww, h * hd), call["window"], grid, b)
     return torch.roll(y, (shift, shift), dims=(1, 2)) if shift else y
 
 
-def qkv_entry(call: dict, head_group=None) -> torch.Tensor:
+def qkv_entry(call: dict) -> torch.Tensor:
     return wa.window_attention_qkv(call["qkv"], call["table"], call["index16"], call["mask"],
-                                   WINDOW, call["shift"], HEAD_DIM ** -0.5, head_group)
+                                   call["window"], call["shift"], call["qkv"].shape[-1] ** -0.5)
+
+
+def with_group(call: dict, group: int) -> torch.Tensor:
+    """The qkv entry with ``group`` heads a work item in place of the picked one."""
+    with mock.patch.object(wa, "pick_head_group", lambda *args: group):
+        return qkv_entry(call)
 
 
 def plain(call: dict) -> torch.Tensor:
     return wa.window_attention_qkv_reference(call["qkv"], call["table"], call["index"],
-                                             call["mask"], WINDOW, call["shift"],
-                                             HEAD_DIM ** -0.5)
+                                             call["mask"], call["window"], call["shift"],
+                                             call["qkv"].shape[-1] ** -0.5)
 
 
 def sdpa_mask(call: dict) -> torch.Tensor:
@@ -149,145 +148,14 @@ def bound_ms(call: dict) -> float:
 
 
 def head_group_of(call: dict) -> int:
-    qkv = call["qkv"]
+    qkv, window = call["qkv"], call["window"]
     b, grid, _, _, h, hd = qkv.shape
     sms = torch.cuda.get_device_properties(qkv.device).multi_processor_count
-    return wa.pick_head_group(b * (grid // WINDOW) ** 2, h, WINDOW * WINDOW, hd,
+    return wa.pick_head_group(b * (grid // window) ** 2, h, window * window, hd,
                               call["table"].shape[0], call["mask"] is not None, sms)
 
 
-# one change each to the kernel's source: (what is replaced, what replaces it)
-VARIANTS = {
-    "ieee_division": [(
-        "  const float q = __fmul_rn(e, r);\n  return __fmaf_rn(__fmaf_rn(-q, l, e), r, q);",
-        "  (void)r;\n  return e / l;")],
-    "no_arithmetic": [(
-        "    // S = Q K^T, 16 rows",
-        "    float o[D / 8][4];\n#pragma unroll\n    for (int dt = 0; dt < D / 8; ++dt) {\n"
-        "      o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = __uint_as_float(qf[dt / 2][0]);\n"
-        "    }\n    (void)tb; (void)index_s; (void)mask_s; (void)ld; (void)k_s; (void)v_s;\n"
-        "#if 0\n    // S = Q K^T, 16 rows"),
-        ("    // the 16 output rows through", "#endif\n    // the 16 output rows through")],
-}
-
-
-def build_variants(names) -> dict:
-    """name -> the kernel library built from the served source with that
-    variant's change, one ``nvcc`` each, all started together."""
-    source = (_build.CSRC / "window_attention.cu").read_text()
-    out_dir = _build.BUILD_DIR / "window_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        text = source
-        for old, new in VARIANTS[name]:
-            if text.count(old) != 1:
-                raise RuntimeError(f"variant {name}: the source no longer has {old!r} once")
-            text = text.replace(old, new)
-        src = out_dir / f"{name}.cu"
-        src.write_text(text)
-        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
-               str(out_dir / f"lib{name}.so"), str(src)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True)
-    libs = {}
-    for name, proc in procs.items():
-        output, _ = proc.communicate(timeout=_build.BUILD_TIMEOUT_S)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{output}")
-        libs[name] = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-    return libs
-
-
-def run_variants(buckets=(32,), iters: int = 20) -> dict:
-    """The qkv entry through the served kernel and each variant, in turns."""
-    served = wa._kernel()
-    libs = {"served": served, **build_variants(VARIANTS)}
-
-    def through(name, call):
-        _build._loaded["window_attention"] = libs[name]
-        wa._kernel()                      # sets the argument types of a new library
-        try:
-            return qkv_entry(call)
-        finally:
-            _build._loaded["window_attention"] = served
-
-    result = {}
-    with torch.inference_mode():
-        for bucket in buckets:
-            step = {}
-            for grid, heads, shift, count in swin_t_calls():
-                call = make_call(bucket, grid, heads, shift)
-                same = torch.equal(through("ieee_division", call), qkv_entry(call))
-                times = in_turns({name: (lambda n=name: through(n, call)) for name in libs}, iters)
-                print(f"bucket {bucket} [{bucket},{grid},{grid},3,{heads},32] shift={shift} "
-                      f"x{count}: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
-                      + f" ms; ieee_division gives the served bits: {same}", flush=True)
-                for name, ms in times.items():
-                    step[name] = step.get(name, 0.0) + count * ms
-            print(f"bucket {bucket}, a Swin-T forward (12 launches): "
-                  + ", ".join(f"{k} {v:.4f}" for k, v in step.items()) + " ms", flush=True)
-            result[bucket] = step
-        x = torch.randn((32, 56, 56, 3 * 3 * HEAD_DIM), device="cuda").to(torch.bfloat16)
-        ms = events_ms(lambda: x.clone(), iters)
-        rate = 2 * x.numel() * x.element_size() / ms / 1e9
-        print(f"clone of the stage-1 qkv product {list(x.shape)}: {ms:.4f} ms, {rate:.2f} TB/s",
-              flush=True)
-        result["clone"] = {"ms": ms, "tb_s": rate}
-    return result
-
-
-def load_first_port(source: Path):
-    """The first port's kernel library, built from its source: ``(call)`` ->
-    a function launching it on a call's partitioned inputs."""
-    out = _build.BUILD_DIR / "libwindow_attention-first-port.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(out),
-           str(source)]
-    done = subprocess.run(cmd, capture_output=True, text=True, timeout=_build.BUILD_TIMEOUT_S)
-    if done.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {done.returncode}):\n{done.stdout}{done.stderr}")
-    lib = ctypes.CDLL(str(out))
-    fn = lib.ics_window_attention
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p, ctypes.c_int])
-    fn.restype = ctypes.c_int
-
-    def launch(call: dict) -> torch.Tensor:
-        q, k, v, bias, mask = call["q"], call["k"], call["v"], call["bias"], call["mask"]
-        out = torch.empty_like(q)
-        bn, h, ww, hd = q.shape
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(0, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                None if mask is None else mask.data_ptr(), out.data_ptr(), bn, h, ww, hd,
-                1 if mask is None else mask.shape[0], stream, q.device.index or 0)
-        if rc != 0:
-            raise RuntimeError(f"the first port's kernel failed to launch (cudaError {rc})")
-        return out
-
-    return launch
-
-
-_AHEAD: dict = {}
-
-
-def events_ms(fn, iters: int) -> float:
-    """ms a call by CUDA events, after a few ms of other work on the device,
-    so that the host has queued every launch before the first one starts."""
-    if "a" not in _AHEAD:
-        _AHEAD["a"] = torch.ones((8192, 8192), device="cuda", dtype=torch.bfloat16)
-    for _ in range(2):
-        torch.mm(_AHEAD["a"], _AHEAD["a"])
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def in_turns(fns: dict, iters: int = 20, rounds: int = 2) -> dict:
+def in_turns(fns: dict, ahead: torch.Tensor, iters: int = 20, rounds: int = 2) -> dict:
     """ms a call of each, the mean of ``2 * rounds`` runs in turns: the
     order, then the order reversed."""
     for fn in fns.values():
@@ -296,30 +164,20 @@ def in_turns(fns: dict, iters: int = 20, rounds: int = 2) -> dict:
     order = list(fns)
     for _ in range(rounds):
         for name in order + order[::-1]:
-            runs[name].append(events_ms(fns[name], iters))
+            runs[name].append(queued_ms(fns[name], ahead, iters))
     return {name: sum(v) / len(v) for name, v in runs.items()}
 
 
-def host_us(fn, calls: int = 300) -> float:
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    us = (time.perf_counter() - t0) / calls * 1e6
-    torch.cuda.synchronize()
-    return us
-
-
-def run(buckets=(32, 8, 1), first_port_source=None, groups: bool = False,
+def run(model: str = "swin_tiny", buckets=(32, 8, 1), groups: bool = False,
         iters: int = 20) -> dict:
-    first_port = load_first_port(Path(first_port_source)) if first_port_source else None
+    ahead = torch.ones((8192, 8192), device="cuda", dtype=torch.bfloat16)
     result = {}
     with torch.inference_mode():
         for bucket in buckets:
             step = {}
             rows = []
-            for grid, heads, shift, count in swin_t_calls():
-                call = make_call(bucket, grid, heads, shift)
+            for grid, heads, shift, count, window, hd in swin_calls(model):
+                call = make_call(bucket, grid, heads, shift, window, hd)
                 attn_mask = sdpa_mask(call)
                 fns = {
                     "qkv": lambda: qkv_entry(call),
@@ -330,25 +188,21 @@ def run(buckets=(32, 8, 1), first_port_source=None, groups: bool = False,
                     "sdpa": lambda: F.scaled_dot_product_attention(
                         call["q"], call["k"], call["v"], attn_mask=attn_mask, scale=1.0),
                 }
-                if first_port is not None:
-                    fns["first_port"] = lambda: first_port(call)
                 if groups:
                     for group in range(1, heads + 1):
                         if heads % group == 0 and wa.smem_bytes(
-                                WINDOW * WINDOW, HEAD_DIM, group, 169, shift > 0) <= 232448 - 256:
-                            fns[f"group_{group}"] = lambda gr=group: qkv_entry(call, gr)
+                                window * window, hd, group, call["table"].shape[0],
+                                shift > 0) <= SMEM_MAX:
+                            fns[f"group_{group}"] = lambda gr=group: with_group(call, gr)
                 ref = plain(call).float()
                 errs = {name: (fns[name]().float() - ref).abs().max().item()
-                        for name in ("qkv", "glue_4d")}
-                if first_port is not None:
-                    errs["first_port"] = (
-                        first_port(call).float() - fns["4d"]().float()).abs().max().item()
-                times = in_turns(fns, iters)
+                        for name in fns if name == "qkv" or name.startswith(("glue", "group"))}
+                times = in_turns(fns, ahead, iters)
                 row = {"grid": grid, "heads": heads, "shift": shift, "count": count,
                        "head_group": head_group_of(call), "bound_ms": bound_ms(call),
-                       "host_us": host_us(fns["qkv"]), "max_abs_err": errs, "ms": times}
+                       "host_us": host_us(fns["qkv"], 300), "max_abs_err": errs, "ms": times}
                 rows.append(row)
-                print(f"bucket {bucket} [{bucket},{grid},{grid},3,{heads},32] shift={shift} "
+                print(f"bucket {bucket} [{bucket},{grid},{grid},3,{heads},{hd}] shift={shift} "
                       f"x{count} head_group {row['head_group']}: "
                       + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
                       + f" ms; bound {row['bound_ms']:.4f} ms; host {row['host_us']:.1f} us a "
@@ -356,7 +210,8 @@ def run(buckets=(32, 8, 1), first_port_source=None, groups: bool = False,
                 for name, ms in times.items():
                     step[name] = step.get(name, 0.0) + count * ms
                 step["bound_ms"] = step.get("bound_ms", 0.0) + count * row["bound_ms"]
-            print(f"bucket {bucket}, a Swin-T forward (12 launches): "
+            print(f"bucket {bucket}, a {model} forward "
+                  f"({sum(r['count'] for r in rows)} launches): "
                   + ", ".join(f"{k} {v:.4f}" for k, v in step.items()) + " ms", flush=True)
             result[bucket] = {"calls": rows, "step": step}
     return result
@@ -364,24 +219,18 @@ def run(buckets=(32, 8, 1), first_port_source=None, groups: bool = False,
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", choices=sorted(MODELS), default="swin_tiny")
     ap.add_argument("--bucket", type=int, nargs="+", default=[32, 8, 1])
-    ap.add_argument("--first-port-source", default=None,
-                    help="the first port's window_attention.cu, to time it in the same turns")
     ap.add_argument("--groups", action="store_true",
                     help="also time the qkv entry at every head group that fits")
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--variants", action="store_true",
-                    help="the served kernel beside copies of its source with one change each")
     args = ap.parse_args()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    if args.variants:
-        result = run_variants(args.bucket, args.iters)
-    else:
-        result = run(args.bucket, args.first_port_source, args.groups, args.iters)
-    print(json.dumps({"card": card, "buckets": result}))
+    result = run(args.model, args.bucket, args.groups, args.iters)
+    print(json.dumps({"card": card, "model": args.model, "buckets": result}))
 
 
 if __name__ == "__main__":

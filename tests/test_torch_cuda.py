@@ -676,16 +676,23 @@ def test_window_attention_qkv_kernel_matches_plain_version(cuda_device, dtype, t
 
 
 @pytest.mark.cuda
-def test_window_attention_qkv_every_head_group_gives_the_same_bits(cuda_device):
+def test_window_attention_qkv_every_head_group_gives_the_same_bits(cuda_device, monkeypatch):
     """How many heads a work item takes changes where a head is computed,
-    never how: every head group gives the same output."""
+    never how: every head group gives the same output. The group is forced
+    by replacing ``pick_head_group``; the kernel refuses one that does not
+    divide the heads."""
     qkv, table, index, mask = _qkv_case(4, 16, 4, 16, 4, 2, torch.bfloat16, cuda_device)
     index = index.to(torch.int16)
-    outs = [window_attention.window_attention_qkv(qkv, table, index, mask, 4, 2, 0.25,
-                                                  head_group=group) for group in (1, 2, 4)]
+    outs = []
+    for group in (1, 2, 4, 3):
+        monkeypatch.setattr(window_attention, "pick_head_group", lambda *a, g=group: g)
+        if group == 3:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                window_attention.window_attention_qkv(qkv, table, index, mask, 4, 2, 0.25)
+        else:
+            outs.append(window_attention.window_attention_qkv(qkv, table, index, mask, 4, 2,
+                                                              0.25))
     assert all(torch.equal(o, outs[0]) for o in outs[1:])
-    with pytest.raises(ValueError, match="does not divide"):
-        window_attention.window_attention_qkv(qkv, table, index, mask, 4, 2, 0.25, head_group=3)
 
 
 @pytest.mark.cuda

@@ -25,6 +25,7 @@ import torch
 from ics_tpu.models import swin as jax_swin
 from ics_tpu_torch import weights
 from ics_tpu_torch.models import swin as torch_swin
+from ics_tpu_torch.ops.window_attention import window_merge, window_partition
 
 CONFIGS = {
     "swin_micro": dict(image_size=64, patch_size=4, embed_dim=32, depths=(1, 2),
@@ -155,9 +156,9 @@ def test_patch_merging_takes_timms_quadrant_order():
 def test_window_partition_and_merge_are_inverse_and_match_jax():
     x = np.random.default_rng(3).standard_normal((2, 8, 8, 5)).astype(np.float32)
     ref = np.asarray(jax_swin._window_partition(jnp.asarray(x), 4))
-    wins = torch_swin._window_partition(torch.from_numpy(x), 4)
+    wins = window_partition(torch.from_numpy(x), 4)
     np.testing.assert_array_equal(wins.numpy(), ref)
-    np.testing.assert_array_equal(torch_swin._window_merge(wins, 4, 8, 2).numpy(), x)
+    np.testing.assert_array_equal(window_merge(wins, 4, 8, 2).numpy(), x)
 
 
 @pytest.mark.parametrize("name,launches", [

@@ -226,6 +226,11 @@ def test_table_and_index_gather_equals_window_attention_bias():
     assert torch.equal(attn.table(), attn.rel_bias.float()) and attn.table() is not first
     torch.testing.assert_close(wa.relative_bias(attn.table(), attn.rel_index16), attn.bias(),
                                atol=0, rtol=0)
+    # a write through .data (as reset_parameters writes) leaves the version as it was
+    second = attn.table()
+    attn.reset_parameters(torch.Generator().manual_seed(1))
+    assert torch.equal(attn.table(), attn.rel_bias.float()) and attn.table() is not second
+    assert not torch.equal(attn.table(), second)
 
 
 def test_qkv_wrapper_rejects_mismatched_shapes():
