@@ -1031,6 +1031,200 @@ def check_new_models(torch) -> None:
         torch.cuda.empty_cache()
 
 
+# phase 5d: the device-decode lane's corpus, (h, w) as PIL gives them
+DECODE_SIZES = ((224, 224), (375, 500), (750, 1000))
+DECODE_MODES = ("420", "422", "444", "gray")
+DECODE_CODINGS = {"baseline": {}, "progressive": {"progressive": True},
+                  "restart": {"restart_marker_blocks": 4}}
+# the documented device-vs-PIL decode error (docs/benchmarks.md), and the
+# reference tests' bars: mean under 1, max at most 6 (gray 2)
+DOC_MEAN_LSB, DOC_MAX_LSB = 0.4, 3
+
+
+def decode_corpus() -> dict:
+    """{(mode, coding, (h, w)): JPEG bytes}: seeded noise under the Gaussian
+    blur of radius 2 that tests/test_jpeg_device_decode.py uses, quality 90."""
+    import numpy as np
+    from PIL import Image, ImageFilter
+
+    rng = np.random.default_rng(0)
+    corpus = {}
+    for h, w in DECODE_SIZES:
+        img = Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8)).filter(
+            ImageFilter.GaussianBlur(2))
+        for mode in DECODE_MODES:
+            for coding, kw in DECODE_CODINGS.items():
+                buf = io.BytesIO()
+                if mode == "gray":
+                    img.convert("L").save(buf, "JPEG", quality=90, **kw)
+                else:
+                    img.save(buf, "JPEG", quality=90,
+                             subsampling={"444": 0, "422": 1, "420": 2}[mode], **kw)
+                blob = buf.getvalue()
+                if coding == "restart" and b"\xff\xdd" not in blob:
+                    fail("PIL wrote no DRI segment for restart_marker_blocks")
+                corpus[(mode, coding, (h, w))] = blob
+    return corpus
+
+
+def count_kernels(torch, fn):
+    """CUDA kernels one call of ``fn`` launches, by torch.profiler; None when
+    the profiler sees no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except Exception as exc:  # the profiler is a reading, not a check
+        log(f"    torch.profiler failed: {exc}")
+        return None
+    cuda = torch.autograd.DeviceType.CUDA
+    names = [e.name for e in prof.events() if e.device_type == cuda
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    return len(names) or None
+
+
+def check_device_decode(torch) -> None:
+    """Phase 5d: the device-decode lane on the card. The port's entropy
+    decoder built and timed against PIL's full decode; per sampling mode the
+    device-decoded canvas against PIL and the fp32 coefficient step against
+    the fp32 pixel step fed that canvas's uint8; the bf16 coefficient and
+    pixel steps at buckets 1, 8 and 32; the decode alone at bucket 32 beside
+    its byte bound, with the kernels it launches."""
+    import numpy as np
+    from PIL import Image
+
+    from ics_tpu_torch.native import imgcodec
+    from ics_tpu_torch.runtime import device_decode as dd
+    from ics_tpu_torch.runtime.decode import stage_batch
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+
+    t0 = time.perf_counter()
+    imgcodec.build_entropy()
+    imgcodec.load_entropy()
+    log(f"  entropy decoder (jpeg_entropy.cpp, g++ -O3) built in {time.perf_counter() - t0:.2f} s")
+    corpus = decode_corpus()
+    coeffs = {}
+    for key, blob in corpus.items():
+        co = imgcodec.jpeg_coefficients(blob)
+        lane = dd.classify_coefficients(co)
+        want_luma = 128 if key[2][1] > 512 else 64
+        if co is None or lane != (key[0], want_luma):
+            fail(f"device decode: {key} classified as {lane}, not ({key[0]!r}, {want_luma})")
+        coeffs[key] = co
+    log(f"  corpus: {len(corpus)} JPEGs ({', '.join(DECODE_MODES)} x "
+        f"{', '.join(DECODE_CODINGS)} x {', '.join(f'{w}x{h}' for h, w in DECODE_SIZES)})")
+
+    # host: the port's entropy decoder against PIL's full decode, by size
+    for size in DECODE_SIZES:
+        blobs = [b for k, b in corpus.items() if k[2] == size]
+        runs = {"entropy": [], "pil": []}
+        for name in ("entropy", "pil", "pil", "entropy"):
+            t0 = time.perf_counter()
+            for _ in range(3):
+                for b in blobs:
+                    if name == "entropy":
+                        imgcodec.jpeg_coefficients(b)
+                    else:
+                        with Image.open(io.BytesIO(b)) as im:
+                            im.convert("RGB").load()
+            runs[name].append((time.perf_counter() - t0) / (3 * len(blobs)) * 1e6)
+        ent, pil = (min(v) for v in (runs["entropy"], runs["pil"]))
+        log(f"  host us/image at {size[1]}x{size[0]} (all modes and codings): entropy decode "
+            f"{ent:.0f}, PIL full decode {pil:.0f} ({pil / ent:.2f}x)")
+
+    # per mode: canvas against PIL, coefficient step against pixel step (fp32)
+    fp32 = InferenceEngine(RESNET, precision="fp32", buckets=SERVER_BUCKETS, canvas=512, seed=0)
+    for mode in DECODE_MODES:
+        errs, n_pixels, worst = 0.0, 0, 0
+        for luma in dd.LUMA_BUCKETS:
+            keys = [k for k in corpus if k[0] == mode and (128 if k[2][1] > 512 else 64) == luma]
+            staged = dd.stage_coefficient_batch([coeffs[k] for k in keys], luma, mode)
+            dev = dd.to_device(staged, "cuda")
+            with torch.inference_mode():
+                canvas = dd.decode_batch_to_canvas(dev, mode=mode, sizes=dev["sizes"])
+            u8 = canvas.to(torch.uint8).cpu().numpy()
+            for i, key in enumerate(keys):
+                h, w = key[2]
+                with Image.open(io.BytesIO(corpus[key])) as im:
+                    pil = np.asarray(im.convert("RGB")).astype(np.int64)
+                e = np.abs(u8[i, :h, :w].astype(np.int64) - pil)
+                errs += float(e.sum())
+                n_pixels += e.size
+                worst = max(worst, int(e.max()))
+            ci, cs = fp32.predict_coeff_staged(dict(staged), mode=mode)
+            pi, ps = fp32.predict_staged(u8, staged["sizes"])
+            gap = float(np.abs(cs - ps).max())
+            if (ci[:, 0] != pi[:, 0]).any() or gap > 1e-4:
+                fail(f"device decode {mode}/{luma * 8}px: coefficient step top-1 {ci[:, 0]} vs "
+                     f"pixel step {pi[:, 0]}, scores {gap:.3e} apart (tol 1e-4)")
+            log(f"  {mode} {luma * 8}px lane, {len(keys)} images: fp32 coefficient step = pixel "
+                f"step on the canvas's uint8 (top-1 equal, scores within {gap:.1e}, tol 1e-4)")
+        mean = errs / n_pixels
+        bar = 2 if mode == "gray" else 6
+        log(f"  {mode} canvas vs PIL: mean {mean:.4f} LSB, max {worst} LSB (documented "
+            f"{DOC_MEAN_LSB} / {DOC_MAX_LSB} LSB; bar mean < 1.0, max <= {bar})")
+        if mean >= 1.0 or worst > bar:
+            fail(f"device decode {mode}: canvas vs PIL mean {mean:.3f}, max {worst}")
+    del fp32
+    torch.cuda.empty_cache()
+
+    # the bf16 steps as served, on the same 4:2:0 500x375 images
+    eng = InferenceEngine(RESNET, precision="bf16", buckets=SERVER_BUCKETS, canvas=512,
+                          fused_chains=True)
+    blobs = [corpus[("420", c, (375, 500))] for c in DECODE_CODINGS]
+    for bucket in SERVER_BUCKETS:
+        picks = [blobs[i % len(blobs)] for i in range(bucket)]
+        staged = dd.stage_coefficient_batch(
+            [imgcodec.jpeg_coefficients(b) for b in picks], dd.LUMA_BLOCKS, "420")
+        dev = dd.to_device(staged, "cuda")
+        step = eng._get_coeff_step("420")
+        images = []
+        for b in picks:
+            with Image.open(io.BytesIO(b)) as im:
+                images.append(np.asarray(im.convert("RGB")))
+        canvas, sizes = stage_batch(images, canvas=512)
+        pix = eng._to_device(canvas, sizes)
+        coeff_ms, pixel_ms = in_turns(
+            f"{RESNET} bf16 fused-chains step at bucket {bucket}: coefficient step "
+            "(under 'kernel') and pixel step (under 'plain')",
+            lambda: step(*(dev[k] for k in dd.STAGED_KEYS)), lambda: eng._step(*pix),
+            iters=10, ahead=False)
+        coeff_bytes = sum(v.nbytes for v in staged.values())
+        pixel_bytes = canvas.nbytes + sizes.nbytes
+        log(f"    bytes to the device per batch: coefficient lane {coeff_bytes}, pixel lane "
+            f"{pixel_bytes} ({pixel_bytes / coeff_bytes:.2f}x); decode share of the "
+            f"coefficient step {(coeff_ms - pixel_ms) / coeff_ms * 100:.1f} %")
+    del eng
+    torch.cuda.empty_cache()
+
+    # the decode alone at bucket 32, 4:2:0 512 px
+    picks = [blobs[i % len(blobs)] for i in range(32)]
+    staged = dd.stage_coefficient_batch(
+        [imgcodec.jpeg_coefficients(b) for b in picks], dd.LUMA_BLOCKS, "420")
+    dev = dd.to_device(staged, "cuda")
+
+    def decode():
+        with torch.inference_mode():
+            return dd.decode_batch_to_canvas(dev, mode="420", sizes=dev["sizes"])
+
+    ms = library_ms(decode, iters=20)
+    n_blocks = 32 * (64 * 64 + 2 * 32 * 32)
+    in_bytes = sum(v.nbytes for k, v in staged.items() if k != "sizes")
+    out_bytes = 32 * 512 * 512 * 3 * 4
+    b = bound(in_bytes + out_bytes, n_blocks * 2 * 2 * 8 * 8 * 8, FP32_FLOPS)
+    kernels = count_kernels(torch, decode)
+    log(f"  decode_batch_to_canvas at bucket 32 (4:2:0, 512 px): {ms:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({in_bytes + out_bytes} bytes at "
+        f"{HBM_BYTES_S / 1e12:.2f} TB/s; {ms / b['bound_ms']:.1f}x the bound); "
+        f"kernels launched per call: {kernels if kernels is not None else 'not measured'}")
+    del dev
+    torch.cuda.empty_cache()
+
+
 JPEG_SIZES = [(480, 640), (512, 384), (400, 400), (300, 500), (640, 427),
               (384, 360), (256, 512), (500, 375), (420, 600)]
 
@@ -1111,6 +1305,7 @@ async def drive_server(base: str, admin: tuple[str, str]) -> dict:
                 *(classify(blobs, model, query, kind) for blobs in requests))
             again = [await classify(requests[-1][-1:], model, query, kind) for _ in range(2)]
             wall_s = time.perf_counter() - t0
+            decodes = sorted({res["decode"] for batch in results + again for res in batch})
             if again[0][0]["top_classes"] != again[1][0]["top_classes"] or \
                     again[0][0]["scores"] != again[1][0]["scores"]:
                 fail(f"{name}: the same image alone twice gave two different results")
@@ -1122,7 +1317,9 @@ async def drive_server(base: str, admin: tuple[str, str]) -> dict:
                 "launches": after["kernel_launches"],
                 "backend": after["backend"],
                 "fused_chains": after["fused_chains"],
-                "max_batch_seen": after["batcher"]["max_batch_seen"],
+                "max_batch_seen": max([after["batcher"]["max_batch_seen"]] + [
+                    lane["max_batch_seen"] for lane in after.get("coeff_lanes", {}).values()]),
+                "decodes": decodes,
                 "wall_s": wall_s,
             }
 
@@ -1138,7 +1335,79 @@ async def drive_server(base: str, admin: tuple[str, str]) -> dict:
         }
         for model in (CONVNEXT, SWIN, MOBILENET):
             drive[model] = await stretch(model, model, f"?modelo={model}", mixed)
+        drive["decode_lanes"] = await decode_lanes(c, h, status)
         return drive
+
+
+async def decode_lanes(c, h, status) -> dict:
+    """Phase 6's lane stretch on the default model: one JPEG of each sampling
+    mode at each luma bucket (500x375 and 1000x750), a PNG and a JPEG over
+    1024 px, in one request; then the lanes in /inferencia/status and the
+    device-decode gauges of /monitor/metrics."""
+    corpus = decode_corpus()
+    keys = [(mode, "baseline", size) for mode in DECODE_MODES for size in DECODE_SIZES[1:]]
+    blobs = [corpus[k] for k in keys] + _images([(384, 384)], "PNG") + \
+        _images([(1100, 800)], "JPEG", quality=90)
+    want = [f"device:{k[0]}" for k in keys] + ["host", "host"]
+    before = await status(RESNET)
+    (await c.post("/inferencia/kernels/zerar", headers=h)).raise_for_status()
+    t0 = time.perf_counter()
+    kinds = ["jpg"] * len(keys) + ["png", "jpg"]
+    files = [("files", (f"img{i}.{kind}", b, f"image/{kind}"))
+             for i, (b, kind) in enumerate(zip(blobs, kinds))]
+    r = await c.post("/inferencia/classificar", files=files, headers=h)
+    if r.status_code != 200:
+        fail(f"decode lanes: /inferencia/classificar returned {r.status_code}: {r.text[:500]}")
+    results = r.json()["resultados"]
+    for res in results:
+        _check_result(res, RESNET)
+    wall_s = time.perf_counter() - t0
+    got = [res["decode"] for res in results]
+    if got != want:
+        fail(f"decode lanes: answers say {got}, wanted {want}")
+    after = await status(RESNET)
+    text = (await c.get("/monitor/metrics")).text
+    gauges = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, _, value = line.rpartition(" ")
+            gauges[name] = float(value)
+    lanes = {f"{mode}_{px}px" for mode in DECODE_MODES for px in (512, 1024)}
+    return {
+        "model": RESNET,
+        "images": len(blobs),
+        "batches": after["batches"] - before["batches"],
+        "launches": after["kernel_launches"],
+        "backend": after["backend"],
+        "fused_chains": after["fused_chains"],
+        "decodes": sorted(set(got)),
+        "lane_flushes": {k: v["flushes"] for k, v in sorted(after["coeff_lanes"].items())},
+        "missing_lanes": sorted(lanes - set(after["coeff_lanes"])),
+        "device_decoded": after["device_decoded"],
+        "metrics": {k: v for k, v in gauges.items()
+                    if k == "tpu_device_decoded_total" or k.startswith("tpu_lane_flushes_")},
+        "wall_s": wall_s,
+    }
+
+
+async def await_lane_warm_up(base: str, admin: tuple[str, str], t0: float) -> None:
+    """Wait for the background warm-up of the other decode lanes, so that no
+    warm-up step runs inside a stretch's launch counts."""
+    import httpx
+
+    async with httpx.AsyncClient(base_url=base, timeout=60) as c:
+        r = await c.post("/auth/login", data={"username": admin[0], "password": admin[1]})
+        r.raise_for_status()
+        h = {"Authorization": f"Bearer {r.json()['access_token']}"}
+        while True:
+            st = (await c.get("/inferencia/status", headers=h)).json()
+            if not st.get("decode_lanes_warming"):
+                break
+            if time.perf_counter() - t0 > SERVER_START_S:
+                fail("the decode lanes' background warm-up did not end")
+            await asyncio.sleep(0.5)
+    log(f"  every decode lane warm {time.perf_counter() - t0:.1f} s after start "
+        "(4:2:0/4:2:2/4:4:4/gray x 512/1024 px)")
 
 
 def serve_and_drive() -> dict:
@@ -1146,7 +1415,7 @@ def serve_and_drive() -> dict:
     admin = ("smoke-admin@example.com", "smoke-" + os.urandom(8).hex())
     with tempfile.TemporaryDirectory(prefix="ics_tpu_torch_smoke_") as tmp:
         env = dict(
-            os.environ,
+            {k: v for k, v in os.environ.items() if k != "TPU_DEVICE_DECODE"},  # its default, on
             ENV="test",
             DATABASE_URL=f"sqlite:///{tmp}/smoke.db",
             JWT_SECRET_KEY=os.urandom(16).hex(),
@@ -1157,7 +1426,6 @@ def serve_and_drive() -> dict:
             TPU_DEFAULT_MODEL=RESNET,
             TPU_FUSED_CHAINS="true",
             TPU_PRECISION="bf16",
-            TPU_DEVICE_DECODE="false",
             TPU_BATCH_BUCKETS=",".join(map(str, SERVER_BUCKETS)),
             TPU_WARMUP_ON_STARTUP="true",
         )
@@ -1186,7 +1454,10 @@ def serve_and_drive() -> dict:
                         fail(f"server not up after {SERVER_START_S} s:\n"
                              f"{server_log.read_text()[-4000:]}")
                     time.sleep(1)
-                log(f"  server up in {time.perf_counter() - t0:.1f} s (engine built, buckets warmed)")
+                up_s = time.perf_counter() - t0
+                log(f"  server up in {up_s:.1f} s (engine built, pixel buckets and the 4:2:0 "
+                    "512 px decode lane warmed)")
+                asyncio.run(await_lane_warm_up(base, admin, t0))
                 return asyncio.run(drive_server(base, admin))
             finally:
                 proc.terminate()
@@ -1202,6 +1473,12 @@ def check_drive(drive: dict) -> dict:
     of its path and no other. Returns the launches per kernel."""
     for name, st in drive.items():
         log(f"  {name}: {json.dumps(st)}")
+        want = ["host"] if name == "vit_png" else None
+        if name not in ("vit_png", "decode_lanes") and \
+                not all(d.startswith("device:") for d in st["decodes"]):
+            fail(f"{name}: JPEGs answered {st['decodes']}; every one must take a device lane")
+        if want and st["decodes"] != want:
+            fail(f"{name}: PNGs answered {st['decodes']}, not the host lane")
         if st["backend"] != "cuda":
             fail(f"{name}: /inferencia/status reports backend {st['backend']!r}, not 'cuda'")
         if st["batches"] < 1:
@@ -1226,6 +1503,15 @@ def check_drive(drive: dict) -> dict:
         fail("vit_png: a batch of exact 384x384 images did not take the fixed-size lane")
     if max(res["max_batch_seen"], jpg["max_batch_seen"]) < 2:
         fail("the batcher never formed a batch larger than 1")
+    lanes = drive["decode_lanes"]
+    if lanes["missing_lanes"] or min(lanes["lane_flushes"].values()) < 1:
+        fail(f"decode lanes: flushes {lanes['lane_flushes']}, missing {lanes['missing_lanes']}")
+    if lanes["metrics"].get("tpu_device_decoded_total", 0) <= 0 or \
+            len([k for k in lanes["metrics"] if k.startswith("tpu_lane_flushes_")]) < 9:
+        fail(f"decode lanes: /monitor/metrics reads {lanes['metrics']}")
+    if lanes["launches"]["bottleneck_chain"] < CHAIN_LAUNCHES * lanes["batches"]:
+        fail(f"decode lanes: {lanes['launches']} for {lanes['batches']} batches; "
+             f"bottleneck_chain must launch {CHAIN_LAUNCHES} times per batch")
     # the new families: exactly their own kernel, once per block per batch
     for model, kernel, per_batch in ((CONVNEXT, "depthwise_conv", sum(CONVNEXT_DEPTHS)),
                                      (SWIN, "window_attention", sum(SWIN_DEPTHS)),
@@ -1237,7 +1523,8 @@ def check_drive(drive: dict) -> dict:
                  f"launch {kernel} {per_batch} times per batch and no other kernel")
     return {
         "flash_attention": jpg["launches"]["flash_attention"] + png["launches"]["flash_attention"],
-        "bottleneck_chain": res["launches"]["bottleneck_chain"],
+        "bottleneck_chain": res["launches"]["bottleneck_chain"]
+        + lanes["launches"]["bottleneck_chain"],
         "normalize_u8": png["launches"]["normalize_u8"],
         # ConvNeXt-T's launches are the kernel at k 7, MobileNetV3-Small's at k 3 and 5
         "depthwise_conv": drive[CONVNEXT]["launches"]["depthwise_conv"],
@@ -1315,8 +1602,13 @@ def main() -> None:
         "kernels against plain and library versions:")
     check_new_models(torch)
 
-    log(f"[6] main paths: python -m ics_tpu_torch.main serving {RESNET} (fused chains), "
-        f"{VIT}, {CONVNEXT}, {SWIN} and {MOBILENET}, classify over HTTP:")
+    log("[5d] the device-decode lane on the card (entropy decode on the host, the rest on "
+        "the device):")
+    check_device_decode(torch)
+
+    log(f"[6] main paths: python -m ics_tpu_torch.main serving {RESNET} (fused chains, "
+        f"TPU_DEVICE_DECODE at its default: on), {VIT}, {CONVNEXT}, {SWIN} and {MOBILENET}, "
+        "classify over HTTP:")
     launches = check_drive(serve_and_drive())
     launches["flash_attention_bf16_exp"] = bf16_exp_launches
 

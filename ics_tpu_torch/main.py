@@ -5,7 +5,9 @@ handlers need no device), its ``/inferencia`` router, and the monitor
 routes; nothing of the JAX package is imported. Startup: database schema
 and seed as in ``ics_tpu`` (by ``ENV``), then the inference service on the
 GPU. An engine that fails to build fails
-startup; a service already placed in ``app.state.engine`` is used as it is.
+startup, and so does an entropy decoder that cannot be built while
+``TPU_DEVICE_DECODE`` is on; a service already placed in ``app.state.engine``
+is used as it is.
 
 Run: ``python -m ics_tpu_torch.main [--host H] [--port P]``.
 """
@@ -71,6 +73,7 @@ async def lifespan(app: App):
                 deadline_us=settings.TPU_BATCH_DEADLINE_US,
                 max_deadline_us=settings.TPU_BATCH_MAX_DEADLINE_US,
                 pipelined=settings.TPU_PIPELINED_FLUSH,
+                device_decode=settings.TPU_DEVICE_DECODE,
                 num_classes=settings.TPU_NUM_CLASSES,
                 precision=settings.TPU_PRECISION,
                 buckets=settings.get_batch_buckets(),
@@ -212,20 +215,25 @@ def create_app(db: Database | None = None) -> App:
             # the scrape keeps the JAX package's names: one dashboard reads both
             registry.gauge("tpu_images_total", "images inferred").set(stats["images"])
             registry.gauge("tpu_batches_total", "batches executed").set(stats["batches"])
-            registry.gauge("tpu_host_decoded_total", "images via host_decoded lane").set(
-                stats.get("host_decoded", 0))
+            for key in ("device_decoded", "host_decoded"):
+                registry.gauge(f"tpu_{key}_total", f"images via {key} lane").set(
+                    stats.get(key, 0))
             batcher = stats.get("batcher") or {}
             registry.gauge(
                 "tpu_pipelined_flushes_total",
                 "flushes whose staging/H2D overlapped prior compute",
             ).set(batcher.get("pipelined", 0))
-            registry.gauge(
-                "tpu_lane_flushes_pixel_total", "batch flushes on the pixel lane"
-            ).set(batcher.get("flushes", 0))
-            registry.gauge(
-                "tpu_lane_pipelined_pixel_total",
-                "pipelined (overlapped) flushes on the pixel lane",
-            ).set(batcher.get("pipelined", 0))
+            # per-lane flush counters: the pixel lane and every device-decode lane
+            for lane_name, lane_stats in (
+                ("pixel", batcher), *sorted((stats.get("coeff_lanes") or {}).items()),
+            ):
+                registry.gauge(
+                    f"tpu_lane_flushes_{lane_name}_total", f"batch flushes on the {lane_name} lane"
+                ).set(lane_stats.get("flushes", 0))
+                registry.gauge(
+                    f"tpu_lane_pipelined_{lane_name}_total",
+                    f"pipelined (overlapped) flushes on the {lane_name} lane",
+                ).set(lane_stats.get("pipelined", 0))
             for name, count in stats["kernel_launches"].items():
                 registry.gauge(
                     f"gpu_kernel_launches_{name}_total", f"launches of the {name} kernel"

@@ -1,10 +1,9 @@
-// Shared DCT-coefficient buffer header — the ONE definition.
+// DCT-coefficient buffer header — the ONE definition.
 //
-// Three things must agree on this layout: imgcodec.cpp's serial
-// extractor, jpeg_mt.cpp's parallel extractor, and the Python parser in
-// imgcodec.py (which hardcodes the 76-byte int block and 588-byte total).
-// Before this header existed the struct was declared twice in C++ and
-// once numerically in Python, guarded only by a comment (self-review r3).
+// Two things must agree on this layout: jpeg_entropy.cpp, which writes it,
+// and the Python parser in imgcodec.py (which hardcodes the 76-byte int
+// block and 588-byte total). It is the layout of the JAX package's libjpeg
+// shim, so the two packages' buffers compare byte for byte.
 #pragma once
 
 #include <cstdint>

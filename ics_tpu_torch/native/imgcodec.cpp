@@ -14,8 +14,6 @@
 #include <jpeglib.h>
 #include <png.h>
 
-#include "coeff_header.h"
-
 extern "C" {
 
 // ---------------------------------------------------------------------------
@@ -269,91 +267,5 @@ int icstpu_decode(const uint8_t *data, size_t len, uint8_t **out, int *width,
 }
 
 void icstpu_free(uint8_t *p) { free(p); }
-
-// ---------------------------------------------------------------------------
-// JPEG DCT-coefficient extraction (decode-on-TPU front end)
-//
-// Huffman entropy decode is irreducibly serial and stays on the host; the
-// quantized coefficients + quant tables go to the device, which performs
-// dequant + iDCT (as matmuls) + upsample + colorspace there.
-// ---------------------------------------------------------------------------
-
-
-// Returns 0 on success. *out receives a malloc'd buffer laid out as:
-//   [CoeffHeader][comp0 coeffs int16 (blocks_h*blocks_w*64)][comp1 ...]
-// caller frees with icstpu_free.
-int icstpu_jpeg_coeffs(const uint8_t *data, size_t len, uint8_t **out,
-                       size_t *out_len) {
-  jpeg_decompress_struct cinfo;
-  JpegErrorMgr jerr;
-  cinfo.err = jpeg_std_error(&jerr.pub);
-  jerr.pub.error_exit = jpeg_error_exit;
-  uint8_t *volatile buffer = nullptr;  // modified after setjmp (UB guard)
-  if (setjmp(jerr.setjmp_buffer)) {
-    jpeg_destroy_decompress(&cinfo);
-    free(buffer);
-    return -1;
-  }
-  jpeg_create_decompress(&cinfo);
-  jpeg_mem_src(&cinfo, const_cast<unsigned char *>(data),
-               static_cast<unsigned long>(len));
-  if (jpeg_read_header(&cinfo, TRUE) != JPEG_HEADER_OK) {
-    jpeg_destroy_decompress(&cinfo);
-    return -2;
-  }
-  if (1ULL * cinfo.image_width * cinfo.image_height > ICSTPU_MAX_PIXELS) {
-    jpeg_destroy_decompress(&cinfo);
-    return -6;  // decompression-bomb guard (see ICSTPU_MAX_PIXELS)
-  }
-  jvirt_barray_ptr *barrays = jpeg_read_coefficients(&cinfo);
-  if (!barrays || cinfo.num_components > 4) {
-    jpeg_destroy_decompress(&cinfo);
-    return -3;
-  }
-  CoeffHeader hdr;
-  memset(&hdr, 0, sizeof(hdr));
-  hdr.num_components = cinfo.num_components;
-  hdr.width = cinfo.image_width;
-  hdr.height = cinfo.image_height;
-  size_t total = sizeof(CoeffHeader);
-  for (int c = 0; c < cinfo.num_components; c++) {
-    jpeg_component_info *ci = &cinfo.comp_info[c];
-    hdr.comp[c][0] = ci->width_in_blocks;
-    hdr.comp[c][1] = ci->height_in_blocks;
-    hdr.comp[c][2] = ci->h_samp_factor;
-    hdr.comp[c][3] = ci->v_samp_factor;
-    JQUANT_TBL *qt = ci->quant_table;
-    if (!qt) qt = cinfo.quant_tbl_ptrs[ci->quant_tbl_no];
-    if (!qt) {
-      jpeg_destroy_decompress(&cinfo);
-      return -4;
-    }
-    for (int i = 0; i < 64; i++) hdr.quant[c][i] = qt->quantval[i];
-    total += size_t(ci->width_in_blocks) * ci->height_in_blocks * 64 *
-             sizeof(int16_t);
-  }
-  buffer = static_cast<uint8_t *>(malloc(total));
-  if (!buffer) {
-    jpeg_destroy_decompress(&cinfo);
-    return -5;
-  }
-  memcpy(buffer, &hdr, sizeof(hdr));
-  uint8_t *cursor = buffer + sizeof(hdr);
-  for (int c = 0; c < cinfo.num_components; c++) {
-    jpeg_component_info *ci = &cinfo.comp_info[c];
-    for (JDIMENSION row = 0; row < ci->height_in_blocks; row++) {
-      JBLOCKARRAY rows = (*cinfo.mem->access_virt_barray)(
-          reinterpret_cast<j_common_ptr>(&cinfo), barrays[c], row, 1, FALSE);
-      memcpy(cursor, rows[0],
-             size_t(ci->width_in_blocks) * 64 * sizeof(int16_t));
-      cursor += size_t(ci->width_in_blocks) * 64 * sizeof(int16_t);
-    }
-  }
-  jpeg_finish_decompress(&cinfo);
-  jpeg_destroy_decompress(&cinfo);
-  *out = buffer;
-  *out_len = total;
-  return 0;
-}
 
 }  // extern "C"

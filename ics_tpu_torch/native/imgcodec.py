@@ -1,8 +1,11 @@
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import logging
+import os
 import subprocess
+import threading
 from pathlib import Path
 from typing import Optional
 
@@ -12,6 +15,8 @@ logger = logging.getLogger(__name__)
 
 _HERE = Path(__file__).parent
 _SO = _HERE / "libimgcodec.so"
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 _lib: Optional[ctypes.CDLL] = None
 _build_failed = False
@@ -55,23 +60,11 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.icstpu_sha256.argtypes = [
             ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p
         ]
-        lib.icstpu_jpeg_coeffs.argtypes = [
-            ctypes.c_char_p, ctypes.c_size_t,
-            ctypes.POINTER(ctypes.POINTER(ctypes.c_ubyte)),
-            ctypes.POINTER(ctypes.c_size_t),
-        ]
-        lib.icstpu_jpeg_coeffs.restype = ctypes.c_int
-        lib.icstpu_jpeg_coeffs_mt.argtypes = [
-            ctypes.c_char_p, ctypes.c_size_t,
-            ctypes.POINTER(ctypes.POINTER(ctypes.c_ubyte)),
-            ctypes.POINTER(ctypes.c_size_t), ctypes.c_int,
-        ]
-        lib.icstpu_jpeg_coeffs_mt.restype = ctypes.c_int
         _lib = lib
         return lib
     except (OSError, AttributeError) as exc:
         # AttributeError = stale .so missing a new symbol: degrade to the
-        # PIL/serial fallbacks instead of 500ing every decode
+        # PIL fallback instead of 500ing every decode
         logger.warning("native imgcodec unavailable: %s", exc)
         _build_failed = True
         return None
@@ -82,11 +75,13 @@ def available() -> bool:
 
 
 def probe(data: bytes) -> Optional[str]:
-    lib = _load()
-    if lib is None:
-        return None
-    kind = lib.icstpu_probe(data, len(data))
-    return {1: "jpeg", 2: "png"}.get(kind)
+    """``"jpeg"`` (SOI followed by a marker), ``"png"`` (its signature) or
+    None; needs no library."""
+    if data[:3] == b"\xff\xd8\xff":
+        return "jpeg"
+    if data[:8] == PNG_SIGNATURE:
+        return "png"
+    return None
 
 
 def decode(data: bytes) -> Optional[np.ndarray]:
@@ -124,76 +119,110 @@ class JpegCoefficients:
         self.components = components
 
 
-def _parse_coeff_buffer(lib, out, out_len) -> JpegCoefficients:
+def _parse_coeff_buffer(out, out_len) -> JpegCoefficients:
+    raw = np.ctypeslib.as_array(out, shape=(out_len.value,))
+    # header layout mirrors CoeffHeader in coeff_header.h
+    ints = raw[: 4 * (3 + 16)].view(np.int32)
+    num_comp = int(ints[0])
+    width, height = int(ints[1]), int(ints[2])
+    comp_meta = ints[3:3 + 16].reshape(4, 4)
+    quant = raw[4 * 19: 4 * 19 + 4 * 64 * 2].view(np.uint16).reshape(4, 64)
+    cursor = 4 * 19 + 4 * 64 * 2
+    components = []
+    for c in range(num_comp):
+        bw, bh, hs, vs = (int(x) for x in comp_meta[c])
+        n = bh * bw * 64 * 2
+        coeffs = raw[cursor:cursor + n].view(np.int16).reshape(bh, bw, 64).copy()
+        cursor += n
+        components.append(
+            {"coeffs": coeffs, "quant": quant[c].copy(), "h_samp": hs, "v_samp": vs}
+        )
+    return JpegCoefficients(width, height, components)
+
+
+# -- the port's own entropy decoder (jpeg_entropy.cpp, no libjpeg) -----------
+ENTROPY_SRC = _HERE / "jpeg_entropy.cpp"
+ENTROPY_BUILD_DIR = _HERE.parents[1] / "build" / "ics_tpu_torch"
+CXX_FLAGS = ("-std=c++17", "-O3", "-Wall", "-fPIC", "-shared")
+BUILD_TIMEOUT_S = 300
+
+_entropy_lock = threading.Lock()
+_entropy: Optional[ctypes.CDLL] = None
+
+
+def entropy_library_path() -> Path:
+    """``build/ics_tpu_torch/libjpeg_entropy-<digest>.so``: the digest covers
+    the sources and the flags, so an edited source is rebuilt."""
+    digest = hashlib.sha256()
+    for src in (ENTROPY_SRC, _HERE / "coeff_header.h"):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(CXX_FLAGS).encode())
+    return ENTROPY_BUILD_DIR / f"libjpeg_entropy-{digest.hexdigest()[:16]}.so"
+
+
+def build_entropy() -> str:
+    """Compile the entropy decoder with the C++ compiler if it is not built
+    yet; returns the compiler's output ("" when it was built already).
+    Raises RuntimeError with that output when the build fails."""
+    out = entropy_library_path()
+    if out.exists():
+        return ""
+    ENTROPY_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-I", str(_HERE), "-o", str(tmp),
+           str(ENTROPY_SRC)]
     try:
-        raw = np.ctypeslib.as_array(out, shape=(out_len.value,))
-        # header layout mirrors CoeffHeader in imgcodec.cpp
-        ints = raw[: 4 * (3 + 16)].view(np.int32)
-        num_comp = int(ints[0])
-        width, height = int(ints[1]), int(ints[2])
-        comp_meta = ints[3:3 + 16].reshape(4, 4)
-        quant = raw[4 * 19: 4 * 19 + 4 * 64 * 2].view(np.uint16).reshape(4, 64)
-        cursor = 4 * 19 + 4 * 64 * 2
-        components = []
-        for c in range(num_comp):
-            bw, bh, hs, vs = (int(x) for x in comp_meta[c])
-            n = bh * bw * 64 * 2
-            coeffs = (
-                raw[cursor:cursor + n].view(np.int16).reshape(bh, bw, 64).copy()
-            )
-            cursor += n
-            components.append(
-                {
-                    "coeffs": coeffs,
-                    "quant": quant[c].copy(),
-                    "h_samp": hs,
-                    "v_samp": vs,
-                }
-            )
-        return JpegCoefficients(width, height, components)
-    finally:
-        lib.icstpu_free(out)
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
+    except (OSError, subprocess.TimeoutExpired) as exc:
+        raise RuntimeError(f"building {ENTROPY_SRC.name} failed: {exc}") from exc
+    output = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"building {ENTROPY_SRC.name} failed (exit {proc.returncode}):\n{output}")
+    os.replace(tmp, out)  # atomic: a concurrent build of the same digest is harmless
+    return output
 
 
-# Below this file size the parallel path isn't worth starting: thread
-# spawn + one libjpeg header re-parse per chunk cost ~0.5 ms total, which
-# a sub-100KB scan decodes in anyway. Content-INDEPENDENT by design — the
-# per-chunk decoder is libjpeg itself (jpeg_mt.cpp), so summed CPU tracks
-# the serial path on any content class; only the fixed overhead needs
-# amortizing. Tests set this to 0 to exercise the MT path on small files.
-MT_MIN_BYTES = 96 * 1024
+def load_entropy() -> ctypes.CDLL:
+    """The entropy decoder's library, built on first use. Raises
+    RuntimeError with the compiler's output when it cannot be built."""
+    global _entropy
+    with _entropy_lock:
+        if _entropy is None:
+            build_entropy()
+            lib = ctypes.CDLL(str(entropy_library_path()))
+            lib.icstpu_jpeg_entropy.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t,
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_ubyte)),
+                ctypes.POINTER(ctypes.c_size_t),
+            ]
+            lib.icstpu_jpeg_entropy.restype = ctypes.c_int
+            lib.icstpu_entropy_free.argtypes = [ctypes.POINTER(ctypes.c_ubyte)]
+            _entropy = lib
+        return _entropy
 
 
-def jpeg_coefficients(
-    data: bytes, threads: int = 1
-) -> Optional[JpegCoefficients]:
+def jpeg_coefficients(data: bytes, threads: int = 1) -> Optional[JpegCoefficients]:
     """Host Huffman decode only; everything after runs on the device.
 
-    ``threads > 1`` takes the restart-marker parallel path (jpeg_mt.cpp:
-    contiguous restart segments wrapped into synthesized single-MCU-row
-    JPEGs, each decoded by libjpeg on a worker thread) when the file is
-    eligible (baseline Huffman, DRI > 0, >=2 segments) and big enough to
-    amortize the fixed overhead (``MT_MIN_BYTES``); anything else falls
-    back to the serial libjpeg decoder transparently.
+    The port's own decoder (``jpeg_entropy.cpp``) gives what libjpeg's
+    ``jpeg_read_coefficients`` gives; None for a file it declines (not a
+    JPEG, damaged headers, lossless/hierarchical/arithmetic coding, 12-bit
+    samples, past the pixel cap). ``threads`` is taken for the reference's
+    signature and runs serially: the result is the same bits.
     """
-    lib = _load()
-    if lib is None:
-        return None
+    lib = load_entropy()
     out = ctypes.POINTER(ctypes.c_ubyte)()
     out_len = ctypes.c_size_t()
-    if threads > 1 and len(data) >= MT_MIN_BYTES:
-        rc = lib.icstpu_jpeg_coeffs_mt(
-            data, len(data), ctypes.byref(out), ctypes.byref(out_len), threads
-        )
-        if rc == 0:
-            return _parse_coeff_buffer(lib, out, out_len)
-        # rc==1: not eligible; rc<0: malformed for the strict parser —
-        # either way the serial decoder is the arbiter
-    rc = lib.icstpu_jpeg_coeffs(data, len(data), ctypes.byref(out),
-                                ctypes.byref(out_len))
+    rc = lib.icstpu_jpeg_entropy(data, len(data), ctypes.byref(out), ctypes.byref(out_len))
     if rc != 0:
         return None
-    return _parse_coeff_buffer(lib, out, out_len)
+    try:
+        return _parse_coeff_buffer(out, out_len)
+    finally:
+        lib.icstpu_entropy_free(out)
 
 
 def sha256_hex(data: bytes) -> Optional[str]:

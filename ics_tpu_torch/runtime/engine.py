@@ -16,8 +16,14 @@ resize (the triangle weights are the identity), so the step normalizes the
 top-left window of the canvas with the ``normalize_u8`` kernel and skips
 the two resize matmuls.
 
-Not ported yet: the mesh, pipeline-parallel, TTA, explain, embed and
-JPEG-coefficient lanes.
+The JPEG-coefficient step (``predict_coeff_staged``): entropy-decoded
+coefficients staged on a block canvas per (sampling mode, luma bucket) ->
+device decode (``runtime.device_decode``) -> the resize path on the fp32
+canvas -> the same forward and top-k. One step per sampling mode; the shape
+key ``("coeff", mode, luma_blocks, bucket)`` counts its first call as the
+compile.
+
+Not ported yet: the mesh, pipeline-parallel, TTA, explain and embed lanes.
 """
 
 from __future__ import annotations
@@ -34,6 +40,12 @@ from ics_tpu_torch.models.registry import ModelSpec, get_model
 from ics_tpu_torch.ops import launch_counts
 from ics_tpu_torch.ops.normalize import normalize_u8
 from ics_tpu_torch.ops.preproc import preprocess_batch
+from ics_tpu_torch.runtime.device_decode import (
+    STAGED_KEYS,
+    _chroma_canvas,
+    make_fused_decode_infer_step,
+    to_device,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -91,6 +103,7 @@ class InferenceEngine:
         self.model = folded.to(device=self.device, dtype=self.dtype).eval()
         self.fused_chains = fused_chains
         self._compiled_shapes: set = set()
+        self._coeff_steps: dict = {}
         self._stats = {
             "batches": 0, "images": 0, "total_device_ms": 0.0, "compiles": 0,
         }
@@ -201,6 +214,72 @@ class InferenceEngine:
     def predict_staged(self, canvas: np.ndarray, sizes: np.ndarray):
         """canvas uint8 [N<=bucket, C, C, 3] -> (top_idx, top_scores) [N, K]."""
         return self.predict_staged_async(canvas, sizes)()
+
+    # -- the JPEG-coefficient (device decode) lanes ---------------------------
+    def _get_coeff_step(self, mode: str = "420"):
+        """The fused decode step of one sampling mode (coefficients in, top-k
+        out), made on first use."""
+        step = self._coeff_steps.get(mode)
+        if step is None:
+            step = make_fused_decode_infer_step(
+                self.model, self.spec, dtype=self.dtype, top_k=self._top_k(),
+                mode=mode, multi_label=self.multi_label,
+            )
+            self._coeff_steps[mode] = step
+        return step
+
+    def predict_coeff_staged_async(self, staged: dict, mode: str = "420",
+                                   record: bool = True):
+        """Pad a staged coefficient batch (``runtime.device_decode``) to the
+        batch bucket, copy it to the device and enqueue the step WITHOUT
+        waiting; returns a zero-arg resolver, as ``predict_staged_async``."""
+        n = staged["y"].shape[0]
+        bucket = self.bucket_for(n)
+        if n < bucket:
+            pad = bucket - n
+            staged = {k: np.concatenate([v, np.zeros((pad, *v.shape[1:]), v.dtype)])
+                      for k, v in staged.items()}
+            # zero quant tables make padded rows decode to zeros; give the
+            # padded sizes a sane nonzero extent for the resize plan
+            staged["sizes"][n:] = 64
+        step = self._get_coeff_step(mode)
+        t0 = time.perf_counter()
+        dev = to_device(staged, self.device)
+        idx, scores = step(*(dev[k] for k in STAGED_KEYS))
+        shape_key = ("coeff", mode, staged["y"].shape[1], bucket)
+
+        def resolve() -> tuple[np.ndarray, np.ndarray]:
+            i = idx.cpu().numpy()[:n]
+            s = scores.cpu().numpy()[:n]
+            self._record_step(shape_key, (time.perf_counter() - t0) * 1000, n, record=record)
+            return i, s
+
+        return resolve
+
+    def predict_coeff_staged(self, staged: dict, mode: str = "420",
+                             record: bool = True) -> tuple[np.ndarray, np.ndarray]:
+        """Staged coefficient batch -> (top_idx, top_scores) [N, K]."""
+        return self.predict_coeff_staged_async(staged, mode, record)()
+
+    def warmup_coeff(self, mode: str = "420", luma_blocks: int = 64,
+                     buckets: Optional[Sequence[int]] = None) -> None:
+        """Run the decode lane of ``mode`` at ``luma_blocks`` once per batch
+        bucket (default: 4:2:0 at 512 px, the dominant JPEG shape), kept out
+        of the stats, so the first flush does not pay the cold start."""
+        cv, ch = _chroma_canvas(mode, luma_blocks)
+        for b in buckets or self.buckets:
+            staged = {
+                "y": np.zeros((b, luma_blocks, luma_blocks, 64), np.int16),
+                "cb": np.zeros((b, cv, ch, 64), np.int16),
+                "cr": np.zeros((b, cv, ch, 64), np.int16),
+                "yq": np.zeros((b, 64), np.uint16),
+                "cq": np.zeros((b, 64), np.uint16),
+                "rq": np.zeros((b, 64), np.uint16),
+                "sizes": np.full((b, 2), 64, np.int32),
+            }
+            self.predict_coeff_staged(staged, mode=mode, record=False)
+            logger.info("warmed %s decode lane %s/%dpx for bucket %d",
+                        self.model_name, mode, luma_blocks * 8, b)
 
     def status(self) -> dict:
         cuda = self.device.type == "cuda"

@@ -1,12 +1,23 @@
 """Inference service: image bytes in -> classes and scores out (counterpart
-of ``ics_tpu/runtime/service.py``, host-decode lane).
+of ``ics_tpu/runtime/service.py``).
 
-Host decode (``runtime.decode``) -> dynamic batcher (``runtime.batcher``)
--> the engine. The batcher, decode and staging are the port's own copies
-of the JAX package's host code.
+Two kinds of lane, each a dynamic batcher (``runtime.batcher``) in front of
+the engine, all sharing one ``IncomingCounter``:
 
-Not ported yet: the JPEG-coefficient (device decode) lanes, hedged
-replicas, trained-weight engines, and the TTA/embed/explain requests.
+- the device-decode lanes (``device_decode``, on by default): a JPEG is
+  entropy-decoded on the host by the port's own decoder
+  (``native.imgcodec.jpeg_coefficients``) and goes to the lane of its
+  (sampling mode, luma bucket), whose step decodes, preprocesses and
+  classifies the batch on the device (``runtime.device_decode``);
+- the pixel lane: everything else (PNG, JPEGs the decoder declines, over
+  1024 px, or in another sampling) is decoded on the host
+  (``runtime.decode``) and staged as uint8 canvases.
+
+With ``device_decode`` on, a decoder library that cannot be built fails
+the service's construction: no request is quietly host-decoded instead.
+
+Not ported yet: hedged replicas, trained-weight engines, and the
+TTA/embed/explain requests.
 """
 
 from __future__ import annotations
@@ -19,8 +30,14 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ics_tpu_torch.core.config import settings
-from ics_tpu_torch.runtime.batcher import DynamicBatcher
+from ics_tpu_torch.native import imgcodec
+from ics_tpu_torch.runtime.batcher import DynamicBatcher, IncomingCounter
 from ics_tpu_torch.runtime.decode import decode_image, stage_batch
+from ics_tpu_torch.runtime.device_decode import (
+    LUMA_BUCKETS,
+    classify_coefficients,
+    stage_coefficient_batch,
+)
 from ics_tpu_torch.utils.metrics import registry as metrics_registry
 from ics_tpu_torch.runtime.engine import InferenceEngine
 
@@ -39,10 +56,10 @@ def warn_unserved_settings() -> None:
     """Say once, at warning level, each setting that the port takes and does
     not serve yet, so that a deployment that relies on one is not left to
     find out from its traffic."""
-    if settings.TPU_DEVICE_DECODE:
-        _warn_once("device_decode",
-                   "TPU_DEVICE_DECODE is set, but the device-decode lane is not "
-                   "ported yet (ROADMAP.md slice 4): images are decoded on the host")
+    if settings.TPU_DECODE_THREADS > 1:
+        _warn_once("decode_threads",
+                   f"TPU_DECODE_THREADS={settings.TPU_DECODE_THREADS}, but restart-segment "
+                   "threads are not ported yet: each JPEG is entropy-decoded on one thread")
     if settings.TPU_SERVING_REPLICAS > 1:
         _warn_once("serving_replicas",
                    f"TPU_SERVING_REPLICAS={settings.TPU_SERVING_REPLICAS}, but hedged "
@@ -68,8 +85,15 @@ def warn_unserved_settings() -> None:
 
 class InferenceService:
     def __init__(self, engine: InferenceEngine, deadline_us: int = 2000,
-                 max_deadline_us: int = 50_000, pipelined: bool = True):
+                 max_deadline_us: int = 50_000, pipelined: bool = True,
+                 device_decode: bool = True):
         self.engine = engine
+        self._deadline_us = deadline_us
+        self._max_deadline_us = max_deadline_us
+        self._pipelined = pipelined
+        # one service-wide load signal: any lane's flusher holds its batch
+        # open while requests are still in host entropy or pixel decode
+        self._incoming = IncomingCounter()
         self.batcher = DynamicBatcher(
             # canvas=None: each flush stages on the smallest canvas bucket
             # (256/512/1024) that fits its largest image
@@ -78,11 +102,61 @@ class InferenceService:
             max_batch=max(engine.buckets),
             deadline_us=deadline_us,
             max_deadline_us=max_deadline_us,
+            incoming=self._incoming,
             predict_dispatch=self._dispatch_resilient if pipelined else None,
         )
+        self.device_decode = bool(device_decode)
+        if self.device_decode:
+            # no fallback that hides the lane: a decoder that cannot be built
+            # fails here, with the compiler's output
+            imgcodec.load_entropy()
+        # one lane (batcher + step) per (sampling mode, luma bucket), made on
+        # first use: 4:2:0/4:2:2/4:4:4/gray x <=512/<=1024 px
+        self.coeff_batchers: dict[tuple[str, int], DynamicBatcher] = {}
+        # requests inside classify_bytes (decoding, queued or awaiting a
+        # flush): the background warm-up waits for this to be 0
+        self._inflight = 0
         self._latencies_ms: list[float] = []
         self._device_errors = 0
-        self._stats = {"host_decoded": 0}
+        self._stats = {"device_decoded": 0, "host_decoded": 0}
+        self._started = False
+        self._lane_warm_task: Optional[asyncio.Task] = None
+
+    def _make_coeff_lane(self, mode: str, luma_blocks: int) -> DynamicBatcher:
+        def stage(coeff_list):
+            staged = stage_coefficient_batch(coeff_list, luma_blocks=luma_blocks, mode=mode)
+            if staged is None:  # routed by classify_coefficients upstream
+                raise RuntimeError("coefficient batch not stageable")
+            return staged, None
+
+        def predict(staged, _):
+            return self._predict_coeff_resilient(staged, mode)
+
+        def dispatch(staged, _):
+            return self._dispatch_coeff_resilient(staged, mode)
+
+        return DynamicBatcher(
+            predict_staged=predict,
+            stage_batch=stage,
+            max_batch=max(self.engine.buckets),
+            deadline_us=self._deadline_us,
+            max_deadline_us=self._max_deadline_us,
+            incoming=self._incoming,
+            predict_dispatch=dispatch if self._pipelined else None,
+        )
+
+    async def _get_coeff_lane(self, mode: str, luma_blocks: int) -> DynamicBatcher:
+        if not self._started:
+            # racing stop(): a lane made now would never get a running
+            # flusher and its submits would hang
+            raise RuntimeError("batcher stopped before request was served")
+        key = (mode, luma_blocks)
+        lane = self.coeff_batchers.get(key)
+        if lane is None:
+            lane = self._make_coeff_lane(mode, luma_blocks)
+            await lane.start()
+            self.coeff_batchers[key] = lane
+        return lane
 
     @classmethod
     def from_settings(cls) -> "InferenceService":
@@ -101,6 +175,7 @@ class InferenceService:
             deadline_us=settings.TPU_BATCH_DEADLINE_US,
             max_deadline_us=settings.TPU_BATCH_MAX_DEADLINE_US,
             pipelined=settings.TPU_PIPELINED_FLUSH,
+            device_decode=settings.TPU_DEVICE_DECODE,
         )
 
     # -- device-error resilience: one retry, then the error propagates -------
@@ -117,48 +192,135 @@ class InferenceService:
             lambda: self.engine.predict_staged(canvas, sizes), "device step"
         )
 
-    def _dispatch_resilient(self, canvas, sizes):
+    def _resilient_dispatch(self, dispatch, predict, what: str):
         """Pipelined flavour: the dispatch is retried once inline; a failure
         while resolving falls back to one synchronous retry."""
-        resolve = self._retry_once(
-            lambda: self.engine.predict_staged_async(canvas, sizes),
-            "device step dispatch",
-        )
+        resolve = self._retry_once(dispatch, f"{what} dispatch")
 
         def resolve_resilient():
             try:
                 return resolve()
             except Exception:
                 self._device_errors += 1
-                logger.exception("device step resolve failed; retrying once")
-                return self.engine.predict_staged(canvas, sizes)
+                logger.exception("%s resolve failed; retrying once", what)
+                return predict()
 
         return resolve_resilient
+
+    def _dispatch_resilient(self, canvas, sizes):
+        return self._resilient_dispatch(
+            lambda: self.engine.predict_staged_async(canvas, sizes),
+            lambda: self.engine.predict_staged(canvas, sizes), "device step",
+        )
+
+    def _predict_coeff_resilient(self, staged, mode: str):
+        return self._retry_once(
+            lambda: self.engine.predict_coeff_staged(staged, mode=mode), "device coeff step"
+        )
+
+    def _dispatch_coeff_resilient(self, staged, mode: str):
+        return self._resilient_dispatch(
+            lambda: self.engine.predict_coeff_staged_async(staged, mode=mode),
+            lambda: self.engine.predict_coeff_staged(staged, mode=mode), "device coeff step",
+        )
 
     async def start(self, warm: bool = False) -> None:
         if warm:
             loop = asyncio.get_running_loop()
             await loop.run_in_executor(None, self.engine.warmup)
+            if self.device_decode:
+                # 4:2:0 at 512 px, the dominant JPEG shape, at every batch
+                # bucket before the first request; every other lane at the
+                # smallest bucket in the background, so boot does not wait
+                await loop.run_in_executor(None, self.engine.warmup_coeff)
+                self._lane_warm_task = asyncio.ensure_future(self._warm_remaining_lanes())
         await self.batcher.start()
+        for lane in self.coeff_batchers.values():
+            await lane.start()
+        self._started = True
+
+    async def _await_idle_window(self, max_wait_s: float = 120.0) -> None:
+        """Wait for ~0.5 s with no request in flight (capped) before a lane's
+        warm-up step: the foreground goes first. Under constant load the cap
+        lets the warm-up proceed anyway."""
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + max_wait_s
+        idle_checks = 0
+        while loop.time() < deadline:
+            busy = self._inflight > 0 or self._incoming.value > 0
+            idle_checks = 0 if busy else idle_checks + 1
+            if idle_checks >= 3:
+                return
+            await asyncio.sleep(0.25)
+
+    async def _warm_remaining_lanes(self) -> None:
+        loop = asyncio.get_running_loop()
+        min_bucket = (min(self.engine.buckets),)
+        for mode in ("420", "422", "444", "gray"):
+            for luma in LUMA_BUCKETS:
+                if mode == "420" and luma == 64:
+                    continue  # warmed before the first request
+                await self._await_idle_window()
+                try:
+                    await loop.run_in_executor(
+                        None, lambda m=mode, lb=luma: self.engine.warmup_coeff(
+                            m, lb, buckets=min_bucket))
+                except asyncio.CancelledError:  # the service is stopping
+                    raise
+                except Exception:  # the lane then starts cold on its first flush
+                    logger.exception("background warm-up of decode lane %s/%d failed",
+                                     mode, luma)
+        logger.info("all decode lanes warm")
 
     async def stop(self) -> None:
+        self._started = False
+        task = self._lane_warm_task
+        if task is not None and not task.done():
+            # cancel and detach: a warm-up step already in an executor thread
+            # cannot be interrupted, and stop() must not wait for it
+            task.cancel()
+            task.add_done_callback(lambda t: t.exception() if not t.cancelled() else None)
         await self.batcher.stop()
+        for lane in list(self.coeff_batchers.values()):
+            await lane.stop()
 
     async def classify_bytes(self, data: bytes) -> dict:
+        self._inflight += 1
+        try:
+            return await self._classify_bytes(data)
+        finally:
+            self._inflight -= 1
+
+    async def _classify_bytes(self, data: bytes) -> dict:
         t0 = time.perf_counter()
         loop = asyncio.get_running_loop()
-        # announced while decoding: the flusher holds its batch open for it
+        # announced while decoding: every lane's flusher holds its batch open
         self.batcher.announce()
         announced = True
+        decode = "host"
         try:
-            self._stats["host_decoded"] += 1
-            image = await loop.run_in_executor(None, decode_image, data)
-            metrics_registry.histogram(
-                "decode_ms", "host decode latency (ms)",
-                buckets=(0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 25, 50),
-            ).observe((time.perf_counter() - t0) * 1000)
-            announced = False  # submit() consumes the announcement
-            idx, scores = await self.batcher.submit(image, announced=True)
+            if self.device_decode and imgcodec.probe(data) == "jpeg":
+                coeffs = await loop.run_in_executor(
+                    None, imgcodec.jpeg_coefficients, data, settings.TPU_DECODE_THREADS)
+                lane_key = classify_coefficients(coeffs)
+                if lane_key is not None:
+                    mode, luma_blocks = lane_key
+                    lane = await self._get_coeff_lane(mode, luma_blocks)
+                    self._stats["device_decoded"] += 1
+                    key = f"device_decoded_{mode}_{luma_blocks * 8}px"
+                    self._stats[key] = self._stats.get(key, 0) + 1
+                    announced = False  # submit() consumes the announcement
+                    idx, scores = await lane.submit(coeffs, announced=True)
+                    decode = f"device:{mode}"
+            if decode == "host":
+                self._stats["host_decoded"] += 1
+                image = await loop.run_in_executor(None, decode_image, data)
+                metrics_registry.histogram(
+                    "decode_ms", "host decode latency (ms)",
+                    buckets=(0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 25, 50),
+                ).observe((time.perf_counter() - t0) * 1000)
+                announced = False
+                idx, scores = await self.batcher.submit(image, announced=True)
         finally:
             if announced:
                 self.batcher.retract()
@@ -169,7 +331,7 @@ class InferenceService:
             "scores": [float(s) for s in scores],
             "latency_ms": round(dt_ms, 3),
             "model": self.engine.model_name,
-            "decode": "host",
+            "decode": decode,
         }
 
     async def classify_many(self, blobs: Sequence[bytes]) -> list[dict]:
@@ -195,8 +357,14 @@ class InferenceService:
             **self.engine.status(),
             "batcher": self.batcher.stats,
             "latency": self.latency_percentiles(),
+            "coeff_lanes": {
+                f"{mode}_{lb * 8}px": lane.stats
+                for (mode, lb), lane in self.coeff_batchers.items()
+            },
             "device_errors": self._device_errors,
-            "device_decode": False,  # the lane is not ported: every image is host-decoded
+            "device_decode": self.device_decode,
+            "decode_lanes_warming": (self._lane_warm_task is not None
+                                     and not self._lane_warm_task.done()),
             **self._stats,
         }
 
@@ -207,8 +375,9 @@ class InferenceServicePool:
 
     def __init__(self, default_model: str, deadline_us: int = 2000,
                  max_deadline_us: int = 50_000, pipelined: bool = True,
-                 **engine_kwargs):
+                 device_decode: bool = True, **engine_kwargs):
         self.default_model = default_model
+        self.device_decode = device_decode
         self.deadline_us = deadline_us
         self.max_deadline_us = max_deadline_us
         self.pipelined = pipelined
@@ -245,6 +414,7 @@ class InferenceServicePool:
             service = InferenceService(
                 engine, deadline_us=self.deadline_us,
                 max_deadline_us=self.max_deadline_us, pipelined=self.pipelined,
+                device_decode=self.device_decode,
             )
             await service.start()
             if self._stopped:  # stop() ran while the engine was being built

@@ -47,7 +47,7 @@ async def served(tmp_path):
     service = InferenceService(
         InferenceEngine("vit_tiny", num_classes=10, precision="fp32",
                         buckets=(1, 4), canvas=64, device="cpu"),
-        deadline_us=20_000,
+        deadline_us=20_000, device_decode=False,   # these tests pin the host lane
     )
     await service.start()
     app = create_app(db=Database(f"sqlite:///{tmp_path}/torch_app.db"))
@@ -254,6 +254,8 @@ def test_serving_a_classify_never_imports_jax(tmp_path):
 
 
 def test_from_settings_hands_fused_chains_on_and_says_device_decode_once(monkeypatch, caplog):
+    """``TPU_DEVICE_DECODE`` is served now: the service takes it on, with the
+    entropy decoder built, and no warning names it."""
     import logging
 
     from ics_tpu_torch.core.config import reload_settings
@@ -278,11 +280,11 @@ def test_from_settings_hands_fused_chains_on_and_says_device_decode_once(monkeyp
         reload_settings()
     assert [kw["fused_chains"] for kw in built] == [True, True]
     assert built[0]["model_name"] == "resnet_tiny" and built[0]["buckets"] == (1, 2)
-    notices = [r for r in caplog.records if "TPU_DEVICE_DECODE" in r.getMessage()]
-    assert len(notices) == 1 and notices[0].levelno == logging.WARNING
-    assert "slice 4" in notices[0].getMessage()
+    assert [r for r in caplog.records if "TPU_DEVICE_DECODE" in r.getMessage()] == []
+    assert [r for r in caplog.records if r.levelno >= logging.WARNING] == []
     status = first.status()
-    assert status["device_decode"] is False and status["fused_chains"] is True
+    assert status["device_decode"] is True and status["fused_chains"] is True
+    assert first.device_decode and status["coeff_lanes"] == {}
 
 
 @pytest.mark.anyio
@@ -355,6 +357,7 @@ _UNSERVED = {
     "TPU_PP_STAGES": ("2", "TPU_PP_STAGES"),
     "TPU_EMBED_ON_SYNC": ("true", "TPU_EMBED_ON_SYNC"),
     "NEXTCLOUD_BASE_URL": ("https://cloud.example.com", "TPU_CLASSIFY_ON_SYNC"),
+    "TPU_DECODE_THREADS": ("4", "TPU_DECODE_THREADS"),
 }
 
 

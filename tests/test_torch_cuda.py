@@ -769,3 +769,91 @@ def test_new_model_engines_on_the_card_match_the_engine_on_the_cpu(cuda_device, 
     assert LAUNCHES[kernel].value == before + launches
     np.testing.assert_array_equal(idx[:, 0], ref_idx[:, 0])
     np.testing.assert_allclose(scores, ref_scores, atol=1e-4, rtol=0)
+
+
+# ---- the device-decode lane on the card ----------------------------------------------
+
+def _jpeg(seed, h, w, mode="420", **kw) -> bytes:
+    import io
+
+    from PIL import Image, ImageFilter
+
+    img = Image.fromarray(np.random.default_rng(seed).integers(0, 256, (h, w, 3), np.uint8))
+    img = img.filter(ImageFilter.GaussianBlur(1))
+    buf = io.BytesIO()
+    if mode == "gray":
+        img.convert("L").save(buf, "JPEG", quality=90, **kw)
+    else:
+        img.save(buf, "JPEG", quality=90, subsampling={"444": 0, "422": 1, "420": 2}[mode], **kw)
+    return buf.getvalue()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("luma_blocks", [64, 128])
+@pytest.mark.parametrize("mode", ["420", "422", "444", "gray"])
+def test_coeff_canvas_on_the_card_matches_the_cpu(cuda_device, mode, luma_blocks):
+    """The same staged batch decoded on the card and on the CPU, fp32 with
+    TF32 off: within 1 LSB on at most 0.1 % of the canvas."""
+    from ics_tpu_torch import disable_tf32
+    from ics_tpu_torch.native import imgcodec
+    from ics_tpu_torch.runtime import device_decode
+
+    disable_tf32()
+    side = 8 * luma_blocks - 20
+    blobs = [_jpeg(i, h, w, mode) for i, (h, w) in enumerate([(side, side - 100), (224, 224),
+                                                               (97, 333)])]
+    staged = device_decode.stage_coefficient_batch(
+        [imgcodec.jpeg_coefficients(b) for b in blobs], luma_blocks=luma_blocks, mode=mode)
+    on_cpu = device_decode.to_device(staged, "cpu")
+    on_gpu = device_decode.to_device(staged, cuda_device)
+    cpu = device_decode.decode_batch_to_canvas(on_cpu, mode=mode, sizes=on_cpu["sizes"])
+    gpu = device_decode.decode_batch_to_canvas(on_gpu, mode=mode, sizes=on_gpu["sizes"]).cpu()
+    assert tuple(gpu.shape) == (3, 8 * luma_blocks, 8 * luma_blocks, 3)
+    diff = (gpu - cpu).abs()
+    assert diff.max().item() <= 1 and int((diff > 0).sum()) <= 1e-3 * diff.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["420", "gray"])
+def test_fused_coeff_step_on_the_card_matches_the_cpu(cuda_device, mode):
+    from ics_tpu_torch.native import imgcodec
+    from ics_tpu_torch.runtime import device_decode
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+
+    blobs = [_jpeg(10 + i, h, w, mode) for i, (h, w) in enumerate([(300, 400), (224, 224),
+                                                                   (500, 375)])]
+    staged = device_decode.stage_coefficient_batch(
+        [imgcodec.jpeg_coefficients(b) for b in blobs], luma_blocks=64, mode=mode)
+    kw = dict(num_classes=10, precision="fp32", buckets=(4,), canvas=256, seed=3)
+    ref_idx, ref_scores = InferenceEngine("resnet_tiny", device="cpu", **kw).predict_coeff_staged(
+        dict(staged), mode=mode)
+    idx, scores = InferenceEngine("resnet_tiny", device=cuda_device, **kw).predict_coeff_staged(
+        dict(staged), mode=mode)
+    np.testing.assert_array_equal(idx, ref_idx)
+    np.testing.assert_allclose(scores, ref_scores, atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.anyio
+async def test_device_decode_lane_is_served_on_the_card(cuda_device):
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+    from ics_tpu_torch.runtime.service import InferenceService
+
+    service = InferenceService(InferenceEngine("mobilenetv3_small", num_classes=10,
+                                               buckets=(1, 4), device=cuda_device),
+                               deadline_us=20_000)
+    await service.start(warm=True)
+    try:
+        await service._lane_warm_task
+        before = LAUNCHES["depthwise_conv"].value
+        blobs = [_jpeg(0, 300, 400), _jpeg(1, 200, 240, "444"), _jpeg(2, 700, 600),
+                 _jpeg(3, 120, 160, "gray")]
+        outs = await service.classify_many(blobs)
+        assert [o["decode"] for o in outs] == ["device:420", "device:444", "device:420",
+                                              "device:gray"]
+        st = service.status()
+        assert st["backend"] == "cuda" and st["device_decoded"] == 4
+        assert set(st["coeff_lanes"]) == {"420_512px", "444_512px", "420_1024px", "gray_512px"}
+        assert LAUNCHES["depthwise_conv"].value - before == 7 * st["batches"]
+    finally:
+        await service.stop()

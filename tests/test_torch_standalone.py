@@ -329,8 +329,16 @@ def test_native_shim_is_the_ports_own_copy():
     port = importlib.import_module("ics_tpu_torch.native.imgcodec")
     assert Path(port.__file__).parent == REPO / "ics_tpu_torch" / "native"
     assert port._SO.parent == Path(port.__file__).parent
-    for name in ("imgcodec.cpp", "jpeg_mt.cpp", "coeff_header.h", "Makefile"):
+    for name in ("imgcodec.cpp", "jpeg_entropy.cpp", "coeff_header.h", "Makefile"):
         assert (Path(port.__file__).parent / name).exists()
+    # the coefficient path is the port's own decoder: no libjpeg, and the
+    # libjpeg shim keeps host decode only
+    assert not (Path(port.__file__).parent / "jpeg_mt.cpp").exists()
+    entropy = (Path(port.__file__).parent / "jpeg_entropy.cpp").read_text()
+    assert "jpeglib.h" not in entropy and "png.h" not in entropy
+    assert not any(flag.startswith("-l") for flag in port.CXX_FLAGS)
+    assert "icstpu_jpeg_coeffs" not in (Path(port.__file__).parent / "imgcodec.cpp").read_text()
+    assert port.entropy_library_path().parent == REPO / "build" / "ics_tpu_torch"
     assert port.sha256_hex(b"abc") == ref.sha256_hex(b"abc")
 
 
@@ -375,7 +383,8 @@ def test_registry_is_the_jax_registry_minus_what_is_not_ported():
     "ics_tpu_torch.models.convnext", "ics_tpu_torch.models.mobilenetv3",
     "ics_tpu_torch.models.efficientnet", "ics_tpu_torch.models.swin",
     "ics_tpu_torch.tools.bench_vit_attn", "ics_tpu_torch.tools.bench_depthwise",
-    "ics_tpu_torch.tools.bench_window",
+    "ics_tpu_torch.tools.bench_window", "ics_tpu_torch.ops.jpeg_decode",
+    "ics_tpu_torch.runtime.device_decode", "ics_tpu_torch.native.imgcodec",
 ])
 def test_new_modules_import_alone_and_build_nothing_at_import(module):
     """Each module of this slice imports in a fresh interpreter with no JAX
@@ -386,8 +395,9 @@ def test_new_modules_import_alone_and_build_nothing_at_import(module):
         f"importlib.import_module({module!r})\n"
         "from ics_tpu_torch.ops import _build\n"
         "tops = ('ics_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'orbax', 'triton')\n"
+        "from ics_tpu_torch.native import imgcodec\n"
         "print(json.dumps({'loaded': sorted(m for m in sys.modules if m.split('.')[0] in tops),"
-        " 'libraries': sorted(_build._loaded)}))\n"
+        " 'libraries': sorted(_build._loaded) + ([] if imgcodec._entropy is None else ['entropy'])}))\n"
     )
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
     env["PYTHONPATH"] = str(REPO)
