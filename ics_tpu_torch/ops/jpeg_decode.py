@@ -8,8 +8,8 @@ runs on the device as plain tensor operations:
   -> block reassembly -> fancy (triangular) chroma upsampling
   -> YCbCr -> RGB
 
-For a block F, f = Bᵀ F B with the orthonormal DCT-II basis B; batched over
-every block of a plane it is two batched matmuls. The functions run in fp32
+For a block F, f = Bᵀ F B with the orthonormal DCT-II basis B; over every
+block of a batch it is one [blocks, 64] x [64, 64] matmul against B ⊗ B. The functions run in fp32
 and take any number of leading batch dimensions (``[..., bh, bw, 64]``
 coefficients, ``[..., 64]`` quant tables). On the GPU the engine turns TF32
 off (``disable_tf32``), so the matmuls are the fp32 function the JAX package
@@ -51,14 +51,30 @@ def widen_quant(quant: torch.Tensor) -> torch.Tensor:
     return quant.float()
 
 
+_IDCT_MATRICES: dict = {}
+
+
+def _idct_matrix(device) -> torch.Tensor:
+    """K[(u, v), (x, y)] = B[u, x] B[v, y], [64, 64] fp32 on ``device``, made
+    once per device: a block's iDCT f = Bᵀ F B is its 64 coefficients times K."""
+    key = str(device)
+    k = _IDCT_MATRICES.get(key)
+    if k is None:
+        B = torch.from_numpy(_dct_basis())
+        k = torch.einsum("ux,vy->uvxy", B, B).reshape(64, 64).to(device)
+        _IDCT_MATRICES[key] = k
+    return k
+
+
 def idct_plane(coeffs: torch.Tensor, quant: torch.Tensor) -> torch.Tensor:
     """coeffs [..., bh, bw, 64] (natural order) + quant [..., 64]
-    -> pixel plane [..., bh*8, bw*8] float32 (level-shifted, unclipped)."""
+    -> pixel plane [..., bh*8, bw*8] float32 (level-shifted, unclipped).
+
+    f = Bᵀ F B for every block at once, as one [blocks, 64] x [64, 64]
+    matmul against the Kronecker product of the basis with itself."""
     *lead, bh, bw, _ = coeffs.shape
     F = coeffs.float() * widen_quant(quant)[..., None, None, :]
-    F = F.reshape(*lead, bh, bw, 8, 8)
-    B = torch.from_numpy(_dct_basis()).to(coeffs.device)
-    f = torch.matmul(torch.matmul(B.t(), F), B)        # [..., bh, bw, x, y]
+    f = torch.matmul(F, _idct_matrix(coeffs.device)).reshape(*lead, bh, bw, 8, 8)
     n = len(lead)
     plane = f.permute(*range(n), n, n + 2, n + 1, n + 3).reshape(*lead, bh * 8, bw * 8)
     return plane + 128.0
@@ -97,11 +113,11 @@ def ycbcr_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
     clipped to [0, 255] unless ``rounded`` is False."""
     cb = cb - 128.0
     cr = cr - 128.0
-    r = y + 1.402 * cr
-    g = y - 0.344136 * cb - 0.714136 * cr
-    b = y + 1.772 * cb
+    r = torch.add(y, cr, alpha=1.402)
+    g = torch.add(y, cb, alpha=-0.344136).add_(cr, alpha=-0.714136)
+    b = torch.add(y, cb, alpha=1.772)
     rgb = torch.stack([r, g, b], dim=-1)
-    return torch.clamp(torch.round(rgb), 0.0, 255.0) if rounded else rgb
+    return rgb.round_().clamp_(0.0, 255.0) if rounded else rgb
 
 
 def _tensor(x, device) -> torch.Tensor:

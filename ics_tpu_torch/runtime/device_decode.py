@@ -146,16 +146,17 @@ def to_device(staged: dict, device) -> dict:
 
 
 def clamp_to_extent(plane: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
-    """[B, H, W] plane with every row at or past ``rows[b]`` replaced by row
-    ``rows[b] - 1`` and every column at or past ``cols[b]`` by column
-    ``cols[b] - 1``: the plane continues its edge, as libjpeg's upsampler
+    """[B, ..., H, W] planes with every row at or past ``rows[b]`` replaced by
+    row ``rows[b] - 1`` and every column at or past ``cols[b]`` by column
+    ``cols[b] - 1``: each plane continues its edge, as libjpeg's upsampler
     sees a component past its downsampled size."""
-    b, h, w = plane.shape
+    b, h, w = plane.shape[0], plane.shape[-2], plane.shape[-1]
+    ones = (1,) * (plane.dim() - 3)
     dev = plane.device
-    ri = torch.minimum(torch.arange(h, device=dev)[None, :], (rows - 1).clamp_min(0)[:, None])
-    ci = torch.minimum(torch.arange(w, device=dev)[None, :], (cols - 1).clamp_min(0)[:, None])
-    plane = plane.gather(1, ri[:, :, None].expand(b, h, w))
-    return plane.gather(2, ci[:, None, :].expand(b, h, w))
+    ri = torch.minimum(torch.arange(h, device=dev), (rows - 1).clamp_min(0)[:, None])
+    ci = torch.minimum(torch.arange(w, device=dev), (cols - 1).clamp_min(0)[:, None])
+    plane = plane.gather(-2, ri.view(b, *ones, h, 1).expand(plane.shape))
+    return plane.gather(-1, ci.view(b, *ones, 1, w).expand(plane.shape))
 
 
 def decode_batch_to_canvas(staged: dict, dtype=torch.float32, mode: str = "420",
@@ -169,18 +170,22 @@ def decode_batch_to_canvas(staged: dict, dtype=torch.float32, mode: str = "420",
     last real row and column (``ceil(h / v)``, ``ceil(w / h)`` samples)
     before the fancy upsampling, so the image's last pixels blend with the
     edge as libjpeg's do, not with the block padding past it. The JAX
-    package's function is the one without ``sizes``."""
-    hr, vr = MODE_RATIOS["444" if mode == "gray" else mode]
+    package's function is the one without ``sizes``. Cb and Cr go through
+    each step together, and grayscale's neutral chroma (zero coefficients,
+    zero tables: exactly 128) is not computed: R = G = B = Y, the same bits."""
     yp = idct_plane(staged["y"], staged["yq"])
-    cbp = idct_plane(staged["cb"], staged["cq"])
-    crp = idct_plane(staged["cr"], staged["rq"])
+    if mode == "gray":
+        return torch.clamp(torch.round(yp), 0.0, 255.0)[..., None].expand(
+            *yp.shape, 3).to(dtype)
+    hr, vr = MODE_RATIOS[mode]
+    chroma = idct_plane(torch.stack([staged["cb"], staged["cr"]], 1),
+                        torch.stack([staged["cq"], staged["rq"]], 1))      # [B, 2, H, W]
     if sizes is not None and (hr, vr) != (1, 1):
         rows = (sizes[:, 0].long() + vr - 1) // vr
         cols = (sizes[:, 1].long() + hr - 1) // hr
-        cbp, crp = clamp_to_extent(cbp, rows, cols), clamp_to_extent(crp, rows, cols)
-    cbp = upsample_chroma(cbp, hr, vr)
-    crp = upsample_chroma(crp, hr, vr)
-    return ycbcr_to_rgb(yp, cbp, crp).to(dtype)
+        chroma = clamp_to_extent(chroma, rows, cols)
+    chroma = upsample_chroma(chroma, hr, vr)
+    return ycbcr_to_rgb(yp, chroma[:, 0], chroma[:, 1]).to(dtype)
 
 
 def make_fused_decode_infer_step(model, spec, dtype=torch.bfloat16, top_k: int = 5,

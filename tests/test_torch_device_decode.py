@@ -226,3 +226,21 @@ def test_warmup_coeff_records_nothing_and_marks_the_shapes():
                                           mode="gray")
     engine.predict_coeff_staged(staged, mode="gray")
     assert engine.status()["compiles"] == 0           # warmed: not a compile
+
+
+def test_bench_decode_loads_another_checkouts_decode():
+    """``tools.bench_decode --other-root`` binds the other checkout's device
+    decode to that checkout's ``ops/jpeg_decode.py``, leaving this one's."""
+    import sys
+    from pathlib import Path
+
+    from ics_tpu_torch.ops import jpeg_decode
+    from ics_tpu_torch.tools import bench_decode
+
+    decode = bench_decode.other_decode(Path(__file__).resolve().parents[1])
+    assert sys.modules["ics_tpu_torch.ops.jpeg_decode"] is jpeg_decode
+    assert decode.__module__ == "other_device_decode"
+    staged = port.stage_coefficient_batch([coefficients(0, 60, 80)], luma_blocks=16)
+    dev = port.to_device(staged, "cpu")
+    torch.testing.assert_close(decode(dev, mode="420", sizes=dev["sizes"]),
+                               port.decode_batch_to_canvas(dev, mode="420", sizes=dev["sizes"]))

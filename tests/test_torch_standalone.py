@@ -385,6 +385,7 @@ def test_registry_is_the_jax_registry_minus_what_is_not_ported():
     "ics_tpu_torch.tools.bench_vit_attn", "ics_tpu_torch.tools.bench_depthwise",
     "ics_tpu_torch.tools.bench_window", "ics_tpu_torch.ops.jpeg_decode",
     "ics_tpu_torch.runtime.device_decode", "ics_tpu_torch.native.imgcodec",
+    "ics_tpu_torch.tools.bench_decode",
 ])
 def test_new_modules_import_alone_and_build_nothing_at_import(module):
     """Each module of this slice imports in a fresh interpreter with no JAX
