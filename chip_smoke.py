@@ -1067,26 +1067,6 @@ def decode_corpus() -> dict:
     return corpus
 
 
-def count_kernels(torch, fn):
-    """CUDA kernels one call of ``fn`` launches, by torch.profiler; None when
-    the profiler sees no device activity."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-    except Exception as exc:  # the profiler is a reading, not a check
-        log(f"    torch.profiler failed: {exc}")
-        return None
-    cuda = torch.autograd.DeviceType.CUDA
-    names = [e.name for e in prof.events() if e.device_type == cuda
-             and not e.name.startswith(("Memcpy", "Memset"))]
-    return len(names) or None
-
-
 def check_device_decode(torch) -> None:
     """Phase 5d: the device-decode lane on the card. The port's entropy
     decoder built and timed against PIL's full decode; per sampling mode the
@@ -1101,6 +1081,7 @@ def check_device_decode(torch) -> None:
     from ics_tpu_torch.runtime import device_decode as dd
     from ics_tpu_torch.runtime.decode import stage_batch
     from ics_tpu_torch.runtime.engine import InferenceEngine
+    from ics_tpu_torch.tools.bench_decode import count_kernels
 
     t0 = time.perf_counter()
     imgcodec.build_entropy()
@@ -1216,7 +1197,11 @@ def check_device_decode(torch) -> None:
     in_bytes = sum(v.nbytes for k, v in staged.items() if k != "sizes")
     out_bytes = 32 * 512 * 512 * 3 * 4
     b = bound(in_bytes + out_bytes, n_blocks * 2 * 2 * 8 * 8 * 8, FP32_FLOPS)
-    kernels = count_kernels(torch, decode)
+    try:
+        kernels = count_kernels(decode)
+    except Exception as exc:  # the profiler is a reading, not a check
+        log(f"    torch.profiler failed: {exc}")
+        kernels = None
     log(f"  decode_batch_to_canvas at bucket 32 (4:2:0, 512 px): {ms:.4f} ms, bound "
         f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({in_bytes + out_bytes} bytes at "
         f"{HBM_BYTES_S / 1e12:.2f} TB/s; {ms / b['bound_ms']:.1f}x the bound); "

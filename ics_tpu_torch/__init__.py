@@ -9,12 +9,13 @@ device are ports.
 - ``ops``      — hand-written CUDA kernels (flash attention, fused bottleneck
                  chain, uint8 normalize, depthwise convolution, window
                  attention) and the plain PyTorch versions beside them; fp32
-                 preprocessing
+                 preprocessing; the JPEG decode from DCT coefficients
 - ``nn``       — layers and blocks of the ported models
 - ``models``   — ViT, ResNet, ConvNeXt, MobileNetV3, EfficientNet, Swin and the
                  registry of ported models
 - ``weights``  — JAX parameter and state trees (as numpy) into state dicts
-- ``runtime``  — inference engine and service (host-decode lane), batcher, decode
+- ``runtime``  — inference engine and service (pixel and device-decode lanes),
+                 batcher, host decode, coefficient staging
 - ``api``      — the routers; ``main`` — app and entry point
 - ``core``, ``web``, ``db``, ``crud``, ``schemas``, ``services``, ``utils``,
   ``native``, ``sync.nextcloud_client`` — host tiers, copied

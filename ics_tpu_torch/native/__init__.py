@@ -1,11 +1,14 @@
-"""Native host shims — C++ (libjpeg/libpng decode + SHA-256) via ctypes.
+"""Native host shims via ctypes.
 
 ``ics_tpu_torch.native.imgcodec`` exposes:
-- ``decode(data) -> np.ndarray | None``  (RGB uint8 [H, W, 3])
-- ``probe(data) -> "jpeg" | "png" | None``
+- ``decode(data) -> np.ndarray | None``  (RGB uint8 [H, W, 3]; libjpeg/libpng)
 - ``sha256_hex(data) -> str``
+- ``probe(data) -> "jpeg" | "png" | None``  (Python, needs no library)
+- ``jpeg_coefficients(data) -> JpegCoefficients | None``  (the port's own
+  entropy decoder, ``jpeg_entropy.cpp``, no libjpeg)
 
-The shared library is built on first import (``make`` in this directory);
-every caller degrades gracefully to the PIL/hashlib fallbacks when the
-toolchain or libs are unavailable.
+The libjpeg/libpng shim is built on first use (``make`` in this directory)
+and its callers degrade to PIL/hashlib where it cannot be; the entropy
+decoder is built by ``g++`` into ``build/ics_tpu_torch/`` on first use, and
+a failed build raises with the compiler's output.
 """

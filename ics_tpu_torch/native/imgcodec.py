@@ -55,8 +55,6 @@ def _load() -> Optional[ctypes.CDLL]:
         ]
         lib.icstpu_decode.restype = ctypes.c_int
         lib.icstpu_free.argtypes = [ctypes.POINTER(ctypes.c_ubyte)]
-        lib.icstpu_probe.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
-        lib.icstpu_probe.restype = ctypes.c_int
         lib.icstpu_sha256.argtypes = [
             ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p
         ]

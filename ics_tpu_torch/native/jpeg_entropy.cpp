@@ -807,16 +807,8 @@ extern "C" {
 // -6 past the pixel cap.
 int icstpu_jpeg_entropy(const uint8_t *data, size_t len, uint8_t **out, size_t *out_len) {
   try {
-    Decoder *dec = new Decoder(data, len);
-    int rc;
-    try {
-      rc = dec->run(out, out_len);
-    } catch (...) {
-      delete dec;
-      throw;
-    }
-    delete dec;
-    return rc;
+    Decoder dec(data, len);  // its destructor frees the buffer on a failure
+    return dec.run(out, out_len);
   } catch (const Failure &f) {
     return f.rc;
   } catch (const std::bad_alloc &) {

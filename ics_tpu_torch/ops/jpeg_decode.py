@@ -120,11 +120,13 @@ def ycbcr_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
     return rgb.round_().clamp_(0.0, 255.0) if rounded else rgb
 
 
-def _tensor(x, device) -> torch.Tensor:
+def as_device_tensor(x, device) -> torch.Tensor:
+    """A numpy array or tensor on ``device``, dtype kept; uint16 arrays cross
+    as their int16 bit pattern (``widen_quant`` reads them back)."""
     if isinstance(x, torch.Tensor):
         return x.to(device)
     x = np.ascontiguousarray(x)
-    if x.dtype == np.uint16:  # crosses as its bit pattern, widened on the device
+    if x.dtype == np.uint16:
         x = x.view(np.int16)
     return torch.from_numpy(x).to(device)
 
@@ -143,9 +145,9 @@ def decode_from_coefficients(
     unless the caller names another).
     """
     device = get_device(device)
-    y = idct_plane(_tensor(y_coeffs, device), _tensor(y_quant, device))
-    cb = idct_plane(_tensor(cb_coeffs, device), _tensor(cb_quant, device))
-    cr = idct_plane(_tensor(cr_coeffs, device), _tensor(cr_quant, device))
+    y = idct_plane(as_device_tensor(y_coeffs, device), as_device_tensor(y_quant, device))
+    cb = idct_plane(as_device_tensor(cb_coeffs, device), as_device_tensor(cb_quant, device))
+    cr = idct_plane(as_device_tensor(cr_coeffs, device), as_device_tensor(cr_quant, device))
     cb = upsample_chroma(cb, samp[0], samp[1])
     cr = upsample_chroma(cr, samp[0], samp[1])
     # all planes now on the (padded) luma grid; crop to true size
@@ -157,7 +159,8 @@ def decode_from_coefficients(
 def decode_grayscale_from_coefficients(y_coeffs, y_quant, width: int, height: int,
                                        out_dtype=torch.uint8, device=None) -> torch.Tensor:
     device = get_device(device)
-    y = idct_plane(_tensor(y_coeffs, device), _tensor(y_quant, device))[:height, :width]
+    y = idct_plane(as_device_tensor(y_coeffs, device),
+                   as_device_tensor(y_quant, device))[:height, :width]
     y = torch.clamp(torch.round(y), 0.0, 255.0)
     return y[..., None].expand(height, width, 3).to(out_dtype)
 

@@ -22,7 +22,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ics_tpu_torch.ops.jpeg_decode import idct_plane, upsample_chroma, ycbcr_to_rgb
+from ics_tpu_torch.ops.jpeg_decode import (
+    as_device_tensor,
+    idct_plane,
+    upsample_chroma,
+    ycbcr_to_rgb,
+)
 
 # default luma block canvas: 64x64 blocks = 512x512 px (matches the pixel
 # staging canvas); the wide lane doubles it
@@ -136,13 +141,7 @@ def stage_coefficient_batch(
 def to_device(staged: dict, device) -> dict:
     """Host staged batch -> tensors on ``device``, dtypes as they are
     (uint16 tables as their int16 bit pattern)."""
-    out = {}
-    for key in STAGED_KEYS:
-        a = np.ascontiguousarray(staged[key])
-        if a.dtype == np.uint16:
-            a = a.view(np.int16)
-        out[key] = torch.from_numpy(a).to(device, non_blocking=True)
-    return out
+    return {key: as_device_tensor(staged[key], device) for key in STAGED_KEYS}
 
 
 def clamp_to_extent(plane: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:

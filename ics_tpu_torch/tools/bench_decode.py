@@ -51,7 +51,8 @@ def other_decode(root: Path):
     decode module bound to that checkout's ``ops/jpeg_decode.py``."""
     name = "ics_tpu_torch.ops.jpeg_decode"
     saved = sys.modules.get(name)
-    sys.modules[name] = _load(root / "ics_tpu_torch" / "ops" / "jpeg_decode.py", "other_jpeg_decode")
+    sys.modules[name] = _load(root / "ics_tpu_torch" / "ops" / "jpeg_decode.py",
+                              "other_jpeg_decode")
     try:
         module = _load(root / "ics_tpu_torch" / "runtime" / "device_decode.py",
                        "other_device_decode")
@@ -78,6 +79,8 @@ def jpegs(mode: str, n: int) -> list[bytes]:
 
 
 def count_kernels(fn):
+    """CUDA kernels one call of ``fn`` launches (copies and fills not
+    counted), by ``torch.profiler``; None when it sees none."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()

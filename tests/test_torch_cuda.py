@@ -21,6 +21,10 @@ O(1)); flash attention with
 ``bf16_exp`` 2e-2 (each p within 2^-7 relative of the plain version's, the
 bound of ``ex2.approx.ftz.bf16x2``, on top of the bf16 bar). The same bars
 hold for strided views of a fused qkv product and for ``flash_attention_qkv``.
+The device decode of the JPEG-coefficient lanes (plain PyTorch, fp32, TF32
+off) on the card against the same call on the CPU: within 1 LSB on at most
+0.1 % of the canvas; the fused coefficient step's top-5 equal and scores
+within atol 2e-4, rtol 1e-4 of its CPU run.
 """
 
 import numpy as np

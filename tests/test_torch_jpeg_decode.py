@@ -106,8 +106,8 @@ def test_ycbcr_to_rgb_matches_jax_before_and_after_rounding():
         jnp.uint8))
     # half-to-even, as jnp.round
     half = torch.tensor([0.5, 1.5, 2.5, -0.5])
-    assert port.ycbcr_to_rgb(half, torch.full((4,), 128.0), torch.full((4,), 128.0))[:, 0].tolist() \
-        == [0.0, 2.0, 2.0, 0.0]
+    neutral = torch.full((4,), 128.0)
+    assert port.ycbcr_to_rgb(half, neutral, neutral)[:, 0].tolist() == [0.0, 2.0, 2.0, 0.0]
 
 
 @pytest.mark.parametrize("mode", sorted(RATIOS))

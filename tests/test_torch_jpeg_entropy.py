@@ -249,7 +249,8 @@ from ics_tpu_torch.native import imgcodec
 rng = np.random.default_rng(int(sys.argv[1]))
 seen = {"none": 0, "decoded": 0}
 for kw in ({}, {"progressive": True}, {"restart_marker_blocks": 2}, {"optimize": True}):
-    img = Image.fromarray(rng.integers(0, 256, (40, 56, 3), np.uint8)).filter(ImageFilter.GaussianBlur(1))
+    img = Image.fromarray(rng.integers(0, 256, (40, 56, 3), np.uint8))
+    img = img.filter(ImageFilter.GaussianBlur(1))
     buf = io.BytesIO()
     img.save(buf, "JPEG", quality=85, **kw)
     data = buf.getvalue()
@@ -257,7 +258,8 @@ for kw in ({}, {"progressive": True}, {"restart_marker_blocks": 2}, {"optimize":
         b = bytearray(data)
         for _ in range(int(rng.integers(1, 6))):
             pos = int(rng.integers(0, len(b)))
-            b[pos] = int(rng.integers(0, 256)) if rng.random() < 0.7 else b[pos] ^ (1 << int(rng.integers(0, 8)))
+            flip = b[pos] ^ (1 << int(rng.integers(0, 8)))
+            b[pos] = int(rng.integers(0, 256)) if rng.random() < 0.7 else flip
         if rng.random() < 0.3:
             b = b[: int(rng.integers(2, len(b)))]
         co = imgcodec.jpeg_coefficients(bytes(b))
