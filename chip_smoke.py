@@ -51,8 +51,19 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    the plain versions, beside the bf16 forward with cuDNN's grouped
    convolution or the plain window attention; then one bucket-32 engine step
    of each, kernels on and off.
+5d. The device-decode lane: the port's entropy decoder built (``g++``) and
+   timed per image beside PIL's full decode on a seeded corpus (4:2:0,
+   4:2:2, 4:4:4, gray; baseline, progressive, restart markers; 224x224,
+   500x375, 1000x750); each mode's device-decoded canvas against PIL (mean
+   under 1, max at most 6, gray 2) and the fp32 coefficient step against the
+   pixel step fed that canvas (top-1 equal, scores within 1e-4); the
+   ResNet-50 bf16 coefficient and pixel steps at buckets 1, 8 and 32 with the
+   bytes each lane sends; the decode alone at bucket 32 beside its bound,
+   with the kernels it launches (both from ``tools.bench_decode``).
 6. The main paths: one ``python -m ics_tpu_torch.main`` whose default model
-   is ResNet-50 with ``TPU_FUSED_CHAINS=true``, classify requests over HTTP:
+   is ResNet-50 with ``TPU_FUSED_CHAINS=true`` and ``TPU_DEVICE_DECODE`` at
+   its default (on, so JPEGs take the device-decode lanes; PNGs and larger
+   JPEGs the pixel lane), classify requests over HTTP:
    JPEGs to ResNet-50, the same JPEGs to ``?modelo=vit_b16`` (the pool
    builds it), a batch of 384x384 PNGs to ViT-B/16 (the fixed-size lane),
    then JPEGs to ``?modelo=convnext_tiny``, ``?modelo=swin_tiny`` and
@@ -60,7 +71,11 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    before each stretch and read just after, and every kernel of that
    stretch's path must have run: ``depthwise_conv`` 18 times a batch on
    ConvNeXt-T and 7 times on MobileNetV3-Small, ``window_attention`` 12
-   times a batch on Swin-T.
+   times a batch on Swin-T. Every JPEG stretch must answer ``device:<mode>``;
+   a last stretch sends a JPEG of each (mode, luma bucket), a PNG and a JPEG
+   over 1024 px, and reads each lane's flushes and the device-decode gauges
+   of ``/monitor/metrics``. The stretches start once the lanes' background
+   warm-up has ended.
 
 Prints ``{"kernels": [...]}`` on the line before the last and
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
@@ -1073,7 +1088,7 @@ def check_device_decode(torch) -> None:
     device-decoded canvas against PIL and the fp32 coefficient step against
     the fp32 pixel step fed that canvas's uint8; the bf16 coefficient and
     pixel steps at buckets 1, 8 and 32; the decode alone at bucket 32 beside
-    its byte bound, with the kernels it launches."""
+    its bound, with the kernels it launches (``tools.bench_decode.measure_decode``)."""
     import numpy as np
     from PIL import Image
 
@@ -1081,7 +1096,7 @@ def check_device_decode(torch) -> None:
     from ics_tpu_torch.runtime import device_decode as dd
     from ics_tpu_torch.runtime.decode import stage_batch
     from ics_tpu_torch.runtime.engine import InferenceEngine
-    from ics_tpu_torch.tools.bench_decode import count_kernels
+    from ics_tpu_torch.tools import bench_decode
 
     t0 = time.perf_counter()
     imgcodec.build_entropy()
@@ -1126,7 +1141,7 @@ def check_device_decode(torch) -> None:
             staged = dd.stage_coefficient_batch([coeffs[k] for k in keys], luma, mode)
             dev = dd.to_device(staged, "cuda")
             with torch.inference_mode():
-                canvas = dd.decode_batch_to_canvas(dev, mode=mode, sizes=dev["sizes"])
+                canvas = dd.decode_batch_to_canvas(dev, mode=mode)
             u8 = canvas.to(torch.uint8).cpu().numpy()
             for i, key in enumerate(keys):
                 h, w = key[2]
@@ -1188,24 +1203,14 @@ def check_device_decode(torch) -> None:
         [imgcodec.jpeg_coefficients(b) for b in picks], dd.LUMA_BLOCKS, "420")
     dev = dd.to_device(staged, "cuda")
 
-    def decode():
-        with torch.inference_mode():
-            return dd.decode_batch_to_canvas(dev, mode="420", sizes=dev["sizes"])
-
-    ms = library_ms(decode, iters=20)
-    n_blocks = 32 * (64 * 64 + 2 * 32 * 32)
-    in_bytes = sum(v.nbytes for k, v in staged.items() if k != "sizes")
-    out_bytes = 32 * 512 * 512 * 3 * 4
-    b = bound(in_bytes + out_bytes, n_blocks * 2 * 2 * 8 * 8 * 8, FP32_FLOPS)
-    try:
-        kernels = count_kernels(decode)
-    except Exception as exc:  # the profiler is a reading, not a check
-        log(f"    torch.profiler failed: {exc}")
-        kernels = None
-    log(f"  decode_batch_to_canvas at bucket 32 (4:2:0, 512 px): {ms:.4f} ms, bound "
-        f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({in_bytes + out_bytes} bytes at "
-        f"{HBM_BYTES_S / 1e12:.2f} TB/s; {ms / b['bound_ms']:.1f}x the bound); "
-        f"kernels launched per call: {kernels if kernels is not None else 'not measured'}")
+    r = bench_decode.measure_decode(dev, "420")
+    if r["kernels"] is None:
+        fail("device decode: torch.profiler saw no kernel of decode_batch_to_canvas")
+    log(f"  decode_batch_to_canvas at bucket 32 (4:2:0, 512 px): {r['runs_ms']} ms, mean "
+        f"{r['ms']:.4f} ms, host {r['host_ms']:.3f} ms to queue a call; bound "
+        f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bytes']} bytes at "
+        f"{bench_decode.HBM_BYTES_S / 1e12:.2f} TB/s, {r['operations']} fp32 operations; "
+        f"{r['ms'] / r['bound_ms']:.1f}x the bound); kernels launched per call: {r['kernels']}")
     del dev
     torch.cuda.empty_cache()
 

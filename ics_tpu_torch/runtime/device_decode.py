@@ -158,20 +158,21 @@ def clamp_to_extent(plane: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor)
     return plane.gather(-1, ci.view(b, *ones, 1, w).expand(plane.shape))
 
 
-def decode_batch_to_canvas(staged: dict, dtype=torch.float32, mode: str = "420",
-                           sizes: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Staged coefficient batch (tensors) -> RGB canvas [B, S, S, 3]
-    (S = 8*blocks), batched over B.
+def decode_batch_to_canvas(staged: dict, dtype=torch.float32, mode: str = "420") -> torch.Tensor:
+    """Staged coefficient batch (tensors, ``sizes`` [B, 2] (h, w) among them)
+    -> RGB canvas [B, S, S, 3] (S = 8*blocks), batched over B.
 
     The padded regions decode to garbage pixels; downstream preproc masks
     them out via the true ``sizes`` (same contract as the pixel canvas).
-    With ``sizes`` [B, 2] (h, w), subsampled chroma is continued from its
-    last real row and column (``ceil(h / v)``, ``ceil(w / h)`` samples)
-    before the fancy upsampling, so the image's last pixels blend with the
-    edge as libjpeg's do, not with the block padding past it. The JAX
-    package's function is the one without ``sizes``. Cb and Cr go through
-    each step together, and grayscale's neutral chroma (zero coefficients,
-    zero tables: exactly 128) is not computed: R = G = B = Y, the same bits."""
+    Subsampled chroma is continued from its last real row and column
+    (``ceil(h / v)``, ``ceil(w / h)`` samples) before the fancy upsampling,
+    so the image's last pixels blend with the edge as libjpeg's do, not with
+    the block padding past it: where an image's height (width) is even, its
+    last row (column) differs from the JAX package's function, which reads
+    the padding; every other pixel of the image is that function's. Cb and Cr
+    go through each step together, and grayscale's neutral chroma (zero
+    coefficients, zero tables: exactly 128) is not computed: R = G = B = Y,
+    the same bits."""
     yp = idct_plane(staged["y"], staged["yq"])
     if mode == "gray":
         return torch.clamp(torch.round(yp), 0.0, 255.0)[..., None].expand(
@@ -179,10 +180,10 @@ def decode_batch_to_canvas(staged: dict, dtype=torch.float32, mode: str = "420",
     hr, vr = MODE_RATIOS[mode]
     chroma = idct_plane(torch.stack([staged["cb"], staged["cr"]], 1),
                         torch.stack([staged["cq"], staged["rq"]], 1))      # [B, 2, H, W]
-    if sizes is not None and (hr, vr) != (1, 1):
-        rows = (sizes[:, 0].long() + vr - 1) // vr
-        cols = (sizes[:, 1].long() + hr - 1) // hr
-        chroma = clamp_to_extent(chroma, rows, cols)
+    if (hr, vr) != (1, 1):
+        sizes = staged["sizes"].long()
+        chroma = clamp_to_extent(chroma, (sizes[:, 0] + vr - 1) // vr,
+                                 (sizes[:, 1] + hr - 1) // hr)
     chroma = upsample_chroma(chroma, hr, vr)
     return ycbcr_to_rgb(yp, chroma[:, 0], chroma[:, 1]).to(dtype)
 
@@ -200,8 +201,8 @@ def make_fused_decode_infer_step(model, spec, dtype=torch.bfloat16, top_k: int =
 
     @torch.inference_mode()
     def step(y, yq, cb, cq, cr, rq, sizes):
-        staged = {"y": y, "yq": yq, "cb": cb, "cq": cq, "cr": cr, "rq": rq}
-        canvas = decode_batch_to_canvas(staged, dtype=torch.float32, mode=mode, sizes=sizes)
+        staged = {"y": y, "yq": yq, "cb": cb, "cq": cq, "cr": cr, "rq": rq, "sizes": sizes}
+        canvas = decode_batch_to_canvas(staged, dtype=torch.float32, mode=mode)
         x = preprocess_batch(canvas, sizes, out_size=spec.image_size,
                              resize_short=spec.resize_short, dtype=dtype)
         logits = model.apply_folded(x).float()

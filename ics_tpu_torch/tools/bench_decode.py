@@ -1,31 +1,24 @@
 """The device decode of the JPEG-coefficient lanes on the GPU, by sampling mode and bucket.
 
     python -m ics_tpu_torch.tools.bench_decode [--bucket 32 8 1] [--mode 420 422 444 gray]
-        [--other-root DIR]
 
 For each mode and bucket: ``runtime.device_decode.decode_batch_to_canvas`` as
-the coefficient step runs it (with ``sizes``), on a staged batch of seeded
-JPEGs (blurred noise, 500x375, quality 90, on the 512 px lane), by CUDA
-events after a warm-up; the CUDA kernels one call launches
-(``torch.profiler``); the host's time to queue a call; and the least time the
-card could take (the staged inputs read once and the fp32 canvas written
-once at 3.35 TB/s; the iDCT's 2 x 64 x 64 fp32 operations a block at 67
-TFLOP/s, whichever is longer). With ``--other-root``, the same calls of
-another checkout's ``ops/jpeg_decode.py`` and ``runtime/device_decode.py``
-(a ``git archive`` of an earlier commit, say) in turns with this one's:
-this, other, other, this. The card's name and power limit come first; one
-JSON line carries the numbers.
+the coefficient step runs it, on a staged batch of seeded JPEGs (blurred
+noise, 500x375, quality 90, on the 512 px lane), by CUDA events after a
+warm-up; the CUDA kernels one call launches (``torch.profiler``); the host's
+time to queue a call; and the least time the card could take
+(``decode_bound``). ``measure_decode`` is the one timer and bound of the
+decode: ``chip_smoke.py`` calls it too. To compare two versions, run the
+tool from each checkout in one call. The card's name and power limit come
+first; one JSON line carries the numbers.
 """
 
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import io
 import json
 import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -37,28 +30,8 @@ from ics_tpu_torch.tools.profile_step import events_ms, host_ms
 
 HBM_BYTES_S = 3.35e12
 FP32_FLOPS = 67e12
-
-
-def _load(path: Path, name: str):
-    spec = importlib.util.spec_from_file_location(name, path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-def other_decode(root: Path):
-    """``decode_batch_to_canvas`` of the checkout at ``root``, its device
-    decode module bound to that checkout's ``ops/jpeg_decode.py``."""
-    name = "ics_tpu_torch.ops.jpeg_decode"
-    saved = sys.modules.get(name)
-    sys.modules[name] = _load(root / "ics_tpu_torch" / "ops" / "jpeg_decode.py",
-                              "other_jpeg_decode")
-    try:
-        module = _load(root / "ics_tpu_torch" / "runtime" / "device_decode.py",
-                       "other_device_decode")
-    finally:
-        sys.modules[name] = saved
-    return module.decode_batch_to_canvas
+# a block's iDCT as two 8x8x8 products (f = B^T F B) and its dequant
+OPS_A_BLOCK = 2 * 2 * 8 ** 3 + 64
 
 
 def jpegs(mode: str, n: int) -> list[bytes]:
@@ -93,13 +66,48 @@ def count_kernels(fn):
                and not e.name.startswith(("Memcpy", "Memset"))) or None
 
 
+def decode_bound(dev: dict, canvas: torch.Tensor, mode: str) -> dict:
+    """The least time the card could take for ``decode_batch_to_canvas(dev,
+    mode=mode)``, which gave ``canvas``: the tensors this mode reads (gray no
+    chroma, 4:4:4 no ``sizes``) read once and the canvas's storage (gray's
+    is one plane behind a view of three) written once at the memory rate;
+    the iDCT's separable products and the dequant of the blocks it decodes
+    at the fp32 rate (TF32 is off); whichever is longer."""
+    keys = ["y", "yq"]
+    if mode != "gray":
+        keys += ["cb", "cq", "cr", "rq"]
+    if mode not in ("gray", "444"):
+        keys.append("sizes")
+    n_bytes = sum(dev[k].numel() * dev[k].element_size() for k in keys)
+    n_bytes += canvas.untyped_storage().nbytes()
+    blocks = sum(dev[k].numel() for k in ("y", "cb", "cr") if k in keys) // 64
+    n_ops = blocks * OPS_A_BLOCK
+    by_bytes = n_bytes / HBM_BYTES_S * 1e3
+    by_ops = n_ops / FP32_FLOPS * 1e3
+    return {"bytes": n_bytes, "operations": n_ops, "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def measure_decode(dev: dict, mode: str, iters: int = 20) -> dict:
+    """``decode_batch_to_canvas`` on the staged tensors ``dev`` (on the card):
+    ms a call by CUDA events (the mean of two runs after a warm-up), the
+    kernels a call launches, the host's ms to queue a call, and its bound."""
+    def call():
+        with torch.inference_mode():
+            return device_decode.decode_batch_to_canvas(dev, mode=mode)
+
+    canvas = call()
+    events_ms(call, 3)
+    runs = [events_ms(call, iters) for _ in range(2)]
+    return {"ms": sum(runs) / len(runs), "runs_ms": runs, "kernels": count_kernels(call),
+            "host_ms": host_ms(call, iters), **decode_bound(dev, canvas, mode)}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--bucket", type=int, nargs="+", default=[32, 8, 1])
     parser.add_argument("--mode", nargs="+", default=["420", "422", "444", "gray"])
     parser.add_argument("--iters", type=int, default=20)
-    parser.add_argument("--other-root", type=Path, default=None,
-                        help="another checkout whose decode runs in turns with this one's")
     args = parser.parse_args()
     disable_tf32()
     card = subprocess.run(
@@ -107,9 +115,6 @@ def main() -> None:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    versions = {"this": device_decode.decode_batch_to_canvas}
-    if args.other_root is not None:
-        versions["other"] = other_decode(args.other_root.resolve())
     rows = []
     for mode in args.mode:
         for bucket in args.bucket:
@@ -117,44 +122,12 @@ def main() -> None:
                 [imgcodec.jpeg_coefficients(b) for b in jpegs(mode, bucket)],
                 device_decode.LUMA_BLOCKS, mode)
             dev = device_decode.to_device(staged, "cuda")
-            calls = {}
-            for name, decode in versions.items():
-                def call(decode=decode):
-                    with torch.inference_mode():
-                        return decode(dev, mode=mode, sizes=dev["sizes"])
-                calls[name] = call
-            if "other" in calls:
-                diff = (calls["this"]() - calls["other"]()).abs().max().item()
-            else:
-                diff = None
-            runs = {name: [] for name in calls}
-            for name in calls:
-                events_ms(calls[name], 3)
-            for name in (["this", "other", "other", "this"] if "other" in calls else ["this"] * 2):
-                runs[name].append(events_ms(calls[name], args.iters))
-            side = 8 * device_decode.LUMA_BLOCKS
-            in_bytes = sum(v.nbytes for k, v in staged.items() if k != "sizes")
-            out_bytes = bucket * side * side * 3 * 4
-            cv, ch = device_decode._chroma_canvas(mode, device_decode.LUMA_BLOCKS)
-            blocks = bucket * (device_decode.LUMA_BLOCKS ** 2 + 2 * cv * ch)
-            by_bytes = (in_bytes + out_bytes) / HBM_BYTES_S * 1e3
-            by_ops = blocks * 2 * 64 * 64 / FP32_FLOPS * 1e3
-            row = {
-                "mode": mode, "bucket": bucket,
-                **{f"{name}_ms": sum(v) / len(v) for name, v in runs.items()},
-                **{f"{name}_runs_ms": v for name, v in runs.items()},
-                **{f"{name}_kernels": count_kernels(calls[name]) for name in calls},
-                **{f"{name}_host_ms": host_ms(calls[name], args.iters) for name in calls},
-                "bound_ms": max(by_bytes, by_ops),
-                "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-                "max_abs_diff": diff,
-            }
+            row = {"mode": mode, "bucket": bucket, **measure_decode(dev, mode, args.iters)}
             rows.append(row)
-            line = ", ".join(f"{name} {row[f'{name}_ms']:.4f} ms ({row[f'{name}_kernels']} "
-                             f"kernels, host {row[f'{name}_host_ms']:.3f} ms)" for name in calls)
-            print(f"{mode} bucket {bucket}: {line}; bound {row['bound_ms']:.4f} ms by "
-                  f"{row['bound_by']}" + (f"; max |this - other| {diff:.3e}" if diff is not None
-                                          else ""), flush=True)
+            print(f"{mode} bucket {bucket}: {row['ms']:.4f} ms ({row['kernels']} kernels, host "
+                  f"{row['host_ms']:.3f} ms); bound {row['bound_ms']:.4f} ms by "
+                  f"{row['bound_by']} ({row['bytes']} bytes, {row['operations']} operations)",
+                  flush=True)
             del dev
             torch.cuda.empty_cache()
     print(json.dumps({"card": card, "rows": rows}))

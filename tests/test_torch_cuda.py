@@ -810,8 +810,8 @@ def test_coeff_canvas_on_the_card_matches_the_cpu(cuda_device, mode, luma_blocks
         [imgcodec.jpeg_coefficients(b) for b in blobs], luma_blocks=luma_blocks, mode=mode)
     on_cpu = device_decode.to_device(staged, "cpu")
     on_gpu = device_decode.to_device(staged, cuda_device)
-    cpu = device_decode.decode_batch_to_canvas(on_cpu, mode=mode, sizes=on_cpu["sizes"])
-    gpu = device_decode.decode_batch_to_canvas(on_gpu, mode=mode, sizes=on_gpu["sizes"]).cpu()
+    cpu = device_decode.decode_batch_to_canvas(on_cpu, mode=mode)
+    gpu = device_decode.decode_batch_to_canvas(on_gpu, mode=mode).cpu()
     assert tuple(gpu.shape) == (3, 8 * luma_blocks, 8 * luma_blocks, 3)
     diff = (gpu - cpu).abs()
     assert diff.max().item() <= 1 and int((diff > 0).sum()) <= 1e-3 * diff.numel()
