@@ -76,6 +76,21 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    over 1024 px, and reads each lane's flushes and the device-decode gauges
    of ``/monitor/metrics``. The stretches start once the lanes' background
    warm-up has ended.
+7. The ingestion front: a second ``python -m ics_tpu_torch.main`` (the same
+   ResNet-50 configuration) with ``NEXTCLOUD_BASE_URL`` on the port's fake
+   NextCloud (``tools/fake_nextcloud.py``, two folders: 96 JPEGs of 64-512
+   px in every sampling mode, some progressive, 4 PNGs, 2 JPEGs over 1024
+   px), ``TPU_CLASSIFY_ON_SYNC``, ``TPU_EMBED_ON_SYNC`` and the initial sync
+   at startup. The fake answers nothing until its gate opens, which happens
+   once the lanes' warm-up has ended and the launch counts are 0; the phase
+   then times the sync until every image has its one ``resnet50``
+   suggestion and its 2048-wide embedding, and checks: each suggestion
+   against ``POST /inferencia/classificar`` on the same bytes; each stored
+   embedding's norm and its cosine with the fp32 plain path in this
+   process; ``bottleneck_chain`` launches = 5 x (classify flushes + embed
+   steps); ``/images/{hash}/similares`` against an fp32 ranking of the
+   stored vectors; a q75 re-encode found by ``/images/buscar-similares``;
+   a ``sugerir-vizinhos`` vote stored as ``knn:resnet50``; ``/monitor/status``.
 
 Prints ``{"kernels": [...]}`` on the line before the last and
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
@@ -86,6 +101,7 @@ script, or when any phase fails.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import io
 import json
 import os
@@ -1400,62 +1416,78 @@ async def await_lane_warm_up(base: str, admin: tuple[str, str], t0: float) -> No
         "(4:2:0/4:2:2/4:4:4/gray x 512/1024 px)")
 
 
-def serve_and_drive() -> dict:
+@contextlib.contextmanager
+def serving(tmp: str, **env_overrides):
+    """One ``python -m ics_tpu_torch.main`` on a free port: ResNet-50 with
+    fused chains in bf16, buckets 1/8/32, warmed at startup, TPU_DEVICE_DECODE
+    at its default (on), its database a SQLite file in ``tmp``. Yields (base
+    URL, admin credentials, database URL, seconds until /health answered);
+    stops the process on the way out."""
+    import httpx
+
     port = _free_port()
     admin = ("smoke-admin@example.com", "smoke-" + os.urandom(8).hex())
-    with tempfile.TemporaryDirectory(prefix="ics_tpu_torch_smoke_") as tmp:
-        env = dict(
-            {k: v for k, v in os.environ.items() if k != "TPU_DEVICE_DECODE"},  # its default, on
-            ENV="test",
-            DATABASE_URL=f"sqlite:///{tmp}/smoke.db",
-            JWT_SECRET_KEY=os.urandom(16).hex(),
-            ADMIN_EMAIL=admin[0],
-            ADMIN_SENHA=admin[1],
-            NEXTCLOUD_BASE_URL="",
-            TPU_ENABLE_INFERENCE="true",
-            TPU_DEFAULT_MODEL=RESNET,
-            TPU_FUSED_CHAINS="true",
-            TPU_PRECISION="bf16",
-            TPU_BATCH_BUCKETS=",".join(map(str, SERVER_BUCKETS)),
-            TPU_WARMUP_ON_STARTUP="true",
+    database = f"sqlite:///{tmp}/smoke.db"
+    env = dict(
+        {k: v for k, v in os.environ.items() if k != "TPU_DEVICE_DECODE"},  # its default, on
+        ENV="test",
+        DATABASE_URL=database,
+        JWT_SECRET_KEY=os.urandom(16).hex(),
+        ADMIN_EMAIL=admin[0],
+        ADMIN_SENHA=admin[1],
+        NEXTCLOUD_BASE_URL="",
+        TPU_ENABLE_INFERENCE="true",
+        TPU_DEFAULT_MODEL=RESNET,
+        TPU_FUSED_CHAINS="true",
+        TPU_PRECISION="bf16",
+        TPU_BATCH_BUCKETS=",".join(map(str, SERVER_BUCKETS)),
+        TPU_WARMUP_ON_STARTUP="true",
+    )
+    env.update(env_overrides)
+    server_log = Path(tmp) / "server.log"
+    with open(server_log, "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ics_tpu_torch.main", "--host", "127.0.0.1",
+             "--port", str(port)],
+            cwd=ROOT, env=env, stdout=log_file, stderr=subprocess.STDOUT,
         )
-        server_log = Path(tmp) / "server.log"
-        with open(server_log, "w") as log_file:
-            proc = subprocess.Popen(
-                [sys.executable, "-m", "ics_tpu_torch.main", "--host", "127.0.0.1",
-                 "--port", str(port)],
-                cwd=ROOT, env=env, stdout=log_file, stderr=subprocess.STDOUT,
-            )
-            try:
-                import httpx
-
-                base = f"http://127.0.0.1:{port}"
-                t0 = time.perf_counter()
-                while True:
-                    if proc.poll() is not None:
-                        fail(f"server exited with {proc.returncode}:\n"
-                             f"{server_log.read_text()[-4000:]}")
-                    try:
-                        if httpx.get(f"{base}/health", timeout=2).status_code == 200:
-                            break
-                    except httpx.TransportError:
-                        pass
-                    if time.perf_counter() - t0 > SERVER_START_S:
-                        fail(f"server not up after {SERVER_START_S} s:\n"
-                             f"{server_log.read_text()[-4000:]}")
-                    time.sleep(1)
-                up_s = time.perf_counter() - t0
-                log(f"  server up in {up_s:.1f} s (engine built, pixel buckets and the 4:2:0 "
-                    "512 px decode lane warmed)")
-                asyncio.run(await_lane_warm_up(base, admin, t0))
-                return asyncio.run(drive_server(base, admin))
-            finally:
-                proc.terminate()
+        try:
+            base = f"http://127.0.0.1:{port}"
+            t0 = time.perf_counter()
+            while True:
+                if proc.poll() is not None:
+                    fail(f"server exited with {proc.returncode}:\n"
+                         f"{server_log.read_text()[-4000:]}")
                 try:
-                    proc.wait(timeout=60)
-                except subprocess.TimeoutExpired:
-                    proc.kill()
-                    proc.wait()
+                    if httpx.get(f"{base}/health", timeout=2).status_code == 200:
+                        break
+                except httpx.TransportError:
+                    pass
+                if time.perf_counter() - t0 > SERVER_START_S:
+                    fail(f"server not up after {SERVER_START_S} s:\n"
+                         f"{server_log.read_text()[-4000:]}")
+                time.sleep(1)
+            yield base, admin, database, time.perf_counter() - t0
+        finally:
+            _stop(proc)
+
+
+def _stop(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def serve_and_drive() -> dict:
+    with tempfile.TemporaryDirectory(prefix="ics_tpu_torch_smoke_") as tmp:
+        with serving(tmp) as (base, admin, _, up_s):
+            log(f"  server up in {up_s:.1f} s (engine built, pixel buckets and the 4:2:0 "
+                "512 px decode lane warmed)")
+            asyncio.run(await_lane_warm_up(base, admin, time.perf_counter() - up_s))
+            return asyncio.run(drive_server(base, admin))
 
 
 def check_drive(drive: dict) -> dict:
@@ -1521,6 +1553,411 @@ def check_drive(drive: dict) -> dict:
         "depthwise_conv_k35": drive[MOBILENET]["launches"]["depthwise_conv"],
         "window_attention": drive[SWIN]["launches"]["window_attention"],
     }
+
+
+# phase 7: the ingestion front
+INGEST_JPEGS = 96            # 64-512 px, each sampling mode, every third group progressive
+INGEST_FOLDERS = ("campo", "laboratorio")
+SYNC_READY_S = 300           # the sync of the corpus must be answered within this
+# a suggestion against POST /inferencia/classificar on the same bytes: the two
+# run bf16 in differently composed batches (other buckets, other padding), so
+# each score may move by a few bf16 ulps of the largest probability (one ulp
+# at 1.0 is 7.8e-3); top-1 must agree unless the top two lie within this
+SUGGESTION_TOL = 2e-2
+EMBED_NORM_TOL = 1e-2        # the stored vector is fp16 of a unit vector
+EMBED_MIN_COSINE = 0.99      # bf16 through the chain kernel against fp32 plain
+RANK_GAP = 2.0 ** -8         # scores closer than this may come in either order
+SIMILAR_CHECKED = 8
+KNN_LABELLED = 12
+EMBED_WIDTH = 2048           # ResNet-50's pooled features
+DEVICE = "cuda"              # where phase 7's in-process references run
+
+
+def ingestion_corpus() -> dict:
+    """{(folder, name): bytes}: 96 JPEGs of 64-512 px (4:2:0, 4:2:2, 4:4:4 and
+    gray in turn, every third group of four progressive; seeded noise under
+    the Gaussian blur of [5d], quality 90), 4 PNGs and 2 JPEGs over 1024 px
+    (both of those take the host lane)."""
+    import numpy as np
+    from PIL import Image, ImageFilter
+
+    rng = np.random.default_rng(9)
+
+    def picture(h, w):
+        return Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8)).filter(
+            ImageFilter.GaussianBlur(2))
+
+    corpus = {}
+    for i in range(INGEST_JPEGS):
+        mode = DECODE_MODES[i % 4]
+        progressive = (i // 4) % 3 == 2
+        h, w = (int(v) for v in rng.integers(64, 513, 2))
+        img, buf = picture(h, w), io.BytesIO()
+        kw = {"progressive": True} if progressive else {}
+        if mode == "gray":
+            img.convert("L").save(buf, "JPEG", quality=90, **kw)
+        else:
+            img.save(buf, "JPEG", quality=90, subsampling={"444": 0, "422": 1, "420": 2}[mode],
+                     **kw)
+        name = f"{i:03d}_{mode}{'_prog' if progressive else ''}.jpg"
+        corpus[(INGEST_FOLDERS[i % 2], name)] = buf.getvalue()
+    for i, (h, w) in enumerate([(200, 300), (384, 384), (90, 160), (512, 333)]):
+        buf = io.BytesIO()
+        picture(h, w).save(buf, "PNG")
+        corpus[(INGEST_FOLDERS[i % 2], f"png_{i}.png")] = buf.getvalue()
+    for i, (h, w) in enumerate([(800, 1100), (1040, 1300)]):
+        buf = io.BytesIO()
+        picture(h, w).save(buf, "JPEG", quality=90)
+        corpus[(INGEST_FOLDERS[i % 2], f"big_{i}.jpg")] = buf.getvalue()
+    return corpus
+
+
+def _flushes(st: dict) -> int:
+    return st["batcher"]["flushes"] + sum(lane["flushes"] for lane in st["coeff_lanes"].values())
+
+
+def _db_rows(db) -> tuple[dict, dict]:
+    """({hash: [resnet50 suggestion rows]}, {hash: stored embedding as fp32})
+    read through the port's own database layer."""
+    from ics_tpu_torch.crud.embedding_crud import carregar_corpus
+    from ics_tpu_torch.db import models
+
+    with db.session() as s:
+        rows = {}
+        for r in s.query(models.SugestaoModelo).filter(models.SugestaoModelo.modelo == RESNET).all():
+            rows.setdefault(r.id_img, []).append(r)
+        hashes, mat = carregar_corpus(s, RESNET)
+    return rows, dict(zip(hashes, mat.astype("float32")))
+
+
+def _setup_ambiente(db, hashes: list) -> dict:
+    """An ambiente over the synced conjuntos with options A and B, a
+    specialist, and ``KNN_LABELLED`` of ``hashes`` labelled (A, B in turn)."""
+    from ics_tpu_torch.core import timezone as tz
+    from ics_tpu_torch.core.security import hash_password
+    from ics_tpu_torch.db import models as m
+
+    now = tz.utcnow()
+    password = "Smoke-" + os.urandom(6).hex()
+    with db.session() as s:
+        esp = m.Usuario(nome_completo="Especialista Smoke", email="esp-smoke@example.com",
+                        senha_hash=hash_password(password), data_criado=now, id_tipo=1)
+        s.add(esp)
+        s.flush()
+        con = m.UsuarioConvencional(cpf="7" * 11, id_usu=esp.id_usu)
+        s.add(con)
+        s.flush()
+        adm = s.fetchone("SELECT id_adm FROM usuarios_administradores LIMIT 1")
+        amb = m.Ambiente(titulo_amb="Smoke kNN", descricao_questionario="ingestion front",
+                         data_criado=now, id_adm=adm["id_adm"])
+        s.add(amb)
+        s.flush()
+        for cnj in s.query(m.ConjuntoImagens).all():
+            s.add(m.AmbienteConjuntoImagens(id_amb=amb.id_amb, id_cnj=cnj.id_cnj,
+                                            data_associado=now))
+        s.add(m.UsuarioAmbiente(id_con=con.id_con, id_amb=amb.id_amb, data_associado=now))
+        options = [m.Opcao(texto="A", id_amb=amb.id_amb), m.Opcao(texto="B", id_amb=amb.id_amb)]
+        s.add_all(options)
+        s.flush()
+        for i, h in enumerate(hashes[:KNN_LABELLED]):
+            s.add(m.Classificacao(id_con=con.id_con, id_img=h, id_opc=options[i % 2].id_opc,
+                                  data_criado=now, ativo=True))
+        s.commit()
+        return {"id_amb": str(amb.id_amb), "email": esp.email, "password": password}
+
+
+def _knn_row(db, content_hash: str):
+    from ics_tpu_torch.db import models as m
+
+    with db.session() as s:
+        return [(r.modelo, str(r.id_amb)) for r in s.query(m.SugestaoModelo).filter(
+            m.SugestaoModelo.id_img == content_hash).all() if r.modelo.startswith("knn:")]
+
+
+def embeddings(torch, blobs, **engine_kwargs) -> list:
+    """The embedding of each of ``blobs`` as ``embed_bytes`` computes it (host
+    decode, a staged batch of 1), in this process on the card, on the
+    server's weights (seed 0): the fp32 plain path (no kernel, TF32 off) by
+    default, or the served path with ``precision="bf16", fused_chains=True``."""
+    from ics_tpu_torch.runtime.decode import decode_image, stage_batch
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+
+    engine = InferenceEngine(RESNET, **{"precision": "fp32", **engine_kwargs}, buckets=(1,),
+                             canvas=512, device=DEVICE)
+    out = [engine.embed_staged(*stage_batch([decode_image(b)], canvas=None))[0] for b in blobs]
+    del engine
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+async def drive_ingestion(base: str, admin: tuple, database: str, gate: Path,
+                          corpus: dict) -> dict:
+    """Phase 7 over HTTP: open the fake NextCloud's gate with the launch
+    counts at 0 and wait until every synced image has its suggestion and its
+    embedding; read the counts; then the routes of checks 2 and 5-8."""
+    import httpx
+    import numpy as np
+
+    from ics_tpu_torch.core.security import sha256_hex
+    from ics_tpu_torch.db.engine import Database
+
+    db = Database(database)
+    by_hash = {sha256_hex(blob): (folder, name, blob) for (folder, name), blob in corpus.items()}
+    n = len(by_hash)
+    async with httpx.AsyncClient(base_url=base, timeout=600) as c:
+        r = await c.post("/auth/login", data={"username": admin[0], "password": admin[1]})
+        r.raise_for_status()
+        c.cookies.clear()
+        h = {"Authorization": f"Bearer {r.json()['access_token']}"}
+        before = (await c.get("/inferencia/status", headers=h)).json()
+        sync0 = (await c.get("/monitor/status", headers=h)).json()["sync"]
+        if sync0.get("last_sync_status") is not None or before["batches"] != 0:
+            fail(f"ingestion: the sync ran before the gate opened: {sync0}, "
+                 f"{before['batches']} batches")
+        (await c.post("/inferencia/kernels/zerar", headers=h)).raise_for_status()
+        t0 = time.perf_counter()
+        gate.touch()
+        while True:
+            rows, vectors = _db_rows(db)
+            if len(rows) == n and len(vectors) == n:
+                break
+            if time.perf_counter() - t0 > SYNC_READY_S:
+                fail(f"ingestion: {len(rows)} suggestions and {len(vectors)} embeddings of "
+                     f"{n} images after {SYNC_READY_S} s")
+            await asyncio.sleep(0.1)
+        ready_s = time.perf_counter() - t0
+        after = (await c.get("/inferencia/status", headers=h)).json()
+        drive = {
+            "ready_s": ready_s, "images": n,
+            "launches": after["kernel_launches"], "backend": after["backend"],
+            "fused_chains": after["fused_chains"],
+            "flushes": _flushes(after) - _flushes(before),
+            "batches": after["batches"] - before["batches"],
+            "device_decoded": after["device_decoded"] - before["device_decoded"],
+            "host_decoded": after["host_decoded"] - before["host_decoded"],
+            "device_errors": after["device_errors"] - before["device_errors"],
+            "rows": rows, "vectors": vectors, "by_hash": by_hash,
+        }
+
+        # check 2: the same bytes through POST /inferencia/classificar
+        answers = {}
+        hashes = sorted(by_hash)
+        for i in range(0, n, 16):
+            chunk = hashes[i:i + 16]
+            files = [("files", (by_hash[k][1], by_hash[k][2],
+                                "image/png" if by_hash[k][1].endswith(".png") else "image/jpeg"))
+                     for k in chunk]
+            r = await c.post("/inferencia/classificar", files=files, headers=h)
+            if r.status_code != 200:
+                fail(f"ingestion: /inferencia/classificar returned {r.status_code}: {r.text[:300]}")
+            answers.update(zip(chunk, r.json()["resultados"]))
+        drive["answers"] = answers
+
+        # check 5: neighbours by hash against an fp32 ranking of the stored vectors
+        mat = np.stack([vectors[k] for k in hashes])
+        similar = []
+        for k in hashes[:: n // SIMILAR_CHECKED][:SIMILAR_CHECKED]:
+            r = await c.get(f"/images/{k}/similares?limite=10")
+            if r.status_code != 200:
+                fail(f"ingestion: /images/{k[:12]}/similares returned {r.status_code}")
+            scores = mat @ vectors[k]
+            order = [j for j in np.argsort(-scores, kind="stable") if hashes[j] != k]
+            similar.append(([(x["content_hash"], x["score"]) for x in r.json()["similares"]],
+                            [(hashes[j], float(scores[j])) for j in order]))
+        drive["similar"] = similar
+
+        # check 6: a q75 re-encode of a synced image
+        from PIL import Image
+
+        original = next(k for k in hashes if by_hash[k][1].endswith("_420.jpg"))
+        buf = io.BytesIO()
+        Image.open(io.BytesIO(by_hash[original][2])).convert("RGB").save(buf, "JPEG", quality=75)
+        r = await c.post("/images/buscar-similares?limite=50",
+                         files={"file": ("q75.jpg", buf.getvalue(), "image/jpeg")})
+        if r.status_code != 200:
+            fail(f"ingestion: /images/buscar-similares returned {r.status_code}: {r.text[:300]}")
+        drive["near_duplicate"] = (original, buf.getvalue(),
+                                   [(x["content_hash"], x["score"]) for x in r.json()["similares"]])
+
+        # check 7: a kNN vote in an ambiente over the synced conjuntos
+        amb = _setup_ambiente(db, hashes)
+        query = hashes[KNN_LABELLED]
+        r = await c.post("/auth/login", data={"username": amb["email"],
+                                              "password": amb["password"]})
+        r.raise_for_status()
+        c.cookies.clear()
+        esp = {"Authorization": f"Bearer {r.json()['access_token']}"}
+        r = await c.get(f"/classificacoes/ambiente/{amb['id_amb']}/sugerir-vizinhos/{query}",
+                        headers=esp)
+        if r.status_code != 200:
+            fail(f"ingestion: sugerir-vizinhos returned {r.status_code}: {r.text[:300]}")
+        drive["knn"] = (r.json(), _knn_row(db, query), amb["id_amb"])
+
+        # check 8: /monitor/status, admin only
+        drive["monitor"] = (await c.get("/monitor/status", headers=h)).json()
+        drive["monitor_anonymous"] = (await c.get("/monitor/status")).status_code
+    return drive
+
+
+def check_ingestion(torch) -> int:
+    """Phase 7: the ingestion front. Returns the chain launches of the sync
+    stretch."""
+    import numpy as np
+
+    corpus = ingestion_corpus()
+    with tempfile.TemporaryDirectory(prefix="ics_tpu_torch_ingest_") as tmp:
+        root, gate = Path(tmp) / "nextcloud", Path(tmp) / "gate"
+        for (folder, name), blob in corpus.items():
+            (root / folder).mkdir(parents=True, exist_ok=True)
+            (root / folder / name).write_bytes(blob)
+        nc_port = _free_port()
+        with open(Path(tmp) / "fake_nextcloud.log", "w") as nc_log:
+            fake = subprocess.Popen(
+                [sys.executable, "-m", "ics_tpu_torch.tools.fake_nextcloud", "--root", str(root),
+                 "--port", str(nc_port), "--gate", str(gate)],
+                cwd=ROOT, stdout=nc_log, stderr=subprocess.STDOUT)
+            try:
+                t0 = time.perf_counter()
+                while True:
+                    with socket.socket() as sock:
+                        if sock.connect_ex(("127.0.0.1", nc_port)) == 0:
+                            break
+                    if fake.poll() is not None or time.perf_counter() - t0 > 60:
+                        fail("the fake NextCloud did not start:\n"
+                             + (Path(tmp) / "fake_nextcloud.log").read_text()[-2000:])
+                    time.sleep(0.2)
+                env = dict(
+                    NEXTCLOUD_BASE_URL=f"http://127.0.0.1:{nc_port}",
+                    NEXTCLOUD_USERNAME="tester", NEXTCLOUD_PASSWORD="smoke",
+                    NEXTCLOUD_USER_PATH="/files/tester", NEXTCLOUD_VERIFY_SSL="false",
+                    NEXTCLOUD_SYNC_INITIAL_ON_STARTUP="true",
+                    TPU_CLASSIFY_ON_SYNC="true", TPU_EMBED_ON_SYNC="true",
+                )
+                with serving(tmp, **env) as (base, admin, database, up_s):
+                    log(f"  server up in {up_s:.1f} s; the initial sync waits at the fake "
+                        "NextCloud's gate")
+                    asyncio.run(await_lane_warm_up(base, admin, time.perf_counter() - up_s))
+                    drive = asyncio.run(drive_ingestion(base, admin, database, gate, corpus))
+                    server_log = (Path(tmp) / "server.log").read_text()
+            finally:
+                _stop(fake)
+    n, rows, vectors = drive["images"], drive["rows"], drive["vectors"]
+    original, q75, found = drive["near_duplicate"]
+    hashes = sorted(vectors)
+    *fp32, fp32_q75 = embeddings(torch, [drive["by_hash"][k][2] for k in hashes] + [q75])
+    fp32 = dict(zip(hashes, fp32))
+    served_q75 = embeddings(torch, [q75], precision="bf16", fused_chains=True)[0]
+    log(f"  card: {card_line()}")
+    log(f"  sync of {n} images ({INGEST_JPEGS} JPEGs 64-512 px, 4 PNGs, 2 JPEGs over 1024 px, "
+        f"two folders) to every suggestion and embedding stored: {drive['ready_s']:.3f} s, "
+        f"{n / drive['ready_s']:.1f} images/s")
+    log(f"  lanes: device-decoded {drive['device_decoded']}, host-decoded {drive['host_decoded']}; "
+        f"classify flushes {drive['flushes']}, engine steps {drive['batches']}, "
+        f"launches {drive['launches']}")
+    if drive["backend"] != "cuda" or not drive["fused_chains"]:
+        fail(f"ingestion: the engine reports backend {drive['backend']!r}, fused_chains "
+             f"{drive['fused_chains']}")
+    if "classify-on-sync failed" in server_log:
+        fail("ingestion: the server logged a classify-on-sync failure")
+    # 1. one resnet50 suggestion and one 2048-wide embedding per image
+    if set(rows) != set(drive["by_hash"]) or any(len(v) != 1 for v in rows.values()):
+        fail(f"ingestion: suggestions per image {sorted(len(v) for v in rows.values())}")
+    if set(vectors) != set(drive["by_hash"]) or {v.shape for v in vectors.values()} != {(EMBED_WIDTH,)}:
+        fail(f"ingestion: embeddings {len(vectors)}, widths {({v.shape for v in vectors.values()})}")
+    if (drive["device_decoded"], drive["host_decoded"]) != (INGEST_JPEGS, n - INGEST_JPEGS):
+        fail(f"ingestion: {drive['device_decoded']} device-decoded, {drive['host_decoded']} "
+             f"host-decoded; wanted {INGEST_JPEGS} and {n - INGEST_JPEGS}")
+    # 2. each suggestion is what /inferencia/classificar answers for the same bytes
+    gap, flips = 0.0, 0
+    for k, answer in drive["answers"].items():
+        stored = rows[k][0].classes
+        got = [c["score"] for c in stored]
+        gap = max(gap, max(abs(a - b) for a, b in zip(got, answer["scores"])))
+        if stored[0]["classe"] != answer["top_classes"][0]:
+            if min(got[0] - got[1], answer["scores"][0] - answer["scores"][1]) > SUGGESTION_TOL:
+                fail(f"ingestion: {drive['by_hash'][k][1]}: suggestion top-1 "
+                     f"{stored[0]['classe']}, classify {answer['top_classes'][0]}")
+            flips += 1
+    log(f"  [2] suggestion vs /inferencia/classificar on the same bytes: largest score gap "
+        f"{gap:.3e} (tolerance {SUGGESTION_TOL}); top-1 equal for {n - flips} of {n} "
+        f"({flips} with the top two within the tolerance)")
+    if gap > SUGGESTION_TOL:
+        fail(f"ingestion: a suggestion's scores differ from the classify answer by {gap:.3e}")
+    # 3. stored embeddings: unit norm, and the fp32 plain path's direction
+    norms = [float(np.linalg.norm(v)) for v in vectors.values()]
+    cosines = [float(vectors[k] @ fp32[k] / np.linalg.norm(vectors[k])) for k in vectors]
+    log(f"  [3] stored embeddings: norms {min(norms):.5f}-{max(norms):.5f}; cosine with the "
+        f"fp32 plain path on the card: smallest {min(cosines):.5f} (bar {EMBED_MIN_COSINE})")
+    if max(abs(x - 1.0) for x in norms) > EMBED_NORM_TOL or min(cosines) < EMBED_MIN_COSINE:
+        fail("ingestion: a stored embedding is off its norm or its fp32 direction")
+    # 4. the chain kernel, 5 launches in every classify flush and embed step
+    launches = drive["launches"]["bottleneck_chain"]
+    others = {k: v for k, v in drive["launches"].items() if k != "bottleneck_chain" and v}
+    steps = drive["flushes"] + n
+    log(f"  [4] bottleneck_chain launches over the sync: {launches} = {CHAIN_LAUNCHES} x "
+        f"({drive['flushes']} classify flushes + {n} embed steps)?")
+    if launches == 0 or launches != CHAIN_LAUNCHES * steps or drive["batches"] != steps \
+            or others or drive["device_errors"]:
+        fail(f"ingestion: launches {drive['launches']}, {drive['batches']} engine steps, "
+             f"{drive['device_errors']} device errors for {steps} flushes and embed steps")
+    # 5. neighbours by hash in the fp32 order of the stored vectors
+    for got, want in drive["similar"]:
+        if len(got) != 10:
+            fail(f"ingestion: /similares gave {len(got)} neighbours, not 10")
+        for j, (h_got, s_got) in enumerate(got):
+            tied = {h for h, sc in want if abs(sc - want[j][1]) <= RANK_GAP}
+            if h_got not in tied or abs(s_got - want[j][1]) > RANK_GAP:
+                fail(f"ingestion: /similares rank {j}: {h_got[:12]} at {s_got:.6f}; the fp32 "
+                     f"ranking has {want[j][0][:12]} at {want[j][1]:.6f}")
+    log(f"  [5] /images/{{hash}}/similares for {len(drive['similar'])} images: the fp32 ranking "
+        f"of the stored vectors, scores within 2^-8")
+    # 6. a near duplicate: first in fp32; the route is the bf16 index's answer
+    from ics_tpu_torch.runtime.embedding_index import cosine_topk
+
+    name = drive["by_hash"][original][1]
+    by_fp32 = sorted(hashes, key=lambda k: -float(fp32[k] @ fp32_q75))
+    margin = float(fp32[by_fp32[0]] @ fp32_q75 - fp32[by_fp32[1]] @ fp32_q75)
+    matrix = torch.from_numpy(np.stack([vectors[k] for k in hashes])).to(DEVICE, torch.bfloat16)
+    scores, idx = cosine_topk(torch.from_numpy(served_q75).to(DEVICE), matrix, n, 50)
+    want = [(hashes[i], float(sc)) for i, sc in zip(idx.tolist(), scores.tolist())]
+    gap = max(abs(s_got - want[j][1]) for j, (_, s_got) in enumerate(found))
+    for j, (h_got, s_got) in enumerate(found):
+        tied = {h for h, sc in want if abs(sc - want[j][1]) <= RANK_GAP}
+        if h_got not in tied or abs(s_got - want[j][1]) > RANK_GAP:
+            fail(f"ingestion: /images/buscar-similares rank {j}: {h_got[:12]} at {s_got:.6f}; "
+                 f"the index over the stored vectors has {want[j][0][:12]} at {want[j][1]:.6f}")
+    rank = [h for h, _ in found].index(original) if original in dict(found) else None
+    log(f"  [6] q75 re-encode of {name}: the fp32 plain path ranks its original "
+        f"{'first' if by_fp32[0] == original else 'not first'} (margin {margin:.3e} over the "
+        f"runner-up); the route, the bf16 index over the stored vectors: original at rank "
+        f"{rank} with {dict(found).get(original, float('nan')):.6f}, first "
+        f"{found[0][1]:.6f}; largest score gap to this process's index {gap:.2e}; stored "
+        "vectors' smallest pairwise cosine "
+        f"{float(np.min(np.stack(list(vectors.values())) @ np.stack(list(vectors.values())).T)):.5f}")
+    if by_fp32[0] != original or len(found) != 50:
+        fail(f"ingestion: the fp32 plain path ranks {drive['by_hash'][by_fp32[0]][1]} nearest "
+             f"to the q75 re-encode of {name}, or the route gave {len(found)} hits")
+    # 7. the kNN vote, stored as a knn:resnet50 suggestion
+    vote, stored, id_amb = drive["knn"]
+    total = sum(o["score"] for o in vote["opcoes"])
+    log(f"  [7] sugerir-vizinhos: {vote['vizinhos']} neighbours, "
+        f"{[(o['texto_opcao'], o['score']) for o in vote['opcoes']]}, sum {total:.6f}")
+    if vote["modelo"] != f"knn:{RESNET}" or not vote["opcoes"] or abs(total - 1.0) > 1e-4 \
+            or stored != [(f"knn:{RESNET}", id_amb)]:
+        fail(f"ingestion: the kNN vote {vote}, stored {stored}")
+    # 8. /monitor/status shows the sync
+    sync = drive["monitor"]["sync"]
+    log(f"  [8] /monitor/status sync: " + json.dumps(
+        {k: sync.get(k) for k in ("enabled", "tasks", "activity_runs", "webdav_runs",
+                                  "health_runs", "last_sync_status", "last_sync_method",
+                                  "activity_api_failures", "webdav_failures")}))
+    if not sync.get("enabled") or sync.get("last_sync_status") != "success" \
+            or sync.get("last_sync_method") != "initial" or drive["monitor_anonymous"] != 401 \
+            or drive["monitor"]["tpu"].get("backend") != "cuda":
+        fail(f"ingestion: /monitor/status {drive['monitor']['sync']}, anonymous "
+             f"{drive['monitor_anonymous']}")
+    return launches
 
 
 def main() -> None:
@@ -1601,6 +2038,11 @@ def main() -> None:
         "classify over HTTP:")
     launches = check_drive(serve_and_drive())
     launches["flash_attention_bf16_exp"] = bf16_exp_launches
+
+    log(f"[7] the ingestion front: python -m ics_tpu_torch.main ({RESNET}, fused chains) "
+        "syncing a fake NextCloud with classify-on-sync and embed-on-sync, then the "
+        "similarity routes:")
+    launches["bottleneck_chain"] += check_ingestion(torch)
 
     sources = {
         "flash_attention": ("ics_tpu_torch/ops/csrc/flash_attention.cu",

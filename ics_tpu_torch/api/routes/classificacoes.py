@@ -3,11 +3,12 @@
 
 Endpoint-for-endpoint parity: inicializar/avancar/voltar (keyset paging,
 20/page), classificar (multi-option delta), contagem, per-image lookup,
-historico, and the active-learning page ``priorizadas``.
+historico, the active-learning page ``priorizadas``, and the kNN vote
+``sugerir-vizinhos`` over the embedding index.
 
-Three handlers of the JAX package's module wait for later slices of the
-port: ``sugerir-vizinhos`` (embedding index), ``classificar-tpu`` (trained
-weight engines) and ``explicar`` (explain lane).
+Two handlers of the JAX package's module wait for later slices of the
+port: ``classificar-tpu`` (trained weight engines) and ``explicar``
+(explain lane).
 """
 
 from __future__ import annotations
@@ -145,6 +146,91 @@ async def imagens_priorizadas(request: Request):
     for item, (_, incerteza) in zip(resposta["imagens"], ranked):
         item["incerteza"] = incerteza
     resposta["ordenado_por"] = "incerteza"
+    return JSONResponse(resposta)
+
+
+@router.get("/ambiente/{id_amb}/sugerir-vizinhos/{content_hash}")
+async def sugerir_por_vizinhos(request: Request):
+    """kNN suggestion (net-new): label vote over the image's nearest
+    LABELED neighbours in embedding space — suggestions on day one, before
+    any fine-tune exists for the ambiente. Requires the image to be
+    indexed (``POST /inferencia/indexar``); the vote is persisted as a
+    regular suggestion (``modelo="knn:<backbone>"``), so it surfaces in
+    the paging payload and ranks the priorizadas page.
+
+    ``?k=`` neighbours in the vote (1-50, default 10)."""
+    db = request.state.db
+    usuario = auth_service.get_current_user(request)
+    id_amb = request.path_params["id_amb"]
+    content_hash = request.path_params["content_hash"]
+    id_con = _obter_id_con_usuario(db, usuario)
+    _require_acesso(db, id_con, id_amb)
+    service = request.app.state.get("engine")
+    if service is None:
+        raise HTTPException(503, "Serviço de inferência indisponível.")
+    try:
+        k = int(request.query_params.get("k", 10))
+    except (TypeError, ValueError):
+        raise HTTPException(422, "k deve ser um inteiro.")
+    k = max(1, min(k, 50))
+    from ics_tpu_torch.api.routes.images import _embedding_index
+    from ics_tpu_torch.crud.modelo_crud import registrar_sugestao
+    from ics_tpu_torch.runtime.knn_suggest import (
+        existe_imagem_no_ambiente,
+        knn_sugerir,
+    )
+
+    if not existe_imagem_no_ambiente(db, id_amb, content_hash):
+        raise HTTPException(404, "Imagem não encontrada neste ambiente.")
+    ambiente = db.get(Ambiente, str(id_amb))
+    multi = bool(ambiente is not None and ambiente.multipla_escolha)
+    modelo = service.engine.model_name
+    index = _embedding_index(request, modelo)
+    import asyncio
+
+    # the vote's device top-k + label join run off the event loop
+    result = await asyncio.get_running_loop().run_in_executor(
+        None,
+        lambda: knn_sugerir(
+            db, index, id_amb, content_hash, k=k, multi_label=multi
+        ),
+    )
+    if result is None:
+        raise HTTPException(
+            404,
+            "Imagem sem embedding indexado. Use POST /inferencia/indexar.",
+        )
+    opcoes_out = []
+    for o in result["opcoes"]:
+        opcao = db.get(Opcao, o["id_opc"])
+        opcoes_out.append(
+            {
+                "id_opc": o["id_opc"],
+                "texto_opcao": opcao.texto if opcao else None,
+                "score": round(o["score"], 6),
+            }
+        )
+    resposta = {
+        "content_hash": content_hash,
+        "modelo": f"knn:{modelo}",
+        "vizinhos": result["vizinhos"],
+        "opcoes": opcoes_out,
+    }
+    if multi:
+        resposta["multi_rotulo"] = True
+        resposta["opcoes_sugeridas"] = [
+            o for o in opcoes_out if o["score"] >= 0.5
+        ]
+    if opcoes_out:
+        registrar_sugestao(
+            db, content_hash,
+            modelo=f"knn:{modelo}",
+            classes=opcoes_out,
+            score=opcoes_out[0]["score"],
+            id_amb=id_amb,
+            id_opc=opcoes_out[0]["id_opc"],
+        )
+        db.commit()
     return JSONResponse(resposta)
 
 

@@ -1,13 +1,16 @@
 """Application factory and entry point of the port (counterpart of ``ics_tpu/main.py``).
 
-The app mounts the port's own copies of the host routers (everything whose
-handlers need no device), its ``/inferencia`` router, and the monitor
-routes; nothing of the JAX package is imported. Startup: database schema
-and seed as in ``ics_tpu`` (by ``ENV``), then the inference service on the
-GPU. An engine that fails to build fails
-startup, and so does an entropy decoder that cannot be built while
-``TPU_DEVICE_DECODE`` is on; a service already placed in ``app.state.engine``
-is used as it is.
+The app mounts the port's own copies of the host routers, its
+``/inferencia`` and ``/images`` routers, and the monitor routes; nothing of
+the JAX package is imported. Startup: database schema and seed as in
+``ics_tpu`` (by ``ENV``), then the inference service on the GPU, then, with
+``NEXTCLOUD_BASE_URL`` set, the NextCloud sync engine, whose downloads feed
+classify-on-sync (``TPU_CLASSIFY_ON_SYNC``) and embed-on-sync
+(``TPU_EMBED_ON_SYNC``). An engine that fails to build fails startup, and so
+does an entropy decoder that cannot be built while ``TPU_DEVICE_DECODE`` is
+on; a service already placed in ``app.state.engine`` is used as it is.
+Shutdown: the sync scheduler, then the on-sync tasks still pending (a short
+wait, then cancelled), then the inference pool.
 
 Run: ``python -m ics_tpu_torch.main [--host H] [--port P]``.
 """
@@ -15,6 +18,7 @@ Run: ``python -m ics_tpu_torch.main [--host H] [--port P]``.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import contextlib
 import logging
 
@@ -85,11 +89,112 @@ async def lifespan(app: App):
             app.state.engine_pool = pool
             owned = pool
             logger.info("inference service started: %s", service.engine.status())
+
+    # NextCloud sync engine
+    app.state.sync = None
+    on_image_bytes = None
+    if settings.NEXTCLOUD_BASE_URL:
+        try:
+            from ics_tpu_torch.sync.scheduler import SyncScheduler
+            from ics_tpu_torch.sync.service import NextCloudSyncService
+
+            if settings.TPU_CLASSIFY_ON_SYNC and app.state.engine is not None:
+                on_image_bytes = _make_classify_on_sync(app)
+            sync_service = NextCloudSyncService.from_settings(
+                db, on_image_bytes=on_image_bytes
+            )
+            scheduler = SyncScheduler(sync_service)
+            app.state.sync = scheduler
+            await scheduler.start(initial=settings.NEXTCLOUD_SYNC_INITIAL_ON_STARTUP)
+            logger.info("NextCloud sync engine started")
+        except Exception as exc:
+            logger.warning("NextCloud sync disabled: %s", exc)
     try:
         yield
     finally:
+        if app.state.get("sync") is not None:
+            await app.state.sync.stop()
+        if on_image_bytes is not None:
+            await on_image_bytes.drain()
         if owned is not None:
             await owned.stop()
+
+
+class _ClassifyOnSync:
+    """The sync engine's ``on_image_bytes`` hook: classify-on-sync, and
+    embed-on-sync under ``TPU_EMBED_ON_SYNC``.
+
+    Called synchronously by the sync engine (event-loop thread) with each
+    downloaded image's bytes; schedules the classification and stores the
+    model suggestion (and the embedding). Unlike the reference's hook, which
+    keeps no reference to the task it creates, every task stays in
+    ``tasks`` until it ends: the loop holds tasks weakly, and a task that is
+    collected while pending leaves its image without a suggestion."""
+
+    DRAIN_S = 10.0  # how long shutdown waits for pending tasks
+
+    def __init__(self, app: App):
+        self.app = app
+        self.tasks: set[asyncio.Task] = set()
+
+    def __call__(self, content_hash: str, data: bytes) -> None:
+        task = asyncio.get_running_loop().create_task(
+            self.classify_and_store(content_hash, data)
+        )
+        self.tasks.add(task)
+        task.add_done_callback(self.tasks.discard)
+
+    async def classify_and_store(self, content_hash: str, data: bytes) -> None:
+        app = self.app
+        try:
+            service = app.state.get("engine")
+            if service is None:
+                return
+            result = await service.classify_bytes(data)
+            db = app.state.db
+            from ics_tpu_torch.crud.modelo_crud import registrar_sugestao
+
+            with db.session() as s:
+                registrar_sugestao(
+                    s, content_hash,
+                    modelo=result["model"],
+                    classes=[
+                        {"classe": int(c), "score": float(sc)}
+                        for c, sc in zip(result["top_classes"], result["scores"])
+                    ],
+                    score=float(result["scores"][0]) if result["scores"] else None,
+                )
+                s.commit()
+            if settings.TPU_EMBED_ON_SYNC:
+                # the similarity tier rides the same ingestion front: the
+                # image's embedding is current the moment sync lands it
+                from ics_tpu_torch.crud.embedding_crud import upsert_embedding
+
+                vec = await service.embed_bytes(data)
+                with db.session() as s:
+                    upsert_embedding(s, content_hash, service.engine.model_name, vec)
+                    s.commit()
+        except Exception:  # never let suggestions break the sync engine
+            logger.exception("classify-on-sync failed for %s", content_hash[:12])
+
+    async def drain(self) -> None:
+        """Let the pending tasks finish for up to ``DRAIN_S``, then cancel
+        the rest; returns once every task has ended."""
+        if not self.tasks:
+            return
+        _, pending = await asyncio.wait(set(self.tasks), timeout=self.DRAIN_S)
+        for task in pending:
+            task.cancel()
+        if pending:
+            logger.warning("shutdown cancelled %d pending classify-on-sync tasks",
+                           len(pending))
+            await asyncio.wait(pending)
+
+
+def _make_classify_on_sync(app: App) -> _ClassifyOnSync:
+    """Classify-on-sync consumer: the sync engine becomes the ingestion
+    front that streams bytes to the device."""
+    return _ClassifyOnSync(app)
 
 
 async def _observability_middleware(request: Request, call_next):
@@ -161,6 +266,7 @@ def create_app(db: Database | None = None) -> App:
         auditoria,
         auth as auth_routes,
         classificacoes,
+        images,
         inferencia,
         nextcloud_images,
         opcoes,
@@ -172,7 +278,8 @@ def create_app(db: Database | None = None) -> App:
 
     for module in (
         auth_routes, usuarios, whitelist, ambientes, opcoes, classificacoes,
-        usuarios_ambientes, auditoria, nextcloud_images, test_sync, inferencia,
+        usuarios_ambientes, auditoria, nextcloud_images, test_sync, images,
+        inferencia,
     ):
         app.include_router(module.router)
 
@@ -243,6 +350,19 @@ def create_app(db: Database | None = None) -> App:
                 registry.gauge("classify_p50_ms", "classify p50").set(lat["p50_ms"])
                 registry.gauge("classify_p99_ms", "classify p99").set(lat["p99_ms"])
         return PlainTextResponse(registry.expose())
+
+    @app.get("/monitor/status")
+    async def monitor_status(request: Request):
+        # admin-gated: exposes sync folder paths and engine internals
+        from ics_tpu_torch.services.auth_service import require_admin
+
+        require_admin(request)
+        sync = request.app.state.get("sync")
+        engine = request.app.state.get("engine")
+        return JSONResponse({
+            "sync": sync.status() if sync else {"enabled": False},
+            "tpu": engine.status() if engine else {"enabled": False},
+        })
 
     return app
 

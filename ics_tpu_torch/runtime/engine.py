@@ -23,12 +23,27 @@ canvas -> the same forward and top-k. One step per sampling mode; the shape
 key ``("coeff", mode, luma_blocks, bucket)`` counts its first call as the
 compile.
 
-Not ported yet: the mesh, pipeline-parallel, TTA, explain and embed lanes.
+The embed step (``embed_staged``): the same folded model with its
+classifier head skipped (``_embed_model``, a shallow copy whose ``head`` is
+``nn.Identity`` and which shares every other module, so a classify on
+another thread is untouched). The features come out of the trunk in the
+serving dtype, which is what the reference's identity head returns: a bf16
+matmul by the identity rounds nothing further. Then ``float32`` and
+``feats / max(||feats||, 1e-8)``. With ``fused_chains`` the embed step
+runs the chain kernel as the classify step does.
+
+The engine is driven from several threads at once (the batchers' flushes,
+the embed calls, the lanes' background warm-up): its step records and the
+steps it makes on first use are kept under a lock.
+
+Not ported yet: the mesh, pipeline-parallel, TTA and explain lanes.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
+import threading
 import time
 from typing import Optional, Sequence
 
@@ -104,6 +119,9 @@ class InferenceEngine:
         self.fused_chains = fused_chains
         self._compiled_shapes: set = set()
         self._coeff_steps: dict = {}
+        self._embed_model: Optional[torch.nn.Module] = None
+        # guards _compiled_shapes, _stats and the steps made on first use
+        self._lock = threading.Lock()
         self._stats = {
             "batches": 0, "images": 0, "total_device_ms": 0.0, "compiles": 0,
         }
@@ -111,16 +129,17 @@ class InferenceEngine:
     def _record_step(self, key, dt_ms: float, n: int, record: bool = True) -> None:
         """The FIRST call on a shape key is a compile (counted, kept out of
         total_device_ms); ``record=False`` keeps warmup out of the stats."""
-        new_shape = key not in self._compiled_shapes
-        self._compiled_shapes.add(key)
-        if not record:
-            return
-        self._stats["batches"] += 1
-        self._stats["images"] += n
-        if new_shape:
-            self._stats["compiles"] += 1
-        else:
-            self._stats["total_device_ms"] += dt_ms
+        with self._lock:
+            new_shape = key not in self._compiled_shapes
+            self._compiled_shapes.add(key)
+            if not record:
+                return
+            self._stats["batches"] += 1
+            self._stats["images"] += n
+            if new_shape:
+                self._stats["compiles"] += 1
+            else:
+                self._stats["total_device_ms"] += dt_ms
 
     def _top_k(self) -> int:
         # multi-label returns every class: each sigmoid is its own decision
@@ -178,11 +197,11 @@ class InferenceEngine:
             staged = self._to_device(canvas, sizes)
             idx, _ = self._step(*staged)
             idx.cpu()
-            self._compiled_shapes.add((b, self.canvas))
+            self._record_step((b, self.canvas), 0.0, b, record=False)
             if self.spec.resize_short == self.spec.image_size <= self.canvas:
                 idx, _ = self._step(*staged, fixed_size=True)
                 idx.cpu()
-                self._compiled_shapes.add((b, self.canvas, "fixed"))
+                self._record_step((b, self.canvas, "fixed"), 0.0, b, record=False)
             logger.info("warmed %s step for bucket %d", self.model_name, b)
 
     def _to_device(self, canvas: np.ndarray, sizes: np.ndarray):
@@ -219,14 +238,15 @@ class InferenceEngine:
     def _get_coeff_step(self, mode: str = "420"):
         """The fused decode step of one sampling mode (coefficients in, top-k
         out), made on first use."""
-        step = self._coeff_steps.get(mode)
-        if step is None:
-            step = make_fused_decode_infer_step(
-                self.model, self.spec, dtype=self.dtype, top_k=self._top_k(),
-                mode=mode, multi_label=self.multi_label,
-            )
-            self._coeff_steps[mode] = step
-        return step
+        with self._lock:
+            step = self._coeff_steps.get(mode)
+            if step is None:
+                step = make_fused_decode_infer_step(
+                    self.model, self.spec, dtype=self.dtype, top_k=self._top_k(),
+                    mode=mode, multi_label=self.multi_label,
+                )
+                self._coeff_steps[mode] = step
+            return step
 
     def predict_coeff_staged_async(self, staged: dict, mode: str = "420",
                                    record: bool = True):
@@ -281,8 +301,50 @@ class InferenceEngine:
             logger.info("warmed %s decode lane %s/%dpx for bucket %d",
                         self.model_name, mode, luma_blocks * 8, b)
 
+    # -- embeddings ----------------------------------------------------------
+    @property
+    def embed_dim(self) -> int:
+        """Backbone feature width = the classifier head's input width."""
+        return int(self.model.head.weight.shape[1])
+
+    def _get_embed_model(self) -> torch.nn.Module:
+        """The folded model with ``head`` replaced by the identity: a shallow
+        copy that shares every parameter, buffer and module but the head.
+        Every model of the zoo ends its ``apply_folded`` with
+        ``self.head(feats)``, so the copy returns the penultimate features."""
+        with self._lock:
+            if self._embed_model is None:
+                model = copy.copy(self.model)
+                model._modules = dict(self.model._modules)
+                model.head = torch.nn.Identity()
+                self._embed_model = model
+            return self._embed_model
+
+    @torch.inference_mode()
+    def _embed_step(self, canvas: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
+        x = preprocess_batch(
+            canvas, sizes, out_size=self.spec.image_size,
+            resize_short=self.spec.resize_short, dtype=self.dtype,
+        )
+        feats = self._get_embed_model().apply_folded(x).float()
+        norm = torch.linalg.vector_norm(feats, dim=-1, keepdim=True)
+        return feats / torch.clamp(norm, min=1e-8)
+
+    def embed_staged(self, canvas: np.ndarray, sizes: np.ndarray) -> np.ndarray:
+        """canvas uint8 [N<=bucket, C, C, 3] -> L2-normalized features
+        [N, D] float32 (cosine similarity = plain dot product)."""
+        n = canvas.shape[0]
+        canvas, sizes, bucket = self._pad(canvas, sizes)
+        t0 = time.perf_counter()
+        feats = self._embed_step(*self._to_device(canvas, sizes)).cpu().numpy()[:n]
+        self._record_step(("embed", bucket, canvas.shape[1]),
+                          (time.perf_counter() - t0) * 1000, n)
+        return feats
+
     def status(self) -> dict:
         cuda = self.device.type == "cuda"
+        with self._lock:
+            stats = dict(self._stats)
         return {
             "enabled": True,
             "model": self.model_name,
@@ -293,5 +355,5 @@ class InferenceEngine:
             "devices": torch.cuda.device_count() if cuda else 1,
             "fused_chains": self.fused_chains,
             "kernel_launches": launch_counts(),
-            **self._stats,
+            **stats,
         }

@@ -16,8 +16,13 @@ the engine, all sharing one ``IncomingCounter``:
 With ``device_decode`` on, a decoder library that cannot be built fails
 the service's construction: no request is quietly host-decoded instead.
 
+Embeddings (``embed_bytes``) take neither lane: host decode, then one
+staged batch of 1 straight to the engine's embed step, at most two at a
+time (``_diag_sem``), as in the reference, which never embeds from
+coefficients.
+
 Not ported yet: hedged replicas, trained-weight engines, and the
-TTA/embed/explain requests.
+TTA/explain requests.
 """
 
 from __future__ import annotations
@@ -72,15 +77,6 @@ def warn_unserved_settings() -> None:
         _warn_once("pp_stages",
                    f"TPU_PP_STAGES={settings.TPU_PP_STAGES}, but pipeline parallelism is "
                    "not ported yet: the whole model runs on one GPU")
-    if settings.TPU_EMBED_ON_SYNC:
-        _warn_once("embed_on_sync",
-                   "TPU_EMBED_ON_SYNC is set, but the embed lane is not ported yet: "
-                   "synced images are not embedded")
-    if settings.NEXTCLOUD_BASE_URL.strip() and settings.TPU_CLASSIFY_ON_SYNC:
-        _warn_once("classify_on_sync",
-                   "NEXTCLOUD_BASE_URL is set with TPU_CLASSIFY_ON_SYNC, but the sync "
-                   "engine and classify-on-sync are not ported yet: synced images get "
-                   "no suggestion")
 
 
 class InferenceService:
@@ -121,6 +117,10 @@ class InferenceService:
         self._stats = {"device_decoded": 0, "host_decoded": 0}
         self._started = False
         self._lane_warm_task: Optional[asyncio.Task] = None
+        # admission for the requests that bypass the batchers with a batch
+        # of 1 (embed): at most 2 in flight, so a burst of them cannot queue
+        # unbounded device work ahead of the serving lanes
+        self._diag_sem = asyncio.Semaphore(2)
 
     def _make_coeff_lane(self, mode: str, luma_blocks: int) -> DynamicBatcher:
         def stage(coeff_list):
@@ -336,6 +336,23 @@ class InferenceService:
 
     async def classify_many(self, blobs: Sequence[bytes]) -> list[dict]:
         return list(await asyncio.gather(*(self.classify_bytes(b) for b in blobs)))
+
+    async def embed_bytes(self, data: bytes) -> np.ndarray:
+        """bytes -> L2-normalized backbone embedding [D] float32.
+
+        Similarity queries are rare next to classification traffic, so this
+        stages a batch of 1 directly (no batcher lane); decode and the device
+        step both run off the event loop."""
+        loop = asyncio.get_running_loop()
+        image = await loop.run_in_executor(None, decode_image, data)
+        canvas, sizes = await loop.run_in_executor(
+            None, lambda: stage_batch([image], canvas=None)
+        )
+        async with self._diag_sem:
+            feats = await loop.run_in_executor(
+                None, self.engine.embed_staged, canvas, sizes
+            )
+        return feats[0]
 
     def _record_latency(self, ms: float) -> None:
         self._latencies_ms.append(ms)

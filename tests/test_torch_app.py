@@ -117,8 +117,11 @@ async def test_routes_of_the_port(served):
     paths = {route.path for route in app.router.routes}
     assert "/classificacoes/ambiente/{id_amb}/inicializar" in paths
     assert "/classificacoes/ambiente/{id_amb}/explicar" not in paths
-    assert not any(p.startswith(("/images", "/treinamento")) for p in paths)
-    assert "/inferencia/indexar" not in paths
+    assert not any(p.startswith("/treinamento") for p in paths)
+    assert {"/images/buscar-similares", "/images/{content_hash}/similares",
+            "/images/buscar-por-hash", "/monitor/status",
+            "/classificacoes/ambiente/{id_amb}/sugerir-vizinhos/{content_hash}"} <= paths
+    assert "/inferencia/indexar" not in paths and "/monitor/painel" not in paths
     r = await client.get("/openapi.json")
     assert r.status_code == 200 and "/inferencia/classificar" in r.json()["paths"]
 
@@ -355,30 +358,39 @@ _UNSERVED = {
     "TPU_SERVING_REPLICAS": ("2", "TPU_SERVING_REPLICAS"),
     "TPU_MESH_SHAPE": ("2,1", "TPU_MESH_SHAPE"),
     "TPU_PP_STAGES": ("2", "TPU_PP_STAGES"),
-    "TPU_EMBED_ON_SYNC": ("true", "TPU_EMBED_ON_SYNC"),
-    "NEXTCLOUD_BASE_URL": ("https://cloud.example.com", "TPU_CLASSIFY_ON_SYNC"),
     "TPU_DECODE_THREADS": ("4", "TPU_DECODE_THREADS"),
+}
+# served since the sync engine, classify-on-sync and the embed step were
+# ported: taken with no notice (NEXTCLOUD_BASE_URL with TPU_CLASSIFY_ON_SYNC
+# at its default, on)
+_SERVED = {
+    "TPU_EMBED_ON_SYNC": "true",
+    "NEXTCLOUD_BASE_URL": "https://cloud.example.com",
 }
 
 
-@pytest.mark.parametrize("setting", sorted(_UNSERVED))
+@pytest.mark.parametrize("setting", sorted(_UNSERVED | _SERVED))
 def test_settings_taken_but_not_served_are_said_once(monkeypatch, caplog, setting):
     import logging
 
     from ics_tpu_torch.core.config import reload_settings
     from ics_tpu_torch.runtime import service as service_mod
 
-    value, word = _UNSERVED[setting]
+    value, word = _UNSERVED.get(setting, (_SERVED.get(setting), None))
     monkeypatch.setattr(service_mod, "_warned", set())
     reload_settings(**{"TPU_DEVICE_DECODE": "false", "NEXTCLOUD_BASE_URL": "",
                        setting: value})
     try:
+        assert setting != "NEXTCLOUD_BASE_URL" or service_mod.settings.TPU_CLASSIFY_ON_SYNC
         with caplog.at_level(logging.INFO, logger=service_mod.__name__):
             service_mod.warn_unserved_settings()
             service_mod.warn_unserved_settings()
     finally:
         reload_settings()
     notices = [r for r in caplog.records if r.levelno == logging.WARNING]
+    if setting in _SERVED:
+        assert notices == []
+        return
     assert len(notices) == 1 and word in notices[0].getMessage()
     assert "not ported yet" in notices[0].getMessage()
 

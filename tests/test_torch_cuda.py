@@ -24,7 +24,11 @@ hold for strided views of a fused qkv product and for ``flash_attention_qkv``.
 The device decode of the JPEG-coefficient lanes (plain PyTorch, fp32, TF32
 off) on the card against the same call on the CPU: within 1 LSB on at most
 0.1 % of the canvas; the fused coefficient step's top-5 equal and scores
-within atol 2e-4, rtol 1e-4 of its CPU run.
+within atol 2e-4, rtol 1e-4 of its CPU run. The embed step of ResNet-50 in
+bf16 through the chain kernel against its fp32 plain path on the card:
+cosine at least 0.99 (bf16 activations through 50 layers); the embedding
+index's top-k on the card against the CPU: the same order, scores within
+1e-5 (fp32 sums of the same bf16 products in another order).
 """
 
 import numpy as np
@@ -861,3 +865,116 @@ async def test_device_decode_lane_is_served_on_the_card(cuda_device):
         assert LAUNCHES["depthwise_conv"].value - before == 7 * st["batches"]
     finally:
         await service.stop()
+
+
+# ---- the embed step and the embedding index on the card ------------------------------
+
+def _resnet50_pair(cuda_device):
+    """ResNet-50 as served (bf16, the chain kernel) and its fp32 plain path,
+    both on the card, on weights from one seed."""
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+
+    kw = dict(num_classes=10, buckets=(1, 2), canvas=256, seed=5)
+    served = InferenceEngine("resnet50", precision="bf16", fused_chains=True,
+                             device=cuda_device, **kw)
+    plain = InferenceEngine("resnet50", precision="fp32", device=cuda_device, **kw)
+    return served, plain
+
+
+@pytest.mark.cuda
+def test_embed_step_in_bf16_through_the_chain_kernel_matches_the_fp32_plain_path(cuda_device):
+    """Cosine of the served embedding with the fp32 plain path's at least
+    0.99 for every image, norms 1, and the chain kernel's 5 launches a
+    step; the fp32 plain path launches no kernel."""
+    served, plain = _resnet50_pair(cuda_device)
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, (h, w, 3), np.uint8) for h, w in [(224, 224), (300, 200)]]
+    canvas, sizes = stage_batch(images, canvas=None)
+    before = {k: c.value for k, c in LAUNCHES.items()}
+    got = served.embed_staged(canvas, sizes)
+    assert LAUNCHES["bottleneck_chain"].value - before["bottleneck_chain"] == 5
+    middle = {k: c.value for k, c in LAUNCHES.items()}
+    want = plain.embed_staged(canvas, sizes)
+    assert {k: c.value for k, c in LAUNCHES.items()} == middle
+    assert got.shape == want.shape == (2, 2048)
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, atol=1e-5)
+    assert (got * want).sum(-1).min() >= 0.99
+
+
+@pytest.mark.cuda
+def test_embedding_index_top_k_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """The same stored corpus searched on the card and on the CPU: the same
+    hashes in the same order (ties lower index first) and scores within
+    1e-5 (fp32 sums of the same bf16 products in another order)."""
+    from ics_tpu_torch.core import timezone as tz
+    from ics_tpu_torch.crud.embedding_crud import upsert_embedding
+    from ics_tpu_torch.db.engine import Database
+    from ics_tpu_torch.db.models import ConjuntoImagens, Imagem
+    from ics_tpu_torch.runtime.embedding_index import EmbeddingIndex
+
+    rng = np.random.default_rng(1)
+    vecs = rng.normal(size=(700, 2048)).astype(np.float32)
+    vecs[::7] = vecs[0]                     # ties: a hundred copies of one vector
+    vecs /= np.linalg.norm(vecs, axis=-1, keepdims=True)
+    db = Database(f"sqlite:///{tmp_path}/idx.db")
+    db.create_all()
+    now = tz.utcnow()
+    with db.session() as s:
+        cnj = ConjuntoImagens(nome_conj="i", caminho_conj="/i", file_id="1",
+                              imagens_sincronizadas=True, data_proc=now, data_sinc=now)
+        s.add(cnj)
+        s.flush()
+        for i, v in enumerate(vecs):
+            h = f"{i:04d}" + "e" * 60
+            s.add(Imagem(content_hash=h, nome_img=f"{i}.jpg", caminho_img=f"i/{i}.jpg",
+                         data_proc=now, data_sinc=now, id_cnj=cnj.id_cnj))
+            upsert_embedding(s, h, "m", v)
+        s.commit()
+    on_card, on_cpu = EmbeddingIndex(db, "m", device=cuda_device), EmbeddingIndex(db, "m",
+                                                                                   device="cpu")
+    for q in (vecs[0], vecs[3], -vecs[5]):
+        got, want = on_card.search(q, k=64), on_cpu.search(q, k=64)
+        assert [g["content_hash"] for g in got] == [w["content_hash"] for w in want]
+        np.testing.assert_allclose([g["score"] for g in got], [w["score"] for w in want],
+                                   atol=1e-5, rtol=0)
+    assert on_card._matrix.device.type == "cuda" and on_card._matrix.shape == (1024, 2048)
+
+
+@pytest.mark.cuda
+def test_launch_counts_stay_exact_under_two_threads(cuda_device):
+    """Classify-on-sync: the batcher's flush and the embed call drive one
+    engine from two threads. Every step still launches the chain kernel 5
+    times, and the counts add up to exactly 5 x (classify steps + embed
+    steps); each thread's results equal a step run alone."""
+    import threading
+
+    served, _ = _resnet50_pair(cuda_device)
+    rng = np.random.default_rng(2)
+    images = [rng.integers(0, 256, (240, 320, 3), np.uint8) for _ in range(2)]
+    canvas, sizes = stage_batch(images, canvas=None)
+    want_feats = served.embed_staged(canvas, sizes)
+    want_idx, _ = served.predict_staged(canvas, sizes)
+    rounds, errors, results = 20, [], {"embed": [], "classify": []}
+
+    def work(kind):
+        try:
+            for _ in range(rounds):
+                if kind == "embed":
+                    results[kind].append(served.embed_staged(canvas, sizes))
+                else:
+                    results[kind].append(served.predict_staged(canvas, sizes)[0])
+        except Exception as exc:  # surfaced below
+            errors.append(exc)
+
+    before = LAUNCHES["bottleneck_chain"].value
+    threads = [threading.Thread(target=work, args=(kind,)) for kind in ("embed", "classify")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert LAUNCHES["bottleneck_chain"].value - before == 5 * 2 * rounds
+    for feats in results["embed"]:
+        np.testing.assert_array_equal(feats, want_feats)
+    for idx in results["classify"]:
+        np.testing.assert_array_equal(idx, want_idx)

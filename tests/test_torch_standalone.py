@@ -24,15 +24,13 @@ FORBIDDEN = ("ics_tpu", "jax", "jaxlib", "flax", "optax", "orbax")
 
 # routes of ics_tpu.main.create_app() the port does not serve yet
 # (ROADMAP.md, "Deferred from these modules")
-DEFERRED_PREFIXES = ("/images", "/treinamento")
+DEFERRED_PREFIXES = ("/treinamento",)
 DEFERRED_ROUTES = {
-    ("GET", "/classificacoes/ambiente/{id_amb}/sugerir-vizinhos/{content_hash}"),
     ("POST", "/classificacoes/ambiente/{id_amb}/classificar-tpu"),
     ("POST", "/classificacoes/ambiente/{id_amb}/explicar"),
     ("POST", "/inferencia/indexar"),
     ("POST", "/monitor/latency-budget"),
     ("GET", "/monitor/painel"),
-    ("GET", "/monitor/status"),
 }
 # routes only the port has
 PORT_ONLY_ROUTES = {("POST", "/inferencia/kernels/zerar")}
@@ -386,6 +384,12 @@ def test_registry_is_the_jax_registry_minus_what_is_not_ported():
     "ics_tpu_torch.tools.bench_window", "ics_tpu_torch.ops.jpeg_decode",
     "ics_tpu_torch.runtime.device_decode", "ics_tpu_torch.native.imgcodec",
     "ics_tpu_torch.tools.bench_decode",
+    "ics_tpu_torch.sync.event_cache", "ics_tpu_torch.sync.sync_cache",
+    "ics_tpu_torch.sync.webdav_sync", "ics_tpu_torch.sync.activity_sync",
+    "ics_tpu_torch.sync.service", "ics_tpu_torch.sync.scheduler",
+    "ics_tpu_torch.runtime.embedding_index", "ics_tpu_torch.runtime.knn_suggest",
+    "ics_tpu_torch.api.routes.images", "ics_tpu_torch.tools.fake_nextcloud",
+    "ics_tpu_torch.tools.near_duplicates",
 ])
 def test_new_modules_import_alone_and_build_nothing_at_import(module):
     """Each module of this slice imports in a fresh interpreter with no JAX
@@ -425,11 +429,53 @@ def test_kernel_sources_of_this_slice_are_plain_cuda_with_a_c_interface():
     assert "template <int D, bool kBf16Exp>" in flash        # one kernel, a template parameter
 
 
-def test_nextcloud_client_is_importable_without_the_sync_engine():
-    from ics_tpu_torch.sync import nextcloud_client
+SYNC_MODULES = ("event_cache", "sync_cache", "webdav_sync", "activity_sync", "service",
+                "scheduler", "nextcloud_client")
 
-    assert callable(nextcloud_client.get_nextcloud_client)
-    assert not (REPO / "ics_tpu_torch" / "sync" / "service.py").exists()
+
+def _public_names(module) -> dict:
+    return {name: type(obj).__name__ for name, obj in vars(module).items()
+            if not name.startswith("_") and getattr(obj, "__module__", None) == module.__name__}
+
+
+@pytest.mark.anyio
+async def test_nextcloud_client_is_importable_without_the_sync_engine(tmp_path):
+    """The port's sync engine is its own copy: every module of the JAX
+    package's ``sync/`` has a counterpart under ``ics_tpu_torch/sync`` with the
+    same public classes and functions, importing only the port, and a full
+    scan of the same fake NextCloud leaves the same images in both.
+    (``tests/test_torch_sync_engine.py`` holds every scenario.)"""
+    import httpx
+
+    from tests.fake_nextcloud import FakeState, make_fake_nextcloud, make_jpeg
+
+    assert sorted(p.stem for p in (REPO / "ics_tpu" / "sync").glob("*.py")
+                  if p.stem != "__init__") == sorted(SYNC_MODULES)
+    for name in SYNC_MODULES:
+        ref = importlib.import_module(f"ics_tpu.sync.{name}")
+        port = importlib.import_module(f"ics_tpu_torch.sync.{name}")
+        assert Path(port.__file__).parent == REPO / "ics_tpu_torch" / "sync"
+        assert _public_names(port) == _public_names(ref), name
+    found = []
+    for top in ("ics_tpu", "ics_tpu_torch"):
+        importlib.import_module(f"{top}.db.models")
+        db = importlib.import_module(f"{top}.db.engine").Database(
+            f"sqlite:///{tmp_path}/{top}.db")
+        db.create_all()
+        state = FakeState()
+        state.add_image("plantas", "a.jpg", make_jpeg(1))
+        state.add_image("animais", "b.jpg", make_jpeg(2))
+        client = importlib.import_module(f"{top}.sync.nextcloud_client").NextCloudClient(
+            base_url="http://fake.test", username="tester", password="pw",
+            user_path="/files/tester", max_retries=1, retry_delay=0.0,
+            transport=httpx.ASGITransport(app=make_fake_nextcloud(state)))
+        seen = []
+        webdav = importlib.import_module(f"{top}.sync.webdav_sync").WebDAVSync(
+            client, db, on_image_bytes=lambda h, data: seen.append(h))
+        stats = await webdav.sync_all_folders()
+        await client.aclose()
+        found.append((stats, seen))
+    assert found[0] == found[1] and found[1][0]["images_created"] == 2
 
 
 def test_profile_step_names_every_kernel_of_the_port():
