@@ -1565,8 +1565,15 @@ SYNC_READY_S = 300           # the sync of the corpus must be answered within th
 # at 1.0 is 7.8e-3); top-1 must agree unless the top two lie within this
 SUGGESTION_TOL = 2e-2
 EMBED_NORM_TOL = 1e-2        # the stored vector is fp16 of a unit vector
-EMBED_MIN_COSINE = 0.99      # bf16 through the chain kernel against fp32 plain
-RANK_GAP = 2.0 ** -8         # scores closer than this may come in either order
+# bf16 through the chain kernel against the fp32 plain path: 1 - cosine at
+# most this (9.4e-6 measured on the H100), below that of the nearest other
+# image's vector (7.4e-5: with random weights the corpus's vectors lie within
+# 6e-4 of one another); each stored vector must also be nearest its own image's
+EMBED_MAX_ANGLE = 3e-5
+# a route's score against the fp32 sum of the same bf16 products in numpy
+# (another summation order); hits whose fp32 scores lie closer than this may
+# come in either order
+SCORE_TOL = 1e-5
 SIMILAR_CHECKED = 8
 KNN_LABELLED = 12
 EMBED_WIDTH = 2048           # ResNet-50's pooled features
@@ -1697,7 +1704,6 @@ async def drive_ingestion(base: str, admin: tuple, database: str, gate: Path,
     counts at 0 and wait until every synced image has its suggestion and its
     embedding; read the counts; then the routes of checks 2 and 5-8."""
     import httpx
-    import numpy as np
 
     from ics_tpu_torch.core.security import sha256_hex
     from ics_tpu_torch.db.engine import Database
@@ -1754,17 +1760,13 @@ async def drive_ingestion(base: str, admin: tuple, database: str, gate: Path,
             answers.update(zip(chunk, r.json()["resultados"]))
         drive["answers"] = answers
 
-        # check 5: neighbours by hash against an fp32 ranking of the stored vectors
-        mat = np.stack([vectors[k] for k in hashes])
-        similar = []
+        # check 5: neighbours by hash
+        similar = {}
         for k in hashes[:: n // SIMILAR_CHECKED][:SIMILAR_CHECKED]:
             r = await c.get(f"/images/{k}/similares?limite=10")
             if r.status_code != 200:
                 fail(f"ingestion: /images/{k[:12]}/similares returned {r.status_code}")
-            scores = mat @ vectors[k]
-            order = [j for j in np.argsort(-scores, kind="stable") if hashes[j] != k]
-            similar.append(([(x["content_hash"], x["score"]) for x in r.json()["similares"]],
-                            [(hashes[j], float(scores[j])) for j in order]))
+            similar[k] = [(x["content_hash"], x["score"]) for x in r.json()["similares"]]
         drive["similar"] = similar
 
         # check 6: a q75 re-encode of a synced image
@@ -1798,6 +1800,32 @@ async def drive_ingestion(base: str, admin: tuple, database: str, gate: Path,
         drive["monitor"] = (await c.get("/monitor/status", headers=h)).json()
         drive["monitor_anonymous"] = (await c.get("/monitor/status")).status_code
     return drive
+
+
+def _bf16(x):
+    """``x`` rounded to bf16 (to nearest, ties to even), as fp32."""
+    import numpy as np
+
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).astype(np.uint32).view(np.float32)
+
+
+def _hold_to_scores(route: str, got: list, scores: dict, exclude=None) -> tuple:
+    """Fail unless ``got`` ([(hash, score)], best first) is the top of
+    ``scores`` ({hash: fp32 score}, ``exclude`` left out): each hit's score
+    within SCORE_TOL of its own, and each rank held by a hash whose score lies
+    within SCORE_TOL of that rank's. Returns (largest score gap, neighbouring
+    ranks of ``scores`` closer than SCORE_TOL)."""
+    ranked = sorted((sc for h, sc in scores.items() if h != exclude), reverse=True)
+    if len({h for h, _ in got}) != len(got):
+        fail(f"ingestion: {route} repeats a hit")
+    for j, (h, sc) in enumerate(got):
+        if h == exclude or h not in scores or abs(sc - scores[h]) > SCORE_TOL \
+                or abs(scores[h] - ranked[j]) > SCORE_TOL:
+            fail(f"ingestion: {route} rank {j}: {h[:12]} at {sc:.7f} (fp32 "
+                 f"{scores.get(h, float('nan')):.7f}); the fp32 sums rank {ranked[j]:.7f} there")
+    gap = max(abs(sc - scores[h]) for h, sc in got)
+    return gap, sum(ranked[j] - ranked[j + 1] <= SCORE_TOL for j in range(len(got) - 1))
 
 
 def check_ingestion(torch) -> int:
@@ -1884,13 +1912,23 @@ def check_ingestion(torch) -> int:
         f"({flips} with the top two within the tolerance)")
     if gap > SUGGESTION_TOL:
         fail(f"ingestion: a suggestion's scores differ from the classify answer by {gap:.3e}")
-    # 3. stored embeddings: unit norm, and the fp32 plain path's direction
-    norms = [float(np.linalg.norm(v)) for v in vectors.values()]
-    cosines = [float(vectors[k] @ fp32[k] / np.linalg.norm(vectors[k])) for k in vectors]
-    log(f"  [3] stored embeddings: norms {min(norms):.5f}-{max(norms):.5f}; cosine with the "
-        f"fp32 plain path on the card: smallest {min(cosines):.5f} (bar {EMBED_MIN_COSINE})")
-    if max(abs(x - 1.0) for x in norms) > EMBED_NORM_TOL or min(cosines) < EMBED_MIN_COSINE:
-        fail("ingestion: a stored embedding is off its norm or its fp32 direction")
+    # 3. stored embeddings: unit norm; the fp32 plain path's vector of the same
+    # image within EMBED_MAX_ANGLE, and nearer than that of any other image
+    mat = np.stack([vectors[k] for k in hashes])
+    plain = np.stack([fp32[k] for k in hashes])
+    norms = np.linalg.norm(mat, axis=1)
+    cos = (mat / norms[:, None]) @ plain.T
+    own = 1.0 - np.diag(cos)
+    other = 1.0 - np.max(np.where(np.eye(n, dtype=bool), -np.inf, cos), axis=1)
+    nearest = np.argmax(cos, axis=1)
+    log(f"  [3] stored embeddings: norms {norms.min():.5f}-{norms.max():.5f}; 1 - cosine with "
+        f"the fp32 plain path on the card: largest {own.max():.3e} (bar {EMBED_MAX_ANGLE}); "
+        f"with the nearest other image's: smallest {other.min():.3e}; nearest its own "
+        f"image for {int((nearest == np.arange(n)).sum())} of {n}")
+    if np.abs(norms - 1.0).max() > EMBED_NORM_TOL or own.max() > EMBED_MAX_ANGLE \
+            or (nearest != np.arange(n)).any():
+        fail("ingestion: a stored embedding is off its norm, off the fp32 plain path's vector "
+             "of its image, or nearer another image's")
     # 4. the chain kernel, 5 launches in every classify flush and embed step
     launches = drive["launches"]["bottleneck_chain"]
     others = {k: v for k, v in drive["launches"].items() if k != "bottleneck_chain" and v}
@@ -1901,43 +1939,44 @@ def check_ingestion(torch) -> int:
             or others or drive["device_errors"]:
         fail(f"ingestion: launches {drive['launches']}, {drive['batches']} engine steps, "
              f"{drive['device_errors']} device errors for {steps} flushes and embed steps")
-    # 5. neighbours by hash in the fp32 order of the stored vectors
-    for got, want in drive["similar"]:
+    # 5. neighbours by hash: the fp32 sums over the stored vectors as the index holds them
+    matrix = _bf16(mat).astype(np.float64)
+
+    def fp32_scores(query):
+        return dict(zip(hashes, matrix @ _bf16(query).astype(np.float64)))
+
+    gaps, ties = [], 0
+    for k, got in drive["similar"].items():
         if len(got) != 10:
             fail(f"ingestion: /similares gave {len(got)} neighbours, not 10")
-        for j, (h_got, s_got) in enumerate(got):
-            tied = {h for h, sc in want if abs(sc - want[j][1]) <= RANK_GAP}
-            if h_got not in tied or abs(s_got - want[j][1]) > RANK_GAP:
-                fail(f"ingestion: /similares rank {j}: {h_got[:12]} at {s_got:.6f}; the fp32 "
-                     f"ranking has {want[j][0][:12]} at {want[j][1]:.6f}")
-    log(f"  [5] /images/{{hash}}/similares for {len(drive['similar'])} images: the fp32 ranking "
-        f"of the stored vectors, scores within 2^-8")
-    # 6. a near duplicate: first in fp32; the route is the bf16 index's answer
-    from ics_tpu_torch.runtime.embedding_index import cosine_topk
-
+        gap, tie = _hold_to_scores(f"/images/{k[:12]}/similares", got, fp32_scores(vectors[k]), k)
+        gaps.append(gap)
+        ties += tie
+    log(f"  [5] /images/{{hash}}/similares for {len(drive['similar'])} images: the order of the "
+        f"fp32 sums in numpy, scores within {SCORE_TOL} (largest gap {max(gaps):.2e}); "
+        f"neighbouring ranks closer than that: {ties} of {9 * len(gaps)}")
+    # 6. a q75 re-encode: the route against numpy's fp32 sums for the served
+    # query (this process, bf16 through the chain kernel); the original first
+    # in the fp32 plain path
     name = drive["by_hash"][original][1]
+    if len(found) != 50:
+        fail(f"ingestion: /images/buscar-similares gave {len(found)} hits, not 50")
+    scores = fp32_scores(served_q75)
+    gap, tie = _hold_to_scores("/images/buscar-similares", found, scores)
     by_fp32 = sorted(hashes, key=lambda k: -float(fp32[k] @ fp32_q75))
     margin = float(fp32[by_fp32[0]] @ fp32_q75 - fp32[by_fp32[1]] @ fp32_q75)
-    matrix = torch.from_numpy(np.stack([vectors[k] for k in hashes])).to(DEVICE, torch.bfloat16)
-    scores, idx = cosine_topk(torch.from_numpy(served_q75).to(DEVICE), matrix, n, 50)
-    want = [(hashes[i], float(sc)) for i, sc in zip(idx.tolist(), scores.tolist())]
-    gap = max(abs(s_got - want[j][1]) for j, (_, s_got) in enumerate(found))
-    for j, (h_got, s_got) in enumerate(found):
-        tied = {h for h, sc in want if abs(sc - want[j][1]) <= RANK_GAP}
-        if h_got not in tied or abs(s_got - want[j][1]) > RANK_GAP:
-            fail(f"ingestion: /images/buscar-similares rank {j}: {h_got[:12]} at {s_got:.6f}; "
-                 f"the index over the stored vectors has {want[j][0][:12]} at {want[j][1]:.6f}")
-    rank = [h for h, _ in found].index(original) if original in dict(found) else None
-    log(f"  [6] q75 re-encode of {name}: the fp32 plain path ranks its original "
-        f"{'first' if by_fp32[0] == original else 'not first'} (margin {margin:.3e} over the "
-        f"runner-up); the route, the bf16 index over the stored vectors: original at rank "
-        f"{rank} with {dict(found).get(original, float('nan')):.6f}, first "
-        f"{found[0][1]:.6f}; largest score gap to this process's index {gap:.2e}; stored "
-        "vectors' smallest pairwise cosine "
-        f"{float(np.min(np.stack(list(vectors.values())) @ np.stack(list(vectors.values())).T)):.5f}")
-    if by_fp32[0] != original or len(found) != 50:
+    by_index = [h for h, _ in found]
+    rank = by_index.index(original) if original in by_index else None
+    log(f"  [6] q75 re-encode of {name}: the route against numpy's fp32 sums for the served "
+        f"query: scores within {SCORE_TOL} (largest gap {gap:.2e}), {tie} of 49 neighbouring "
+        f"ranks closer; the original's rank (0 = first): in the route (the bf16 index) "
+        f"{rank}, fp32 sum {scores[original]:.6f} against the first's {found[0][1]:.6f}; in "
+        f"the fp32 plain path "
+        f"{by_fp32.index(original)} (margin {margin:.3e} over the runner-up); stored vectors' "
+        f"smallest pairwise cosine {float(np.min(mat @ mat.T)):.5f}")
+    if by_fp32[0] != original:
         fail(f"ingestion: the fp32 plain path ranks {drive['by_hash'][by_fp32[0]][1]} nearest "
-             f"to the q75 re-encode of {name}, or the route gave {len(found)} hits")
+             f"to the q75 re-encode of {name}")
     # 7. the kNN vote, stored as a knn:resnet50 suggestion
     vote, stored, id_amb = drive["knn"]
     total = sum(o["score"] for o in vote["opcoes"])

@@ -26,7 +26,10 @@ off) on the card against the same call on the CPU: within 1 LSB on at most
 0.1 % of the canvas; the fused coefficient step's top-5 equal and scores
 within atol 2e-4, rtol 1e-4 of its CPU run. The embed step of ResNet-50 in
 bf16 through the chain kernel against its fp32 plain path on the card:
-cosine at least 0.99 (bf16 activations through 50 layers); the embedding
+1 - cosine at most 3e-5 (bf16 activations through 50 layers; the bar
+``chip_smoke.py`` phase 7 sets between its measured spread and the nearest
+other image), and each served vector nearest its own image's plain one
+(with random weights the images' vectors lie close together); the embedding
 index's top-k on the card against the CPU: the same order, scores within
 1e-5 (fp32 sums of the same bf16 products in another order).
 """
@@ -883,22 +886,30 @@ def _resnet50_pair(cuda_device):
 
 @pytest.mark.cuda
 def test_embed_step_in_bf16_through_the_chain_kernel_matches_the_fp32_plain_path(cuda_device):
-    """Cosine of the served embedding with the fp32 plain path's at least
-    0.99 for every image, norms 1, and the chain kernel's 5 launches a
-    step; the fp32 plain path launches no kernel."""
+    """Each served embedding within 1 - cosine 3e-5 of the fp32 plain path's
+    of the same image and nearer it than any other image's, norms 1, and the
+    chain kernel's 5 launches a step; the fp32 plain path launches no
+    kernel."""
     served, plain = _resnet50_pair(cuda_device)
     rng = np.random.default_rng(0)
-    images = [rng.integers(0, 256, (h, w, 3), np.uint8) for h, w in [(224, 224), (300, 200)]]
-    canvas, sizes = stage_batch(images, canvas=None)
-    before = {k: c.value for k, c in LAUNCHES.items()}
-    got = served.embed_staged(canvas, sizes)
-    assert LAUNCHES["bottleneck_chain"].value - before["bottleneck_chain"] == 5
-    middle = {k: c.value for k, c in LAUNCHES.items()}
-    want = plain.embed_staged(canvas, sizes)
-    assert {k: c.value for k, c in LAUNCHES.items()} == middle
-    assert got.shape == want.shape == (2, 2048)
+    shapes = [(224, 224), (300, 200), (160, 256), (256, 256), (200, 300), (180, 180)]
+    images = [rng.integers(0, 256, (h, w, 3), np.uint8) for h, w in shapes]
+    got, want = [], []
+    for pair in (images[i:i + 2] for i in range(0, len(images), 2)):
+        canvas, sizes = stage_batch(pair, canvas=None)
+        before = {k: c.value for k, c in LAUNCHES.items()}
+        got.append(served.embed_staged(canvas, sizes))
+        assert LAUNCHES["bottleneck_chain"].value - before["bottleneck_chain"] == 5
+        middle = {k: c.value for k, c in LAUNCHES.items()}
+        want.append(plain.embed_staged(canvas, sizes))
+        assert {k: c.value for k, c in LAUNCHES.items()} == middle
+    got, want = np.concatenate(got), np.concatenate(want)
+    assert got.shape == want.shape == (len(images), 2048)
     np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, atol=1e-5)
-    assert (got * want).sum(-1).min() >= 0.99
+    cos = got @ want.T
+    own = 1.0 - np.diag(cos)
+    assert own.max() <= 3e-5, own
+    assert (np.argmax(cos, axis=1) == np.arange(len(images))).all(), 1.0 - cos
 
 
 @pytest.mark.cuda

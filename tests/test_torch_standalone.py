@@ -389,7 +389,7 @@ def test_registry_is_the_jax_registry_minus_what_is_not_ported():
     "ics_tpu_torch.sync.service", "ics_tpu_torch.sync.scheduler",
     "ics_tpu_torch.runtime.embedding_index", "ics_tpu_torch.runtime.knn_suggest",
     "ics_tpu_torch.api.routes.images", "ics_tpu_torch.tools.fake_nextcloud",
-    "ics_tpu_torch.tools.near_duplicates",
+    "ics_tpu_torch.api.routes.classificacoes",
 ])
 def test_new_modules_import_alone_and_build_nothing_at_import(module):
     """Each module of this slice imports in a fresh interpreter with no JAX
