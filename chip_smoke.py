@@ -59,7 +59,22 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    pixel step fed that canvas (top-1 equal, scores within 1e-4); the
    ResNet-50 bf16 coefficient and pixel steps at buckets 1, 8 and 32 with the
    bytes each lane sends; the decode alone at bucket 32 beside its bound,
-   with the kernels it launches (both from ``tools.bench_decode``).
+   with the kernels it launches (both from ``tools.bench_decode``). Then
+   restart segments on worker threads: restart-marker JPEGs (one restart an
+   MCU row, q90, each sampling mode, 1000x750 and 2048x1536) decoded on 1,
+   2, 4 and 8 threads give the serial decode's bytes, the threads taken on
+   every file of at least ``MT_MIN_BYTES``; us per image at each thread
+   count beside PIL.
+5e. DenseNet-121/169 and RegNet-Y 400MF/1.6GF at full width in this process
+   (random weights from seed 0; no kernel of the port is on their paths):
+   bf16 against fp32 logits on eight seeded images (top-1 equal where the
+   fp32 margin exceeds twice the largest deviation), bf16 engine steps at
+   buckets 1, 8 and 32 by CUDA events with the kernels a bucket-32 step
+   launches by ``torch.profiler`` and where their time goes, DenseNet's
+   served ``torch.cat`` per layer in turns with a buffer a dense block; then the
+   pretrained import on the card: the port's ``save_npz`` of a seeded
+   ``regnet_y_400mf`` and ``densenet121`` through ``load_pretrained`` into
+   an fp32 engine gives the seeded engine's logits exactly.
 6. The main paths: one ``python -m ics_tpu_torch.main`` whose default model
    is ResNet-50 with ``TPU_FUSED_CHAINS=true`` and ``TPU_DEVICE_DECODE`` at
    its default (on, so JPEGs take the device-decode lanes; PNGs and larger
@@ -75,7 +90,13 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    a last stretch sends a JPEG of each (mode, luma bucket), a PNG and a JPEG
    over 1024 px, and reads each lane's flushes and the device-decode gauges
    of ``/monitor/metrics``. The stretches start once the lanes' background
-   warm-up has ended.
+   warm-up has ended. The server runs with ``TPU_DECODE_THREADS=4``; then
+   four PNGs, one a request, to each of ``?modelo=densenet121`` and
+   ``?modelo=regnet_y_1_6gf`` (no kernel of the port launched; top-5 and
+   scores against this process's engine), and a 1000x750 restart-marker JPEG
+   of at least ``MT_MIN_BYTES`` to ResNet-50, whose entropy decode must take
+   the threads (``entropy_threaded_scans`` of the status) and whose answer
+   must equal this process's coefficient step on the serial decode.
 7. The ingestion front: a second ``python -m ics_tpu_torch.main`` (the same
    ResNet-50 configuration) with ``NEXTCLOUD_BASE_URL`` on the port's fake
    NextCloud (``tools/fake_nextcloud.py``, two folders: 96 JPEGs of 64-512
@@ -102,12 +123,15 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    both timed at the calls of one explain step at a SmoothGrad batch of 16
    beside their plain versions, their bounds and their yardsticks (SDPA's
    autograd backward with ``attn_mask``, replayed from a CUDA graph;
-   ``torch.nn.grad.conv2d_input``). (b) ``explain_staged`` at
+   ``torch.nn.grad.conv2d_input``), and the depthwise input gradient also
+   at EfficientNet-B4's 28 and MobileNetV3-Small's 7 k 3/5 calls (in the
+   log; the kernels line keeps ConvNeXt-T's). (b) ``explain_staged`` at
    full width in this process, kernel path against the same engine's plain
    path: ConvNeXt-T, Swin-T, EfficientNet-B4, fp32 and bf16, n = 1 and 16;
    top-5 equal, fp32 heat maps within 1e-3, bf16 at a cosine of at least
    0.99, forward and backward kernels launched once a layer; ViT-B/16 and
-   ResNet-50 with fused chains raise ``KernelHasNoGradient``. (c) A third
+   ResNet-50 with fused chains raise ``KernelHasNoGradient``; EfficientNet-B4's
+   bf16 step at n = 16 timed in turns, kernel path and plain path. (c) A third
    ``python -m ics_tpu_torch.main`` serving ConvNeXt-T in fp32:
    ``classificar-tpu`` and ``?tta=true`` (scores against the mean of the
    image's and its flip's probabilities in this process, 1e-3),
@@ -172,6 +196,7 @@ VIT_DEPTH = 12              # ViT-B/16: one flash launch per block per batch
 CHAIN_LAUNCHES = 5          # ResNet-50: one launch per chained bottleneck, 2 + 3
 SERVER_START_S = 600
 SERVER_BUCKETS = (1, 8, 32)  # TPU_BATCH_BUCKETS of phase 6's server
+MT_MIN_BYTES = 96 * 1024     # native.imgcodec's: smaller files are entropy-decoded serially
 # published peaks of one H100 SXM: device memory, dense bf16 tensor cores, fp32
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -802,10 +827,10 @@ def time_depthwise(torch, depthwise) -> dict:
         w_oihw = w.permute(2, 0, 1).reshape(c, 1, 7, 7).contiguous(
             memory_format=torch.channels_last)
         lib = library_ms(lambda: F.conv2d(x_nchw, w_oihw, b, 1, 3, 1, c))
-        # x read once, y written once, taps and bias read once; 2 * k * k fp32
-        # operations an output
+        # x read once, y written once, taps and bias read once; 2 * k * k
+        # operations an output on bf16 operands, reckoned at the bf16 peak
         case = bound(2 * x.numel() * 2 + (w.numel() + b.numel()) * 2,
-                     2.0 * 49 * x.numel(), FP32_FLOPS)
+                     2.0 * 49 * x.numel(), BF16_FLOPS)
         log(f"    F.conv2d(groups=C) channels_last (yardstick only) {lib:.4f} ms; bound "
             f"{case['bound_ms']:.4f} ms by {case['bound_by']}; x{count} a step; served by "
             f"{depthwise.pick_variant(shape, 7, torch.bfloat16)}")
@@ -828,6 +853,7 @@ def time_depthwise_k35(torch, depthwise) -> dict:
     from ics_tpu_torch.tools.bench_depthwise import depthwise_calls
 
     total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    by = set()
     for model in (EFFICIENTNET, MOBILENET):
         step = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "launches": 0}
         for (shape, k, bias), count in sorted(depthwise_calls(model, 32).items()):
@@ -850,19 +876,20 @@ def time_depthwise_k35(torch, depthwise) -> dict:
                 lib = library_ms(lambda: cudnn(x))
                 hosts = (host_us(lambda: conv(x)), host_us(lambda: cudnn(x)))
             case = bound(2 * x.numel() * 2 + (k * k + bias) * c * 2, 2.0 * k * k * x.numel(),
-                         FP32_FLOPS)
+                         BF16_FLOPS)
             log(f"    cuDNN F.conv2d(groups=C) (yardstick only) {lib:.4f} ms; bound "
                 f"{case['bound_ms']:.4f} ms by {case['bound_by']}; host {hosts[0]:.1f} us a "
                 f"launch, cuDNN {hosts[1]:.1f}; x{count} a step")
             for key, value in (("ms", ms), ("library_ms", lib), ("bound_ms", case["bound_ms"])):
                 step[key] += count * value
+            by.add(case["bound_by"])
             total["plain_ms"] += count * plain_ms
             step["launches"] += count
         log(f"  {model}: {step['launches']} launches a step, kernel {step['ms']:.4f} ms, cuDNN "
             f"{step['library_ms']:.4f} ms, bound {step['bound_ms']:.4f} ms")
         for key in ("ms", "library_ms", "bound_ms"):
             total[key] += step[key]
-    return {**total, "bound_by": "bytes"}
+    return {**total, "bound_by": "operations" if "operations" in by else "bytes"}
 
 
 def time_window(torch, window_attention) -> dict:
@@ -1257,6 +1284,233 @@ def check_device_decode(torch) -> None:
     torch.cuda.empty_cache()
 
 
+RESTART_SIZES = ((750, 1000), (1536, 2048))   # (h, w) of phase 5d's restart-marker JPEGs
+DECODE_THREADS = (1, 2, 4, 8)
+
+
+def restart_corpus() -> dict:
+    """Seeded blurred noise at q90 with a restart marker every MCU row, in
+    each sampling mode, at 1000x750 and 2048x1536: {(mode, (h, w)): bytes}."""
+    import numpy as np
+    from PIL import Image, ImageFilter
+
+    rng = np.random.default_rng(11)
+    out = {}
+    for h, w in RESTART_SIZES:
+        img = Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8))
+        img = img.filter(ImageFilter.GaussianBlur(1.5))
+        for mode in DECODE_MODES:
+            buf = io.BytesIO()
+            if mode == "gray":
+                img.convert("L").save(buf, "JPEG", quality=90, restart_marker_rows=1)
+            else:
+                img.save(buf, "JPEG", quality=90, restart_marker_rows=1,
+                         subsampling={"444": 0, "422": 1, "420": 2}[mode])
+            out[mode, (h, w)] = buf.getvalue()
+    return out
+
+
+def _coeff_bytes(co) -> bytes:
+    return b"".join(c["coeffs"].tobytes() + c["quant"].tobytes() for c in co.components)
+
+
+def check_threaded_decode() -> None:
+    """Phase 5d, restart segments on worker threads: every restart-marker
+    JPEG of ``restart_corpus`` decoded on 1, 2, 4 and 8 threads gives the
+    serial decode's bytes, and the threads ran on each file of at least
+    ``MT_MIN_BYTES``; the host's us per image at each thread count beside
+    PIL's full decode (the least of three rounds, in turns)."""
+    from PIL import Image
+
+    from ics_tpu_torch.native import imgcodec
+
+    corpus = restart_corpus()
+    for (mode, (h, w)), blob in corpus.items():
+        serial = _coeff_bytes(imgcodec.jpeg_coefficients(blob, 1))
+        for threads in DECODE_THREADS[1:]:
+            before = imgcodec.threaded_scans()
+            got = _coeff_bytes(imgcodec.jpeg_coefficients(blob, threads))
+            ran = imgcodec.threaded_scans() - before
+            if got != serial:
+                fail(f"restart segments: {mode} {w}x{h} on {threads} threads differs from serial")
+            if ran != (len(blob) >= imgcodec.MT_MIN_BYTES):
+                fail(f"restart segments: {mode} {w}x{h} ({len(blob)} bytes) took the threads "
+                     f"{ran} times on {threads} threads")
+    for size in RESTART_SIZES:
+        blobs = [b for k, b in corpus.items() if k[1] == size]
+        runs: dict = {t: [] for t in (*DECODE_THREADS, "pil")}
+        for _ in range(3):
+            for t in (*DECODE_THREADS, "pil"):
+                t0 = time.perf_counter()
+                for b in blobs:
+                    if t == "pil":
+                        with Image.open(io.BytesIO(b)) as im:
+                            im.convert("RGB").load()
+                    else:
+                        imgcodec.jpeg_coefficients(b, t)
+                runs[t].append((time.perf_counter() - t0) / len(blobs) * 1e6)
+        best = {t: min(v) for t, v in runs.items()}
+        log(f"  restart segments at {size[1]}x{size[0]} ({', '.join(DECODE_MODES)}; "
+            f"{min(len(b) for b in blobs)}-{max(len(b) for b in blobs)} bytes): entropy decode "
+            + ", ".join(f"{t} thread{'s' * (t > 1)} {best[t]:.0f}" for t in DECODE_THREADS)
+            + f" us/image; PIL full decode {best['pil']:.0f}; serial/8 threads "
+            f"{best[1] / best[8]:.2f}x; bytes equal to serial on 2, 4, 8 threads in every mode")
+
+
+# phase 5e: DenseNet and RegNet
+DENSE_REGNET = ("densenet121", "densenet169", "regnet_y_400mf", "regnet_y_1_6gf")
+
+
+def _dense_buffer_forward(model, x):
+    """The folded DenseNet with each dense block written into one buffer at
+    the block's final width (each layer's new channels copied into their
+    slice) in place of the served concatenation per layer: the other form of
+    the dense blocks, timed beside it in [5e]."""
+    import torch
+
+    from ics_tpu_torch.nn.layers import global_avg_pool, max_pool, relu
+
+    y = max_pool(relu(model.stem.apply_folded(x)), 3, 2, 1)
+    for i, layers in enumerate(model.stages):
+        c = y.shape[-1]
+        growth = layers[0].conv2.weight.shape[0]
+        out = y.new_empty(*y.shape[:-1], c + growth * len(layers))
+        out[..., :c] = y
+        for layer in layers:
+            bn = lambda m, t: m.apply_folded(t)   # noqa: E731
+            h = layer.conv1(relu(bn(layer.bn1, out[..., :c])))
+            out[..., c:c + growth] = layer.conv2(relu(bn(layer.bn2, h)))
+            c += growth
+        y = out
+        if i < len(model.down):
+            y = model.down[i].apply_folded(y)
+    return model.head(global_avg_pool(torch.relu(model.final_bn.apply_folded(y))))
+
+
+def kernels_a_step(torch, step) -> tuple[int, dict]:
+    """The CUDA kernels one call of ``step`` launches, by ``torch.profiler``:
+    (count, {group: (count, device ms)}) with ``tools.profile_step``'s groups."""
+    from ics_tpu_torch.tools.profile_step import group_of
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    groups: dict = {}
+    total = 0
+    for ev in prof.key_averages():
+        is_kernel = str(getattr(ev, "device_type", "")).endswith("CUDA")
+        device_us = getattr(ev, "self_device_time_total", 0) or getattr(
+            ev, "self_cuda_time_total", 0)
+        if not is_kernel or device_us <= 0:
+            continue
+        n, ms = groups.get(group_of(ev.key), (0, 0.0))
+        groups[group_of(ev.key)] = (n + ev.count, round(ms + device_us / 1e3, 4))
+        total += ev.count
+    return total, groups
+
+
+def check_dense_regnet(torch) -> None:
+    """Phase 5e: DenseNet-121/169 and RegNet-Y 400MF/1.6GF at full width on
+    the card, random weights from seed 0. The bf16 engine's logits against
+    the fp32 engine's on eight seeded images: finite, the largest deviation
+    printed, and the top-1 equal on every image whose fp32 margin between its
+    first two classes is more than twice that deviation. Then bf16 engine
+    steps at buckets 1, 8 and 32 by CUDA events, images/s at bucket 32, the
+    kernels a bucket-32 step launches by ``torch.profiler`` (and where their
+    device time goes), no kernel of the port among them; for DenseNet, the
+    served forward (the reference's concatenation per layer) in turns with a
+    buffer a dense block. Then the pretrained import on the card: the
+    port's ``save_npz`` of a seeded ``regnet_y_400mf`` and ``densenet121``,
+    loaded by ``load_pretrained`` into an fp32 engine, gives the seeded
+    engine's logits exactly."""
+    import numpy as np
+
+    from ics_tpu_torch.models.registry import get_model
+    from ics_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+    from ics_tpu_torch.train.pretrained import load_pretrained, save_npz
+
+    rng = np.random.default_rng(4)
+    canvas = rng.integers(0, 256, (32, 512, 512, 3), np.uint8)
+    sizes = rng.integers(300, 513, (32, 2)).astype(np.int32)
+
+    def logits(engine, n):
+        staged = engine._to_device(canvas[:n], sizes[:n])
+        with torch.inference_mode():
+            return engine.model.apply_folded(engine._preprocess(*staged, False)).float()
+
+    for name in DENSE_REGNET:
+        t0 = time.perf_counter()
+        f32 = InferenceEngine(name, precision="fp32", buckets=(8,), canvas=512)
+        b16 = InferenceEngine(name, precision="bf16", buckets=SERVER_BUCKETS, canvas=512)
+        ref, got = logits(f32, 8), logits(b16, 8)
+        top2 = ref.topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1])
+        dev = (got - ref).abs().max().item()
+        agree = got.argmax(-1) == ref.argmax(-1)
+        decided = margin > 2 * dev
+        log(f"  {name}: bf16 vs fp32 logits [8, 1000] (max|logit| {ref.abs().max().item():.3e}): "
+            f"max|d| {dev:.3e}; top-1 equal on {int(agree.sum())} of 8 (fp32 margins "
+            f"{[round(v, 4) for v in margin.tolist()]}); built in {time.perf_counter() - t0:.1f} s")
+        if not bool(torch.isfinite(got).all()) or not bool(agree[decided].all()):
+            fail(f"{name}: bf16 top-1 differs from fp32 where the margin exceeds the deviation")
+        del f32
+        step_ms = {}
+        for bucket in SERVER_BUCKETS:
+            staged = b16._to_device(canvas[:bucket], sizes[:bucket])
+            step = lambda: b16._step(*staged)   # noqa: E731
+            cuda_ms(step, 3, ahead=False)
+            step_ms[bucket] = min(cuda_ms(step, 10, ahead=False) for _ in range(2))
+        reset_launch_counts()
+        n_kernels, groups = kernels_a_step(torch, step)
+        ours = {k: v for k, v in launch_counts().items() if v}
+        log(f"    bf16 engine step by CUDA events: " + ", ".join(
+            f"bucket {b} {ms:.3f} ms" for b, ms in step_ms.items())
+            + f"; {32 / step_ms[32] * 1e3:.0f} images/s at bucket 32; {n_kernels} kernels a "
+            f"bucket-32 step: {json.dumps(groups)}")
+        if ours:
+            fail(f"{name}: a step launched kernels of the port: {ours}")
+        if name.startswith("densenet"):
+            x = b16._preprocess(*staged, False)
+            with torch.inference_mode():
+                other = _dense_buffer_forward(b16.model, x).float()
+                served = b16.model.apply_folded(x).float()
+                if not torch.equal(other, served):
+                    fail(f"{name}: the block-buffer forward differs from the served one")
+                in_turns(f"{name} bf16 forward at bucket 32: torch.cat per layer (served, under "
+                         "'kernel') and a buffer a dense block (under 'plain')",
+                         lambda: b16.model.apply_folded(x),
+                         lambda: _dense_buffer_forward(b16.model, x), iters=10, ahead=False)
+                n_cat, cat_groups = kernels_a_step(torch, lambda: b16.model.apply_folded(x))
+                n_buf, buf_groups = kernels_a_step(torch, lambda: _dense_buffer_forward(b16.model,
+                                                                                        x))
+            log(f"    kernels a forward: torch.cat per layer {n_cat} {json.dumps(cat_groups)}; "
+                f"a buffer a dense block {n_buf} {json.dumps(buf_groups)}")
+        del b16
+        torch.cuda.empty_cache()
+
+    for name in ("regnet_y_400mf", "densenet121"):
+        model = get_model(name).build(num_classes=1000)
+        model.init_weights(torch.Generator().manual_seed(0))
+        with tempfile.TemporaryDirectory(prefix="ics_tpu_torch_pretrained_") as tmp:
+            path = Path(tmp) / f"{name}.npz"
+            save_npz(path, model.state_dict())
+            n_bytes = path.stat().st_size
+            _, state_dict = load_pretrained(name, path)
+        seeded = InferenceEngine(name, precision="fp32", buckets=(8,), canvas=512, seed=0)
+        loaded = InferenceEngine(name, precision="fp32", buckets=(8,), canvas=512,
+                                 state_dict=state_dict)
+        a, b = logits(seeded, 8), logits(loaded, 8)
+        log(f"  pretrained {name}: save_npz -> load_pretrained -> fp32 engine on the card: "
+            f"logits max|d| {(a - b).abs().max().item():.3e} from the seeded engine's "
+            f"(a native file of {n_bytes} bytes)")
+        if not torch.equal(a, b):
+            fail(f"pretrained {name}: the loaded engine's logits differ from the seeded engine's")
+        del seeded, loaded
+        torch.cuda.empty_cache()
+
+
 JPEG_SIZES = [(480, 640), (512, 384), (400, 400), (300, 500), (640, 427),
               (384, 360), (256, 512), (500, 375), (420, 600)]
 
@@ -1368,6 +1622,30 @@ async def drive_server(base: str, admin: tuple[str, str]) -> dict:
         for model in (CONVNEXT, SWIN, MOBILENET):
             drive[model] = await stretch(model, model, f"?modelo={model}", mixed)
         drive["decode_lanes"] = await decode_lanes(c, h, status)
+        # DenseNet and RegNet through the pool, one PNG a request (the host
+        # lane, a batch of 1), each answer kept for the in-process engine
+        for model in SERVED_FAMILIES:
+            before = await status(model)
+            (await c.post("/inferencia/kernels/zerar", headers=h)).raise_for_status()
+            answers = [(await classify([b], model, f"?modelo={model}", "png"))[0]
+                       for b in family_pngs()]
+            after = await status(model)
+            drive[model] = {"model": model, "images": len(answers),
+                            "batches": after["batches"] - before["batches"],
+                            "launches": after["kernel_launches"], "backend": after["backend"],
+                            "decodes": sorted({a["decode"] for a in answers}),
+                            "answers": [(a["top_classes"], a["scores"]) for a in answers]}
+        # a restart-marker JPEG of at least MT_MIN_BYTES on the default model:
+        # its entropy decode takes TPU_DECODE_THREADS threads in the server
+        blob = restart_corpus()["420", RESTART_SIZES[0]]
+        before = await status(RESNET)
+        answer = (await classify([blob], RESNET, ""))[0]
+        after = await status(RESNET)
+        drive["restart_jpeg"] = {
+            "model": RESNET, "bytes": len(blob), "batches": after["batches"] - before["batches"],
+            "backend": after["backend"], "decodes": [answer["decode"]],
+            "threaded_scans": after["entropy_threaded_scans"] - before["entropy_threaded_scans"],
+            "answer": (answer["top_classes"], answer["scores"])}
         return drive
 
 
@@ -1507,9 +1785,19 @@ def _stop(proc) -> None:
         proc.wait()
 
 
+SERVED_FAMILIES = ("densenet121", "regnet_y_1_6gf")   # phase 6's ?modelo= stretches of 5e's
+SERVED_DECODE_THREADS = 4                             # phase 6's TPU_DECODE_THREADS
+SERVED_SCORE_TOL = 1e-3    # the server's bf16 scores against this process's engine
+
+
+def family_pngs() -> list[bytes]:
+    return _images([(300, 400), (512, 384), (256, 256), (480, 360)], "PNG")
+
+
 def serve_and_drive() -> dict:
     with tempfile.TemporaryDirectory(prefix="ics_tpu_torch_smoke_") as tmp:
-        with serving(tmp) as (base, admin, _, up_s):
+        with serving(tmp, TPU_DECODE_THREADS=str(SERVED_DECODE_THREADS)) as (
+                base, admin, _, up_s):
             log(f"  server up in {up_s:.1f} s (engine built, pixel buckets and the 4:2:0 "
                 "512 px decode lane warmed)")
             asyncio.run(await_lane_warm_up(base, admin, time.perf_counter() - up_s))
@@ -1521,12 +1809,14 @@ def check_drive(drive: dict) -> dict:
     of its path and no other. Returns the launches per kernel."""
     for name, st in drive.items():
         log(f"  {name}: {json.dumps(st)}")
-        want = ["host"] if name == "vit_png" else None
-        if name not in ("vit_png", "decode_lanes") and \
+        want = ["host"] if name in ("vit_png", *SERVED_FAMILIES) else None
+        if name not in ("vit_png", "decode_lanes", *SERVED_FAMILIES) and \
                 not all(d.startswith("device:") for d in st["decodes"]):
             fail(f"{name}: JPEGs answered {st['decodes']}; every one must take a device lane")
         if want and st["decodes"] != want:
             fail(f"{name}: PNGs answered {st['decodes']}, not the host lane")
+        if name in SERVED_FAMILIES and any(st["launches"].values()):
+            fail(f"{name}: {st['launches']}; no kernel of the port is on its path")
         if st["backend"] != "cuda":
             fail(f"{name}: /inferencia/status reports backend {st['backend']!r}, not 'cuda'")
         if st["batches"] < 1:
@@ -1569,6 +1859,11 @@ def check_drive(drive: dict) -> dict:
         if st["launches"][kernel] != per_batch * st["batches"] or others:
             fail(f"{model}: {st['launches']} for {st['batches']} batches; the path must "
                  f"launch {kernel} {per_batch} times per batch and no other kernel")
+    restart = drive["restart_jpeg"]
+    if restart["bytes"] < MT_MIN_BYTES or restart["threaded_scans"] != 1 \
+            or restart["decodes"] != ["device:420"]:
+        fail(f"restart_jpeg: {restart}; a restart JPEG of {MT_MIN_BYTES} bytes or more must be "
+             f"entropy-decoded on {SERVED_DECODE_THREADS} threads and take the 4:2:0 lane")
     return {
         "flash_attention": jpg["launches"]["flash_attention"] + png["launches"]["flash_attention"],
         "bottleneck_chain": res["launches"]["bottleneck_chain"]
@@ -1579,6 +1874,46 @@ def check_drive(drive: dict) -> dict:
         "depthwise_conv_k35": drive[MOBILENET]["launches"]["depthwise_conv"],
         "window_attention": drive[SWIN]["launches"]["window_attention"],
     }
+
+
+def check_served_answers(torch, drive: dict) -> None:
+    """Phase 6's answers against this process's engines, built as the server
+    builds them (bf16, seed 0): the DenseNet and RegNet answers against
+    ``predict_staged`` of the same PNGs (top-5 equal, scores within
+    ``SERVED_SCORE_TOL``), and the restart JPEG's, decoded on threads in the
+    server, against the serial decode's coefficient step (the same)."""
+    import numpy as np
+
+    from ics_tpu_torch.native import imgcodec
+    from ics_tpu_torch.runtime import device_decode as dd
+    from ics_tpu_torch.runtime.decode import decode_image, stage_batch
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+
+    def held(label, got, idx, scores):
+        gap = float(np.abs(np.asarray(got[1]) - scores).max())
+        log(f"  {label}: served top-5 {got[0]}, in-process {idx.tolist()}; scores max|d| "
+            f"{gap:.2e} (tol {SERVED_SCORE_TOL})")
+        if list(got[0]) != idx.tolist() or gap > SERVED_SCORE_TOL:
+            fail(f"{label}: the served answer differs from this process's engine")
+
+    for model in SERVED_FAMILIES:
+        engine = InferenceEngine(model, precision="bf16", buckets=SERVER_BUCKETS, canvas=512)
+        for i, (blob, got) in enumerate(zip(family_pngs(), drive[model]["answers"])):
+            canvas, sizes = stage_batch([decode_image(blob)], canvas=None)
+            idx, scores = engine.predict_staged(canvas, sizes)
+            held(f"{model} PNG {i}", got, idx[0], scores[0])
+        del engine
+        torch.cuda.empty_cache()
+    engine = InferenceEngine(RESNET, precision="bf16", buckets=SERVER_BUCKETS, canvas=512,
+                             fused_chains=True)
+    co = imgcodec.jpeg_coefficients(restart_corpus()["420", RESTART_SIZES[0]], 1)
+    mode, luma = dd.classify_coefficients(co)
+    idx, scores = engine.predict_coeff_staged(dd.stage_coefficient_batch([co], luma, mode),
+                                              mode=mode)
+    held(f"restart JPEG ({drive['restart_jpeg']['bytes']} bytes, {SERVED_DECODE_THREADS} "
+         "threads in the server; serial here)", drive["restart_jpeg"]["answer"], idx[0], scores[0])
+    del engine
+    torch.cuda.empty_cache()
 
 
 # phase 7: the ingestion front
@@ -2231,7 +2566,93 @@ def time_backward(torch, window_attention, depthwise) -> dict:
             total[key] += count * value
         by.add(case["bound_by"])
     out["depthwise_conv_dx"] = {**total, "bound_by": "operations" if "operations" in by else "bytes"}
+    out["depthwise_conv_dx_k35"] = time_depthwise_dx_k35(torch, depthwise)
     return out
+
+
+def time_depthwise_dx_k35(torch, depthwise) -> dict:
+    """Phase 8a: the depthwise input gradient at the k 3 and k 5 calls of one
+    explain step at a SmoothGrad batch of ``SMOOTH``: EfficientNet-B4's 28 and
+    MobileNetV3-Small's 7, timed as the served module's backward and its
+    plain version's, each replayed from a CUDA graph of autograd
+    (``_graphed_grad``), beside ``torch.nn.grad.conv2d_input`` with
+    ``groups=C`` and the bound at the bf16 peak. Not an entry of the kernels
+    line (the same kernel as ``depthwise_conv_dx``): its row is in the log."""
+    from ics_tpu_torch.tools.bench_depthwise import depthwise_calls
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "launches": 0}
+    by = set()
+    for model in (EFFICIENTNET, MOBILENET):
+        step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "launches": 0}
+        for (shape, k, _), count in sorted(depthwise_calls(model, SMOOTH).items()):
+            c = shape[-1]
+            dy, w, _ = depthwise_inputs(torch, shape, k, False, torch.bfloat16)
+            x = torch.zeros_like(dy, requires_grad=True)
+            ms, plain_ms = in_turns(
+                f"depthwise_conv_dx {list(shape)} k={k} bf16 ({model}; CUDA graphs of "
+                "autograd's backward)",
+                _graphed_grad(torch, _depthwise_module(torch, w), (x,), dy),
+                _graphed_grad(torch, lambda x: depthwise.depthwise_reference(x, w), (x,), dy),
+                iters=10)
+            dy_nchw = dy.permute(0, 3, 1, 2)                   # channels_last memory
+            w_oihw = w.permute(2, 0, 1).reshape(c, 1, k, k).contiguous(
+                memory_format=torch.channels_last)
+            size = (shape[0], c, shape[1], shape[2])
+            lib = library_ms(lambda: torch.nn.grad.conv2d_input(
+                size, w_oihw, dy_nchw, padding=k // 2, groups=c), iters=10)
+            case = bound(2 * dy.numel() * 2 + w.numel() * 2, 2.0 * k * k * dy.numel(),
+                         BF16_FLOPS)
+            log(f"    conv2d_input(groups=C) (yardstick only) {lib:.4f} ms; bound "
+                f"{case['bound_ms']:.4f} ms by {case['bound_by']}; x{count} an explain step; "
+                f"kernel/conv2d_input {ms / lib:.2f}")
+            for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib),
+                               ("bound_ms", case["bound_ms"])):
+                step[key] += count * value
+            step["launches"] += count
+            by.add(case["bound_by"])
+        log(f"  depthwise_conv_dx k 3/5, {model}: {step['launches']} launches an explain step "
+            f"at n = {SMOOTH}: kernel {step['ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, "
+            f"conv2d_input {step['library_ms']:.4f} ms, bound {step['bound_ms']:.4f} ms")
+        for key in total:
+            total[key] += step[key]
+    log(f"  depthwise_conv_dx k 3/5, both models: {json.dumps(total)}")
+    return {**total, "bound_by": "operations" if "operations" in by else "bytes"}
+
+
+def time_explain_in_turns(torch, rounds: int = 3) -> None:
+    """Phase 8b: EfficientNet-B4's bf16 explain step at n = ``SMOOTH`` on one
+    engine, kernel path and plain path in turns (kernel, plain, plain,
+    kernel, ``rounds`` times), host clock from the call to its answer."""
+    import statistics
+
+    from ics_tpu_torch.nn.layers import set_use_kernels
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+
+    canvas, sizes = _explain_image()
+    engine = InferenceEngine(EFFICIENTNET, precision="bf16", buckets=(1,), canvas=512,
+                             state_dict=_model_state(torch, EFFICIENTNET))
+    engine.warmup()
+    runs = {"kernel": [], "plain": []}
+
+    def explain(path: str, record: bool = True) -> None:
+        set_use_kernels(engine.model, path == "kernel")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.explain_staged(canvas, sizes, smooth_samples=SMOOTH, seed=3)
+        if record:
+            runs[path].append(round((time.perf_counter() - t0) * 1e3, 2))
+
+    for path in ("kernel", "plain", "kernel", "plain"):
+        explain(path, record=False)
+    for _ in range(rounds):
+        for path in ("kernel", "plain", "plain", "kernel"):
+            explain(path)
+    set_use_kernels(engine.model, True)
+    log(f"  explain {EFFICIENTNET} bf16 n={SMOOTH} in turns (host clock, ms): kernel path "
+        f"{runs['kernel']} (median {statistics.median(runs['kernel']):.1f}), plain path "
+        f"{runs['plain']} (median {statistics.median(runs['plain']):.1f})")
+    del engine
+    torch.cuda.empty_cache()
 
 
 # what one explain step of each model launches: (forward kernel, its count, backward kernel)
@@ -2609,11 +3030,21 @@ def main() -> None:
     log("[5d] the device-decode lane on the card (entropy decode on the host, the rest on "
         "the device):")
     check_device_decode(torch)
+    log("[5d] restart segments on worker threads (host):")
+    check_threaded_decode()
+
+    log(f"[5e] {', '.join(DENSE_REGNET)} full width in-process (no kernel of the port on "
+        "their paths), and the pretrained import on the card:")
+    t5e = time.perf_counter()
+    check_dense_regnet(torch)
+    log(f"  [5e] took {time.perf_counter() - t5e:.1f} s")
 
     log(f"[6] main paths: python -m ics_tpu_torch.main serving {RESNET} (fused chains, "
         f"TPU_DEVICE_DECODE at its default: on), {VIT}, {CONVNEXT}, {SWIN} and {MOBILENET}, "
         "classify over HTTP:")
-    launches = check_drive(serve_and_drive())
+    drive = serve_and_drive()
+    launches = check_drive(drive)
+    check_served_answers(torch, drive)
     launches["flash_attention_bf16_exp"] = bf16_exp_launches
 
     log(f"[7] the ingestion front: python -m ics_tpu_torch.main ({RESNET}, fused chains) "
@@ -2633,6 +3064,7 @@ def main() -> None:
     log(f"[8b] explain at full width in-process ({CONVNEXT}, {SWIN}, {EFFICIENTNET}; fp32 and "
         f"bf16; n = 1 and {SMOOTH}), kernel path against plain path:")
     per_step = check_explain(torch)
+    time_explain_in_turns(torch)
     log(f"  backward launches an explain step: {json.dumps(per_step)}; [8b] took "
         f"{time.perf_counter() - t8b:.1f} s")
     t8c = time.perf_counter()

@@ -24,6 +24,7 @@ from urllib.parse import quote
 from ics_tpu_torch.crud import classificacao_crud
 from ics_tpu_torch.db.models import Classificacao, Imagem, Opcao, UsuarioAmbiente, Ambiente
 from ics_tpu_torch.services import auth_service
+from ics_tpu_torch.train.checkpoint import CONVERSION_TOOL, UnconvertedCheckpointError
 from ics_tpu_torch.web import HTTPException, JSONResponse, Request, Router
 
 router = Router(prefix="/classificacoes")
@@ -419,8 +420,9 @@ async def listar_historico_usuario(request: Request):
 async def _servico_arquivo_modelo(request: Request, db, id_amb: str):
     """What the upload routes (classificar-tpu, explicar) share: 503 without
     an engine, 422 without a 'file' part, and the trained version's service
-    where the ambiente has an active registered model. Returns
-    ``(service, file, modelo_row)``."""
+    where the ambiente has an active registered model; 503 naming the
+    conversion tool where that version is there only as the JAX trainer's
+    orbax checkpoint. Returns ``(service, file, modelo_row)``."""
     service = request.app.state.get("engine")
     pool = request.app.state.get("engine_pool")
     if service is None:
@@ -433,7 +435,13 @@ async def _servico_arquivo_modelo(request: Request, db, id_amb: str):
 
     modelo_row = modelo_crud.modelo_ativo(db, id_amb)
     if modelo_row is not None and pool is not None:
-        service = await pool.get_trained(modelo_row)
+        try:
+            service = await pool.get_trained(modelo_row)
+        except UnconvertedCheckpointError as exc:
+            raise HTTPException(
+                503, f"A versão {modelo_row.versao} do modelo treinado foi gravada pelo "
+                     f"treinador JAX (orbax) e ainda não foi convertida: execute "
+                     f"`python {CONVERSION_TOOL} {exc.directory}`.")
     return service, files[0], modelo_row
 
 

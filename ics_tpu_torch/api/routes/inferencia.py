@@ -11,7 +11,9 @@
   which kernels a stretch of traffic ran
 - ``POST /inferencia/profiler/start|stop`` — a ``torch.profiler`` trace (admin)
 
-``/inferencia/indexar`` waits for the embed lane.
+``POST /inferencia/indexar`` is not served yet: it reads the image's bytes
+through ``app.state.trainer`` (the training job manager, ``ROADMAP.md`` item
+7b), which the port does not have; the embed step it calls is served.
 """
 
 from __future__ import annotations

@@ -133,13 +133,17 @@ class FusedMBConv(nn.Module):
 
 class EfficientNet(nn.Module):
     """Stem, a list of blocks, a 1x1 head convolution, pooling and the
-    classifier. ``blocks`` is given by the subclass's constructor."""
+    classifier. ``blocks`` is given by the subclass's constructor;
+    ``stage_repeats`` says how many of them each stage of the spec holds
+    (torchvision's ``features.{stage}.{repeat}``, which the pretrained import
+    walks)."""
 
     def __init__(self, stem_ch: int, blocks: list, head_in: int, head_ch: int,
-                 num_classes: int, bn_eps: float, device=None):
+                 num_classes: int, bn_eps: float, stage_repeats: tuple = (), device=None):
         super().__init__()
         self.stem = ConvBN(3, stem_ch, 3, 2, padding=1, eps=bn_eps, device=device)
         self.blocks = nn.ModuleList(blocks)
+        self.stage_repeats = tuple(stage_repeats)
         self.conv_head = ConvBN(head_in, head_ch, 1, eps=bn_eps, device=device)
         self.head = Dense(head_ch, num_classes, device=device)
         self.num_classes = num_classes
@@ -180,7 +184,10 @@ def efficientnet_v1(width_mult: float, depth_mult: float, num_classes: int = 100
                                  device=device))
             in_ch = out_ch
     return EfficientNet(stem_ch, blocks, in_ch, round_filters(1280, width_mult),
-                        num_classes, bn_eps=1e-5, device=device)
+                        num_classes, bn_eps=1e-5,
+                        stage_repeats=tuple(round_repeats(spec[-1], depth_mult)
+                                            for spec in BASE_SPEC),
+                        device=device)
 
 
 def efficientnet_v2(spec=None, stem_ch: int = 24, head_ch: int = 1280,
@@ -188,14 +195,15 @@ def efficientnet_v2(spec=None, stem_ch: int = 24, head_ch: int = 1280,
     """EfficientNetV2: ``FusedMBConv`` early stages, ``MBConv`` after."""
     blocks = []
     in_ch = stem_ch
-    for kind, expand, out_ch, kernel, stride, repeats in spec or V2_S_SPEC:
+    spec = spec or V2_S_SPEC
+    for kind, expand, out_ch, kernel, stride, repeats in spec:
         block_cls = FusedMBConv if kind == "fused" else MBConv
         for r in range(repeats):
             blocks.append(block_cls(in_ch, out_ch, kernel, stride if r == 0 else 1, expand,
                                     bn_eps=_V2_BN_EPS, device=device))
             in_ch = out_ch
     return EfficientNet(stem_ch, blocks, in_ch, head_ch, num_classes, bn_eps=_V2_BN_EPS,
-                        device=device)
+                        stage_repeats=tuple(s[-1] for s in spec), device=device)
 
 
 def efficientnet_b0(num_classes: int = 1000, device=None) -> EfficientNet:

@@ -1,8 +1,8 @@
 """Registry of the ported models: name -> (constructor, preprocessing config).
 
 Counterpart of ``ics_tpu/models/registry.py`` with its own ``ModelSpec``
-and the JAX package's preprocessing sizes, holding only the models this
-port runs. ``build(num_classes=..., device=...)`` returns a module with
+and the JAX package's preprocessing sizes and descriptions: every model of
+the reference but the two TPU-only ``*_h?d128`` ViTs. ``build(num_classes=..., device=...)`` returns a module with
 uninitialised parameters; the engine fills them from a seed or from a
 state dict.
 """
@@ -12,7 +12,16 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable
 
-from ics_tpu_torch.models import convnext, efficientnet, mobilenetv3, resnet, swin, vit
+from ics_tpu_torch.models import (
+    convnext,
+    densenet,
+    efficientnet,
+    mobilenetv3,
+    regnet,
+    resnet,
+    swin,
+    vit,
+)
 
 
 @dataclass(frozen=True)
@@ -73,6 +82,18 @@ _REGISTRY: dict[str, ModelSpec] = {
         ModelSpec("swin_micro", swin.swin_micro, 64, 64,
                   "Swin micro (2 stages @64px) — dev/CI windowed-attention model",
                   dev_only=True),
+        ModelSpec("regnet_y_400mf", regnet.regnet_y_400mf, 224, 256,
+                  "RegNet-Y 400MF — NAS-designed SE-gated grouped bottlenecks "
+                  "(torchvision-checkpoint-compatible, 4,344,144 params)"),
+        ModelSpec("regnet_y_1_6gf", regnet.regnet_y_1_6gf, 224, 256,
+                  "RegNet-Y 1.6GF — larger Y variant "
+                  "(torchvision-checkpoint-compatible, 11,202,430 params)"),
+        ModelSpec("densenet121", densenet.densenet121, 224, 256,
+                  "DenseNet-121 — dense connectivity (pre-act BN folded to FMA "
+                  "pairs; torchvision-checkpoint-compatible, 7,978,856 params)"),
+        ModelSpec("densenet169", densenet.densenet169, 224, 256,
+                  "DenseNet-169 — deeper dense-connectivity variant "
+                  "(torchvision-checkpoint-compatible, 14,149,480 params)"),
         ModelSpec("mobilenetv3_small", mobilenetv3.mobilenetv3_small, 224, 256,
                   "MobileNetV3-Small — single-image latency config (BASELINE cfg 1)"),
         ModelSpec("efficientnet_b4", efficientnet.efficientnet_b4, 380, 412,

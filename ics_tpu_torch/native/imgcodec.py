@@ -141,7 +141,7 @@ def _parse_coeff_buffer(out, out_len) -> JpegCoefficients:
 # -- the port's own entropy decoder (jpeg_entropy.cpp, no libjpeg) -----------
 ENTROPY_SRC = _HERE / "jpeg_entropy.cpp"
 ENTROPY_BUILD_DIR = _HERE.parents[1] / "build" / "ics_tpu_torch"
-CXX_FLAGS = ("-std=c++17", "-O3", "-Wall", "-fPIC", "-shared")
+CXX_FLAGS = ("-std=c++17", "-O3", "-Wall", "-fPIC", "-shared", "-pthread")
 BUILD_TIMEOUT_S = 300
 
 _entropy_lock = threading.Lock()
@@ -194,12 +194,20 @@ def load_entropy() -> ctypes.CDLL:
             lib.icstpu_jpeg_entropy.argtypes = [
                 ctypes.c_char_p, ctypes.c_size_t,
                 ctypes.POINTER(ctypes.POINTER(ctypes.c_ubyte)),
-                ctypes.POINTER(ctypes.c_size_t),
+                ctypes.POINTER(ctypes.c_size_t), ctypes.c_int,
             ]
             lib.icstpu_jpeg_entropy.restype = ctypes.c_int
             lib.icstpu_entropy_free.argtypes = [ctypes.POINTER(ctypes.c_ubyte)]
+            lib.icstpu_entropy_threaded_scans.restype = ctypes.c_long
             _entropy = lib
         return _entropy
+
+
+# Below this file size the restart-segment threads are not started: a thread
+# and its copy of the decoder's tables cost more than a scan this small takes
+# to decode. The reference's figure (``ics_tpu/native/imgcodec.py``); tests
+# set it to 0 to drive the threads on small files.
+MT_MIN_BYTES = 96 * 1024
 
 
 def jpeg_coefficients(data: bytes, threads: int = 1) -> Optional[JpegCoefficients]:
@@ -208,19 +216,29 @@ def jpeg_coefficients(data: bytes, threads: int = 1) -> Optional[JpegCoefficient
     The port's own decoder (``jpeg_entropy.cpp``) gives what libjpeg's
     ``jpeg_read_coefficients`` gives; None for a file it declines (not a
     JPEG, damaged headers, lossless/hierarchical/arithmetic coding, 12-bit
-    samples, past the pixel cap). ``threads`` is taken for the reference's
-    signature and runs serially: the result is the same bits.
+    samples, past the pixel cap). ``threads > 1`` decodes the restart
+    segments of a file of at least ``MT_MIN_BYTES`` on that many threads
+    where the file allows it (baseline Huffman, DRI > 0, one scan of every
+    component, two segments or more, each ending on its expected RSTn); any
+    other file is decoded serially. The bits are the same either way.
     """
     lib = load_entropy()
     out = ctypes.POINTER(ctypes.c_ubyte)()
     out_len = ctypes.c_size_t()
-    rc = lib.icstpu_jpeg_entropy(data, len(data), ctypes.byref(out), ctypes.byref(out_len))
+    threads = int(threads) if len(data) >= MT_MIN_BYTES else 1
+    rc = lib.icstpu_jpeg_entropy(data, len(data), ctypes.byref(out), ctypes.byref(out_len),
+                                 threads)
     if rc != 0:
         return None
     try:
         return _parse_coeff_buffer(out, out_len)
     finally:
         lib.icstpu_entropy_free(out)
+
+
+def threaded_scans() -> int:
+    """Scans the restart-segment threads have decoded in this process."""
+    return int(load_entropy().icstpu_entropy_threaded_scans())
 
 
 def sha256_hex(data: bytes) -> Optional[str]:

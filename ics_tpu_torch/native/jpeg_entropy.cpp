@@ -19,12 +19,30 @@
 // segment is left zero. Every read is bounds-checked; no input can make
 // the decoder read or write outside its buffers.
 //
-// C ABI for ctypes: icstpu_jpeg_entropy() / icstpu_entropy_free().
+// Restart segments on worker threads (icstpu_jpeg_entropy's `threads`). Where the
+// encoder emitted restart markers (DRI > 0), the DC predictors reset and the
+// bit stream re-aligns at every RSTn, so the segments between markers decode
+// independently. A baseline (sequential Huffman) frame whose one scan holds
+// every component, of at least two segments, each ending on its expected
+// RSTn, is split at its markers and its segments decoded on several threads,
+// each from its own offset with its own bit buffer, straight into the one
+// coefficient buffer: segments own disjoint MCUs, so no locks are needed. A
+// segment is decoded by the same code as in the serial loop, from the state
+// restart() leaves, so the output is the serial output byte for byte. Every
+// other file, a damaged marker sequence included, takes the serial loop.
+//
+// C ABI for ctypes: icstpu_jpeg_entropy() / icstpu_entropy_free() /
+// icstpu_entropy_threaded_scans().
 
+#include <algorithm>
+#include <atomic>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
 #include <new>
+#include <system_error>
+#include <thread>
+#include <vector>
 
 #include "coeff_header.h"
 
@@ -36,6 +54,10 @@ constexpr int kMaxDimension = 65500;   // JPEG_MAX_DIMENSION
 constexpr int kMaxBlocksInMcu = 10;    // D_MAX_BLOCKS_IN_MCU
 constexpr int kLook = 9;               // Huffman look-ahead bits
 constexpr int kMinGetBits = 57;        // bits the buffer is filled to
+constexpr int kMaxThreads = 64;
+
+// scans decoded by the segment threads since the library was loaded
+std::atomic<long> g_threaded_scans(0);
 
 enum : int { kOk = 0, kMalformed = -1, kDeclined = -2, kAlloc = -5, kTooLarge = -6 };
 
@@ -193,11 +215,15 @@ struct Component {
 
 class Decoder {
  public:
-  Decoder(const uint8_t *data, size_t len) : src_{data, len, 0} {}
+  Decoder(const uint8_t *data, size_t len, int threads)
+      : src_{data, len, 0}, threads_(std::min(std::max(threads, 1), kMaxThreads)) {}
   ~Decoder() { free(out_); }
   int run(uint8_t **out, size_t *out_len);
 
  private:
+  // a worker's copy: the tables and the component planes, no buffer to own
+  Decoder(const Decoder &) = default;
+
   // markers (jdmarker.c)
   void next_marker();
   void read_sof(bool progressive);
@@ -216,7 +242,17 @@ class Decoder {
   int decode(const Huff &t);
   void restart();
   void resync(int desired);
+  struct Slot {  // a block of the MCU: its component in the scan, its place
+    int s, dy, dx;
+  };
   void decode_scan();
+  int setup_scan(Slot *slots, int *mcus_x, int *mcus_y);
+  void mcu_blocks(int my, int mx, const Slot *slots, int nblocks,
+                  int16_t (*scratch)[64], int16_t **blocks) const;
+  bool segment_offsets(long nseg, std::vector<size_t> *starts, size_t *end) const;
+  bool decode_segments_mt(const Slot *slots, int nblocks, int mcus_x, int mcus_y);
+  void decode_segment(const Slot *slots, int nblocks, int mcus_x, long total,
+                      long seg, size_t start);
   void mcu_baseline(int16_t **blocks, int nblocks);
   void mcu_dc_first(int16_t **blocks, int nblocks);
   void mcu_dc_refine(int16_t **blocks, int nblocks);
@@ -245,6 +281,7 @@ class Decoder {
   int left_ = 0;
   uint8_t *out_ = nullptr;
   size_t out_len_ = 0;
+  int threads_ = 1;
 };
 
 void Decoder::next_marker() {
@@ -623,8 +660,12 @@ void Decoder::mcu_ac_refine(int16_t *block) {
   }
 }
 
-void Decoder::decode_scan() {
-  // jdphuff.c start_pass_phuff_decoder's checks of the scan's parameters
+// The scan's set-up, shared by the serial loop and the segment threads:
+// jdphuff.c start_pass_phuff_decoder's checks, jdinput.c per_scan_setup (the
+// MCU's blocks and the scan's MCU grid) and latch_quant_tables, the entropy
+// decoder's start_pass (tables, predictors, bit buffer). Returns the blocks
+// in an MCU.
+int Decoder::setup_scan(Slot *slots, int *mcus_x, int *mcus_y) {
   bool dc_band = ss_ == 0;
   if (progressive_) {
     bool bad = dc_band ? se_ != 0 : (ss_ > se_ || se_ > 63 || scan_n_ != 1);
@@ -632,19 +673,15 @@ void Decoder::decode_scan() {
     if (al_ > 13) bad = true;
     if (bad) fail();
   }
-  // jdinput.c per_scan_setup: the MCU's blocks and the scan's MCU grid
-  struct Slot {
-    int s, dy, dx;
-  } slots[kMaxBlocksInMcu];
-  int nblocks = 0, mcus_x, mcus_y;
+  int nblocks = 0;
   if (scan_n_ == 1) {
     const Component &cp = comp_[scan_comp_[0]];
-    mcus_x = cp.bw;
-    mcus_y = cp.bh;
+    *mcus_x = cp.bw;
+    *mcus_y = cp.bh;
     slots[nblocks++] = {0, 0, 0};
   } else {
-    mcus_x = (width_ + 8 * max_h_ - 1) / (8 * max_h_);
-    mcus_y = (height_ + 8 * max_v_ - 1) / (8 * max_v_);
+    *mcus_x = (width_ + 8 * max_h_ - 1) / (8 * max_h_);
+    *mcus_y = (height_ + 8 * max_v_ - 1) / (8 * max_v_);
     for (int s = 0; s < scan_n_; s++) {
       const Component &cp = comp_[scan_comp_[s]];
       if (nblocks + cp.h * cp.v > kMaxBlocksInMcu) fail();
@@ -652,7 +689,6 @@ void Decoder::decode_scan() {
         for (int dx = 0; dx < cp.h; dx++) slots[nblocks++] = {s, dy, dx};
     }
   }
-  // jdinput.c latch_quant_tables
   for (int s = 0; s < scan_n_; s++) {
     Component &cp = comp_[scan_comp_[s]];
     if (cp.latched) continue;
@@ -660,7 +696,6 @@ void Decoder::decode_scan() {
     memcpy(cp.quant, qt_[cp.tq], sizeof(cp.quant));
     cp.latched = true;
   }
-  // the entropy decoder's start_pass: tables, predictors, bit buffer
   for (int s = 0; s < scan_n_; s++) {
     if (progressive_) {
       if (dc_band) {
@@ -684,24 +719,40 @@ void Decoder::decode_scan() {
   buf_ = 0;
   left_ = 0;
   restarts_to_go_ = restart_interval_;
+  for (int b = 0; b < nblocks; b++) block_comp_[b] = slots[b].s;
+  return nblocks;
+}
 
+// Where the blocks of MCU (my, mx) go: their place in the component's plane,
+// or, for a dummy block of an interleaved MCU, a zeroed scratch block that is
+// decoded and dropped.
+void Decoder::mcu_blocks(int my, int mx, const Slot *slots, int nblocks,
+                         int16_t (*scratch)[64], int16_t **blocks) const {
+  for (int b = 0; b < nblocks; b++) {
+    const Component &cp = comp_[scan_comp_[slots[b].s]];
+    int row = scan_n_ == 1 ? my : my * cp.v + slots[b].dy;
+    int col = scan_n_ == 1 ? mx : mx * cp.h + slots[b].dx;
+    if (row < cp.bh && col < cp.bw) {
+      blocks[b] = cp.coeffs + (size_t(row) * cp.bw + col) * 64;
+    } else {
+      memset(scratch[b], 0, sizeof(scratch[b]));
+      blocks[b] = scratch[b];
+    }
+  }
+}
+
+void Decoder::decode_scan() {
+  Slot slots[kMaxBlocksInMcu];
+  int mcus_x, mcus_y;
+  int nblocks = setup_scan(slots, &mcus_x, &mcus_y);
+  if (threads_ > 1 && decode_segments_mt(slots, nblocks, mcus_x, mcus_y)) return;
   alignas(16) int16_t scratch[kMaxBlocksInMcu][64];
   int16_t *blocks[kMaxBlocksInMcu];
-  for (int b = 0; b < nblocks; b++) block_comp_[b] = slots[b].s;
+  bool dc_band = ss_ == 0;
   for (int my = 0; my < mcus_y; my++) {
     for (int mx = 0; mx < mcus_x; mx++) {
       if (restart_interval_ && restarts_to_go_ == 0) restart();
-      for (int b = 0; b < nblocks; b++) {
-        const Component &cp = comp_[scan_comp_[slots[b].s]];
-        int row = scan_n_ == 1 ? my : my * cp.v + slots[b].dy;
-        int col = scan_n_ == 1 ? mx : mx * cp.h + slots[b].dx;
-        if (row < cp.bh && col < cp.bw) {
-          blocks[b] = cp.coeffs + (size_t(row) * cp.bw + col) * 64;
-        } else {  // a dummy block of an interleaved MCU: decoded, dropped
-          memset(scratch[b], 0, sizeof(scratch[b]));
-          blocks[b] = scratch[b];
-        }
-      }
+      mcu_blocks(my, mx, slots, nblocks, scratch, blocks);
       if (!progressive_)
         mcu_baseline(blocks, nblocks);
       else if (dc_band)
@@ -712,6 +763,110 @@ void Decoder::decode_scan() {
     }
   }
   left_ = 0;  // the rest of the bit buffer is dropped at the scan's end
+}
+
+// The byte offset of each restart segment of the scan that starts at the
+// source's position, and of the marker that ends the scan, read as the bit
+// reader and next_marker() read the stream (FF 00 is data, FF FF fill). True
+// only when there are exactly nseg - 1 markers in between and the i-th is
+// RST(i mod 8), so that the serial decoder's restart() would meet each one
+// where it expects it.
+bool Decoder::segment_offsets(long nseg, std::vector<size_t> *starts, size_t *end) const {
+  const uint8_t *d = src_.data;
+  const size_t len = src_.len;
+  starts->clear();
+  starts->push_back(src_.pos);
+  size_t p = src_.pos;
+  for (;;) {
+    const void *ff = p < len ? memchr(d + p, 0xFF, len - p) : nullptr;
+    if (!ff) return false;  // no marker ends the scan: the serial loop decides
+    p = size_t(static_cast<const uint8_t *>(ff) - d) + 1;
+    while (p < len && d[p] == 0xFF) p++;
+    if (p >= len) return false;
+    int m = d[p++];
+    if (m == 0) continue;  // stuffed data
+    if (m < 0xD0 || m > 0xD7) {
+      *end = p;  // just past the marker, as the bit reader leaves the source
+      return long(starts->size()) == nseg;
+    }
+    if (long(starts->size()) >= nseg || m != 0xD0 + int((starts->size() - 1) & 7))
+      return false;
+    starts->push_back(p);
+  }
+}
+
+// One restart segment, from the state restart() leaves when it has found
+// the expected marker: an empty bit buffer, zero predictors, no marker.
+void Decoder::decode_segment(const Slot *slots, int nblocks, int mcus_x, long total,
+                             long seg, size_t start) {
+  src_.pos = start;
+  marker_ = 0;
+  buf_ = 0;
+  left_ = 0;
+  insufficient_ = false;
+  for (int i = 0; i < 4; i++) last_dc_[i] = 0;
+  alignas(16) int16_t scratch[kMaxBlocksInMcu][64];
+  int16_t *blocks[kMaxBlocksInMcu];
+  const long first = seg * restart_interval_;
+  const long last = std::min(total, first + restart_interval_);
+  for (long m = first; m < last; m++) {
+    mcu_blocks(int(m / mcus_x), int(m % mcus_x), slots, nblocks, scratch, blocks);
+    mcu_baseline(blocks, nblocks);
+  }
+}
+
+// The scan's segments on up to threads_ threads (this one among them), in
+// runs of contiguous segments taken from a shared counter, about two runs a
+// thread. False, with nothing decoded or read, when the scan is not
+// eligible; the serial loop then decodes it.
+bool Decoder::decode_segments_mt(const Slot *slots, int nblocks, int mcus_x, int mcus_y) {
+  if (progressive_ || scan_n_ != ncomp_ || restart_interval_ <= 0) return false;
+  const long total = long(mcus_x) * mcus_y;
+  const long nseg = (total + restart_interval_ - 1) / restart_interval_;
+  if (nseg < 2) return false;
+  std::vector<size_t> starts;
+  size_t end = 0;
+  if (!segment_offsets(nseg, &starts, &end)) return false;
+  const long per_run = std::max(1L, (nseg + 2L * threads_ - 1) / (2L * threads_));
+  const long runs = (nseg + per_run - 1) / per_run;
+  std::atomic<long> next(0);
+  std::atomic<bool> failed(false);
+  auto work = [&]() {
+    try {
+      Decoder w(*this);
+      w.out_ = nullptr;
+      for (long r = next.fetch_add(1); r < runs; r = next.fetch_add(1))
+        for (long seg = r * per_run; seg < std::min(nseg, (r + 1) * per_run); seg++)
+          w.decode_segment(slots, nblocks, mcus_x, total, seg, starts[size_t(seg)]);
+    } catch (...) {
+      failed = true;
+    }
+  };
+  std::vector<std::thread> pool;
+  const long helpers = std::min<long>(threads_, runs) - 1;
+  for (long t = 0; t < helpers; t++) {
+    try {
+      pool.emplace_back(work);
+    } catch (const std::system_error &) {
+      break;  // no thread to be had: the others take its runs
+    }
+  }
+  work();
+  for (auto &t : pool) t.join();
+  if (failed) {  // the serial loop decodes it again, from zeroed planes
+    for (int s = 0; s < scan_n_; s++) {
+      const Component &cp = comp_[scan_comp_[s]];
+      memset(cp.coeffs, 0, size_t(cp.bw) * cp.bh * 64 * sizeof(int16_t));
+    }
+    return false;
+  }
+  g_threaded_scans++;
+  // where the serial loop leaves the reader: past the scan's closing marker
+  src_.pos = end;
+  marker_ = src_.data[end - 1];
+  buf_ = 0;
+  left_ = 0;
+  return true;
 }
 
 int Decoder::run(uint8_t **out, size_t *out_len) {
@@ -804,10 +959,13 @@ extern "C" {
 //   [CoeffHeader][comp0 coeffs int16 (blocks_h*blocks_w*64)][comp1 ...]
 // which the caller frees with icstpu_entropy_free. Nonzero: -1 malformed,
 // -2 declined (another coding process or precision), -5 out of memory,
-// -6 past the pixel cap.
-int icstpu_jpeg_entropy(const uint8_t *data, size_t len, uint8_t **out, size_t *out_len) {
+// -6 past the pixel cap. ``threads`` > 1 decodes the restart segments of an
+// eligible scan on that many threads (at most kMaxThreads); 1 decodes
+// serially. The output is the same.
+int icstpu_jpeg_entropy(const uint8_t *data, size_t len, uint8_t **out, size_t *out_len,
+                        int threads) {
   try {
-    Decoder dec(data, len);  // its destructor frees the buffer on a failure
+    Decoder dec(data, len, threads);  // its destructor frees the buffer on a failure
     return dec.run(out, out_len);
   } catch (const Failure &f) {
     return f.rc;
@@ -817,5 +975,7 @@ int icstpu_jpeg_entropy(const uint8_t *data, size_t len, uint8_t **out, size_t *
 }
 
 void icstpu_entropy_free(uint8_t *p) { free(p); }
+
+long icstpu_entropy_threaded_scans() { return g_threaded_scans.load(); }
 
 }  // extern "C"

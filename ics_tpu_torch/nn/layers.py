@@ -243,6 +243,15 @@ def max_pool(x: torch.Tensor, window: int = 3, stride: int = 2,
     return y.permute(0, 2, 3, 1)
 
 
+def avg_pool(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor:
+    """Average pooling on NHWC, unpadded (VALID), every window counted whole:
+    the torch ``AvgPool2d(k, s)`` of DenseNet's transitions
+    (``ics_tpu/nn/layers.py:206-217``). The sums are taken in fp32 and the
+    mean rounded once to the input's dtype, as the reference's are."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2).float(), window, stride)
+    return y.to(x.dtype).permute(0, 2, 3, 1)
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(1, 2))
 

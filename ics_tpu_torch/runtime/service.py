@@ -52,6 +52,7 @@ from ics_tpu_torch.runtime.device_decode import (
 )
 from ics_tpu_torch.utils.metrics import registry as metrics_registry
 from ics_tpu_torch.runtime.engine import InferenceEngine
+from ics_tpu_torch.train.checkpoint import UnconvertedCheckpointError
 
 logger = logging.getLogger(__name__)
 
@@ -68,10 +69,6 @@ def warn_unserved_settings() -> None:
     """Say once, at warning level, each setting that the port takes and does
     not serve yet, so that a deployment that relies on one is not left to
     find out from its traffic."""
-    if settings.TPU_DECODE_THREADS > 1:
-        _warn_once("decode_threads",
-                   f"TPU_DECODE_THREADS={settings.TPU_DECODE_THREADS}, but restart-segment "
-                   "threads are not ported yet: each JPEG is entropy-decoded on one thread")
     if settings.TPU_SERVING_REPLICAS > 1:
         _warn_once("serving_replicas",
                    f"TPU_SERVING_REPLICAS={settings.TPU_SERVING_REPLICAS}, but hedged "
@@ -441,6 +438,8 @@ class InferenceService:
             },
             "device_errors": self._device_errors,
             "device_decode": self.device_decode,
+            # scans of this process's JPEGs decoded on TPU_DECODE_THREADS threads
+            "entropy_threaded_scans": imgcodec.threaded_scans() if self.device_decode else 0,
             "decode_lanes_warming": (self._lane_warm_task is not None
                                      and not self._lane_warm_task.done()),
             **self._stats,
@@ -541,7 +540,9 @@ class InferenceServicePool:
         is multi-label. Keyed by (ambiente, version, model id), so promoting a
         version swaps services; the older versions of the ambiente are evicted
         and stopped in the background once drained (a request still holding a
-        demoted row never evicts a newer version)."""
+        demoted row never evicts a newer version). A version the JAX trainer
+        wrote (orbax steps alone) raises ``UnconvertedCheckpointError``, which
+        names the conversion tool; the routes answer it with a 503."""
         key = f"trained:{modelo_row.id_amb}:{modelo_row.versao}:{modelo_row.id_mod}"
         service = self._services.get(key)
         if service is not None:
@@ -574,7 +575,11 @@ class InferenceServicePool:
 
                 return self._build_service(make_engine)
 
-            service = await asyncio.get_running_loop().run_in_executor(None, build)
+            try:
+                service = await asyncio.get_running_loop().run_in_executor(None, build)
+            except UnconvertedCheckpointError as exc:
+                _warn_once(key, f"{key} cannot be served: {exc}")
+                raise
             await service.start()
             service = await self._register(key, service)
             prefix = f"trained:{modelo_row.id_amb}:"

@@ -3,9 +3,14 @@
 The reference's interface (``save``, ``latest_step``, ``restore``, ``close``,
 ``max_to_keep``) over ``torch.save``: one file a step, ``step_<n>.pt`` under
 the directory, holding the port's state dict and, when given, the optimizer
-state and a metadata dict. The JAX trainer's orbax checkpoints are not read
-here; weights of the JAX package cross over through ``ics_tpu_torch.weights``
-and are then saved with this manager.
+state and a metadata dict.
+
+The JAX trainer's orbax checkpoints (a directory per step, named by the
+step) are not read here: the port imports no orbax. A directory that holds
+them and no ``step_<n>.pt`` raises ``UnconvertedCheckpointError``, which
+names ``convert_checkpoints.py`` at the root of the repository: that tool
+reads the orbax steps with the JAX package and writes ``step_<n>.pt``
+beside them through ``ics_tpu_torch.weights``.
 """
 
 from __future__ import annotations
@@ -18,6 +23,28 @@ from typing import Any, Optional
 import torch
 
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
+CONVERSION_TOOL = "convert_checkpoints.py"
+
+
+class UnconvertedCheckpointError(FileNotFoundError):
+    """The directory holds orbax steps of the JAX trainer and no checkpoint
+    of the port: ``convert_checkpoints.py`` writes them."""
+
+    def __init__(self, directory: Path, steps: list[int]):
+        self.directory = directory
+        self.steps = steps
+        super().__init__(
+            f"{directory} holds orbax steps {steps} of the JAX trainer and no step_<n>.pt; "
+            f"convert them with `python {CONVERSION_TOOL} {directory}`")
+
+
+def orbax_steps(directory: str | Path) -> list[int]:
+    """The steps of the orbax checkpoints in ``directory`` (a subdirectory
+    each, named by the step), oldest first."""
+    directory = Path(directory)
+    if not directory.is_dir():
+        return []
+    return sorted(int(p.name) for p in directory.iterdir() if p.is_dir() and p.name.isdigit())
 
 
 class CheckpointManager:
@@ -57,8 +84,14 @@ class CheckpointManager:
 
     def restore(self, step: Optional[int] = None) -> dict:
         """``{"state_dict": ..., ["opt_state": ...], ["metadata": ...]}`` of
-        ``step`` (default: the latest), tensors on the CPU."""
+        ``step`` (default: the latest), tensors on the CPU. Raises
+        ``UnconvertedCheckpointError`` where that step is there only as an
+        orbax checkpoint of the JAX trainer."""
         step = step if step is not None else self.latest_step()
+        if step is None or not self._path(step).exists():
+            orbax = orbax_steps(self.directory)
+            if orbax and (step is None or step in orbax):
+                raise UnconvertedCheckpointError(self.directory, orbax)
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         return torch.load(self._path(step), map_location="cpu", weights_only=True)

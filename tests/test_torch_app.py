@@ -90,8 +90,10 @@ async def test_routes_of_the_port(served):
     h = await _admin(client)
     r = await client.get("/inferencia/modelos", headers=h)
     names = [m["nome"] for m in r.json()["modelos"]]
-    assert names == ["convnext_small", "convnext_tiny", "efficientnet_b0", "efficientnet_b4",
+    assert names == ["convnext_small", "convnext_tiny", "densenet121", "densenet169",
+                     "efficientnet_b0", "efficientnet_b4",
                      "efficientnet_v2_m", "efficientnet_v2_s", "mobilenetv3_small",
+                     "regnet_y_1_6gf", "regnet_y_400mf",
                      "resnet101", "resnet152", "resnet18", "resnet34", "resnet50",
                      "resnext50_32x4d", "swin_base", "swin_small", "swin_tiny", "vit_b16",
                      "vit_l16", "vit_s16", "wide_resnet50_2"]   # dev models stay hidden
@@ -134,7 +136,7 @@ def public_dev_models():
     """One dev-size model per new family, registered at 64 px as public
     names, so that ``?modelo=`` reaches them."""
     import ics_tpu_torch.models.registry as registry
-    from ics_tpu_torch.models import convnext, efficientnet, mobilenetv3, swin
+    from ics_tpu_torch.models import convnext, densenet, efficientnet, mobilenetv3, regnet, swin
 
     constructors = {
         "convnext_dev": lambda num_classes, device=None: convnext.ConvNeXt(
@@ -143,6 +145,8 @@ def public_dev_models():
         "efficientnet_dev": lambda num_classes, device=None: efficientnet.efficientnet_v1(
             0.25, 0.5, num_classes=num_classes, device=device),
         "swin_dev": swin.swin_micro,
+        "densenet_dev": densenet.densenet_micro,
+        "regnet_dev": regnet.regnet_micro,
     }
     for name, build in constructors.items():
         registry._REGISTRY[name] = registry.ModelSpec(name, build, 64, 64)
@@ -155,7 +159,7 @@ def public_dev_models():
 
 @pytest.mark.anyio
 @pytest.mark.parametrize("name", ["convnext_dev", "mobilenetv3_dev", "efficientnet_dev",
-                                  "swin_dev"])
+                                  "swin_dev", "densenet_dev", "regnet_dev"])
 async def test_classify_with_modelo_builds_and_serves_the_new_families(
         served, public_dev_models, name):
     app, client, _ = served
@@ -361,14 +365,14 @@ _UNSERVED = {
     "TPU_SERVING_REPLICAS": ("2", "TPU_SERVING_REPLICAS"),
     "TPU_MESH_SHAPE": ("2,1", "TPU_MESH_SHAPE"),
     "TPU_PP_STAGES": ("2", "TPU_PP_STAGES"),
-    "TPU_DECODE_THREADS": ("4", "TPU_DECODE_THREADS"),
 }
 # served since the sync engine, classify-on-sync and the embed step were
-# ported: taken with no notice (NEXTCLOUD_BASE_URL with TPU_CLASSIFY_ON_SYNC
-# at its default, on)
+# ported (NEXTCLOUD_BASE_URL with TPU_CLASSIFY_ON_SYNC at its default, on),
+# and restart segments on worker threads: taken with no notice
 _SERVED = {
     "TPU_EMBED_ON_SYNC": "true",
     "NEXTCLOUD_BASE_URL": "https://cloud.example.com",
+    "TPU_DECODE_THREADS": "4",
 }
 
 
@@ -474,10 +478,11 @@ def _seed_ambiente(db, image: bytes) -> dict:
                 "hash": sha256_hex(image)}
 
 
-def _register_version(db, amb: dict, directory, temperature=2.0) -> None:
+def _register_version(db, amb: dict, directory, temperature=2.0, port_copy=True) -> None:
     """Version 1 of ``resnet_tiny`` over the ambiente's options, active, its
     weights in ``directory`` twice: orbax (the reference's manager) and
-    ``torch.save`` (the port's), from one randomised tree."""
+    ``torch.save`` (the port's), from one randomised tree; with
+    ``port_copy=False`` orbax alone, as the JAX trainer leaves it."""
     from ics_tpu.core import timezone as tz
     from ics_tpu.db import models as m
     from ics_tpu.train.checkpoint import CheckpointManager as JaxManager
@@ -489,7 +494,8 @@ def _register_version(db, amb: dict, directory, temperature=2.0) -> None:
     mgr = JaxManager(directory)
     mgr.save(3, variables)
     mgr.close()
-    CheckpointManager(directory).save(3, weights.from_jax_variables(variables))
+    if port_copy:
+        CheckpointManager(directory).save(3, weights.from_jax_variables(variables))
     with db.session() as s:
         s.add(m.ModeloTreinado(
             id_amb=amb["id_amb"], nome_modelo="resnet_tiny", versao=1, num_classes=3,
@@ -659,6 +665,75 @@ async def test_a_trained_version_serves_both_routes_as_the_reference(both_apps, 
         assert len(rows) == 1
         row = rows[0]
         assert row.versao == 1 and row.modelo == "resnet_tiny" and len(row.classes) == 3
+
+
+@pytest.mark.anyio
+async def test_a_version_the_jax_trainer_wrote_is_served_after_conversion(both_apps, tmp_path):
+    """A version whose directory holds the JAX trainer's orbax steps alone:
+    the reference serves it; the port answers 503 naming the conversion tool
+    and the directory; once ``convert_checkpoints.py`` has run over the
+    database, the port serves the reference's top-5 and scores."""
+    import convert_checkpoints
+    from ics_tpu_torch.train.checkpoint import CONVERSION_TOOL
+
+    apps, clients, amb, image = both_apps
+    directory = tmp_path / "jax_v1"
+    _register_version(apps["ref"].state.db, amb, directory, port_copy=False)
+    assert not list(directory.glob("step_*.pt"))
+    base = f"/classificacoes/ambiente/{amb['id_amb']}"
+    paths = ("/classificar-tpu", "/explicar")
+    for path in paths:
+        r = await _post_both(clients, base + path, image)
+        assert r["ref"].status_code == 200, r["ref"].text
+        assert r["port"].status_code == 503, r["port"].text
+        detail = r["port"].json()["detail"]
+        assert CONVERSION_TOOL in detail and str(directory) in detail
+    assert convert_checkpoints.main(["--database-url", f"sqlite:///{tmp_path}/shared.db"]) == 0
+    assert [p.name for p in directory.glob("step_*.pt")] == ["step_3.pt"]
+    assert convert_checkpoints.convert_directory(directory) == []      # done once
+    for path in paths:
+        r = await _post_both(clients, base + path, image)
+        assert r["ref"].status_code == r["port"].status_code == 200, (path, r["port"].text)
+        ref, got = r["ref"].json(), r["port"].json()
+        assert got["modelo_versao"] == ref["modelo_versao"] == 1
+        assert [o["id_opc"] for o in got["opcoes"]] == [o["id_opc"] for o in ref["opcoes"]]
+        np.testing.assert_allclose([o["score"] for o in got["opcoes"]],
+                                   [o["score"] for o in ref["opcoes"]], atol=2e-4, rtol=1e-4)
+
+
+def test_the_conversion_tool_writes_what_the_port_restores(tmp_path):
+    """``convert_checkpoints.py`` on a directory: every orbax step gets its
+    ``step_<n>.pt``, holding ``weights.from_jax_variables`` of that step's
+    tree and its metadata as plain values; the port's manager raises the
+    named error before and restores after; a directory with neither is an
+    error (exit 1)."""
+    import torch
+
+    import convert_checkpoints
+    from ics_tpu.train.checkpoint import CheckpointManager as JaxManager
+    from ics_tpu_torch import weights
+    from ics_tpu_torch.train.checkpoint import CheckpointManager, UnconvertedCheckpointError
+    from tests.test_torch_engine_pairs import variables_of
+
+    trees = {2: variables_of("resnet_tiny", 3, seed=1), 5: variables_of("resnet_tiny", 3, seed=2)}
+    mgr = JaxManager(tmp_path / "v")
+    for step, tree in trees.items():
+        mgr.save(step, tree, metadata={"epoch": step, "acc": 0.5})
+    mgr.close()
+    with pytest.raises(UnconvertedCheckpointError, match="convert_checkpoints.py") as err:
+        CheckpointManager(tmp_path / "v").restore()
+    assert err.value.steps == [2, 5] and isinstance(err.value, FileNotFoundError)
+    assert convert_checkpoints.main([str(tmp_path / "v")]) == 0
+    port = CheckpointManager(tmp_path / "v")
+    assert port.steps() == [2, 5]
+    for step, tree in trees.items():
+        got = port.restore(step)
+        want = weights.from_jax_variables(tree)
+        assert set(got["state_dict"]) == set(want)
+        assert all(torch.equal(got["state_dict"][k], want[k]) for k in want)
+        assert got["metadata"] == {"epoch": step, "acc": 0.5}
+    (tmp_path / "empty").mkdir()
+    assert convert_checkpoints.main([str(tmp_path / "empty")]) == 1
 
 
 @pytest.mark.anyio

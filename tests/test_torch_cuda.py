@@ -36,6 +36,10 @@ passes of the explain step against autograd of their plain versions: the
 largest error at most 1e-4 (fp32) and 2e-2 (bf16) of the largest gradient,
 the same bars as ``chip_smoke.py`` phase 8; explain on the card, kernel path
 against plain path in fp32: the same top-k, heat maps within 1e-4.
+DenseNet-121 and RegNet-Y 400MF in bf16 against fp32 on the card: the top-1
+equal wherever the fp32 margin exceeds twice the largest deviation, and no
+kernel of the port launched; a pretrained file written by ``save_npz`` and
+loaded onto the card: the seeded engine's logits exactly.
 """
 
 import numpy as np
@@ -1137,3 +1141,67 @@ def test_explain_on_the_card_kernel_path_against_plain_path(cuda_device, model):
     assert out[False, "launches"][fwd] == out[False, "launches"][bwd] == 0
     np.testing.assert_array_equal(out[True][0], out[False][0])
     np.testing.assert_allclose(out[True][2], out[False][2], atol=1e-4)
+
+
+def _folded_logits(engine, canvas, sizes):
+    staged = engine._to_device(canvas, sizes)
+    with torch.inference_mode():
+        return engine.model.apply_folded(engine._preprocess(*staged, False)).float().cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["densenet121", "regnet_y_400mf"])
+def test_dense_and_regnet_bf16_engine_step_on_the_card_against_fp32(cuda_device, model):
+    """The bf16 engine on the card against the fp32 engine on the card (seed
+    0): finite logits, the top-1 equal on every image whose fp32 margin
+    between its first two classes exceeds twice the largest deviation, the
+    served step's top-k the logits' own, and no kernel of the port launched
+    (none is on these paths)."""
+    from ics_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+
+    rng = np.random.default_rng(4)
+    canvas = rng.integers(0, 256, (8, 256, 256, 3), np.uint8)
+    sizes = rng.integers(150, 257, (8, 2)).astype(np.int32)
+    f32 = InferenceEngine(model, precision="fp32", buckets=(8,), canvas=256, device=cuda_device)
+    b16 = InferenceEngine(model, precision="bf16", buckets=(8,), canvas=256, device=cuda_device)
+    ref, got = _folded_logits(f32, canvas, sizes), _folded_logits(b16, canvas, sizes)
+    assert torch.isfinite(got).all()
+    dev = (got - ref).abs().max().item()
+    top2 = ref.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * dev
+    assert decided.any()
+    assert bool((got.argmax(-1) == ref.argmax(-1))[decided].all())
+    reset_launch_counts()
+    idx, _ = b16.predict_staged(canvas, sizes)
+    assert not any(launch_counts().values())
+    np.testing.assert_array_equal(idx[:, 0], got.argmax(-1).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["regnet_y_400mf", "densenet121"])
+def test_a_pretrained_file_loads_onto_the_card(cuda_device, model, tmp_path):
+    """The port's ``save_npz`` of a seeded model, loaded by ``load_pretrained``
+    into an fp32 engine on the card, gives the seeded engine's logits
+    exactly; and with a new head (``num_classes``) the backbone's features
+    are the seeded model's."""
+    from ics_tpu_torch.models.registry import get_model
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+    from ics_tpu_torch.train.pretrained import load_pretrained, save_npz
+
+    seeded = get_model(model).build(num_classes=1000)
+    seeded.init_weights(torch.Generator().manual_seed(0))
+    save_npz(tmp_path / "w.npz", seeded.state_dict())
+    _, state_dict = load_pretrained(model, tmp_path / "w.npz")
+    rng = np.random.default_rng(1)
+    canvas = rng.integers(0, 256, (4, 256, 256, 3), np.uint8)
+    sizes = np.full((4, 2), 256, np.int32)
+    kw = dict(precision="fp32", buckets=(4,), canvas=256, device=cuda_device)
+    loaded = InferenceEngine(model, state_dict=state_dict, **kw)
+    assert next(loaded.model.parameters()).is_cuda
+    assert torch.equal(_folded_logits(loaded, canvas, sizes),
+                       _folded_logits(InferenceEngine(model, seed=0, **kw), canvas, sizes))
+    _, new_head = load_pretrained(model, tmp_path / "w.npz", num_classes=7, seed=3)
+    engine = InferenceEngine(model, num_classes=7, state_dict=new_head, **kw)
+    idx, scores = engine.predict_staged(canvas, sizes)
+    assert idx.shape == (4, 5) and np.isfinite(scores).all()

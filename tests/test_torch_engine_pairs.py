@@ -8,7 +8,8 @@ scales and norm gains in [0.5, 1.5], biases N(0, 0.1), Swin's table
 N(0, 0.5), so that every branch, and the kernels in it, reaches the
 logits), and a port engine on the CPU from the same tree through
 ``weights.py``. ``dev_models`` registers ``convnext_dev`` (one block a stage,
-dims 16-128, at 64 px) in both registries, and in the port's
+dims 16-128, at 64 px), ``densenet_micro`` and ``regnet_micro`` (the
+families' dev models, at 64 px) in both registries, and in the port's
 ``resnet_2211``, a ResNet whose first two stages have an identity
 bottleneck for ``fold(fused_chains=True)`` to chain.
 """
@@ -41,12 +42,16 @@ def randomise(tree, rng, path=()):
 
 @contextlib.contextmanager
 def dev_models():
-    """``convnext_dev`` in the JAX registry and the port's, ``resnet_2211`` in
-    the port's, at 64 px."""
+    """``convnext_dev``, ``densenet_micro`` and ``regnet_micro`` in the JAX
+    registry and the port's, ``resnet_2211`` in the port's, at 64 px."""
     import ics_tpu.models.registry as jax_registry
     import ics_tpu_torch.models.registry as torch_registry
     from ics_tpu.models import convnext as jax_convnext
+    from ics_tpu.models import densenet as jax_densenet
+    from ics_tpu.models import regnet as jax_regnet
     from ics_tpu_torch.models import convnext as torch_convnext
+    from ics_tpu_torch.models import densenet as torch_densenet
+    from ics_tpu_torch.models import regnet as torch_regnet
     from ics_tpu_torch.models import resnet as torch_resnet
 
     jax_registry.get_model("resnet_tiny")          # the registry fills itself on first use
@@ -59,11 +64,18 @@ def dev_models():
     torch_registry._REGISTRY["resnet_2211"] = torch_registry.ModelSpec(
         "resnet_2211", lambda num_classes, device=None: torch_resnet.ResNet(
             (2, 2, 1, 1), num_classes, device=device), 64, 64, dev_only=True)
+    micro = {"densenet_micro": (jax_densenet, torch_densenet),
+             "regnet_micro": (jax_regnet, torch_regnet)}
+    for name, (jax_module, torch_module) in micro.items():
+        jax_registry.register_model(name, getattr(jax_module, name), 64, 64, dev_only=True)
+        torch_registry._REGISTRY[name] = torch_registry.ModelSpec(
+            name, getattr(torch_module, name), 64, 64, dev_only=True)
     try:
         yield
     finally:
-        del jax_registry._REGISTRY["convnext_dev"]
-        del torch_registry._REGISTRY["convnext_dev"]
+        for name in ("convnext_dev", *micro):
+            del jax_registry._REGISTRY[name]
+            del torch_registry._REGISTRY[name]
         del torch_registry._REGISTRY["resnet_2211"]
 
 
@@ -101,5 +113,9 @@ def test_dev_models_register_in_both_registries_and_leave_none_behind():
         assert torch_registry.get_model("resnet_2211").dev_only
         state = torch_spec.build(num_classes=3).state_dict()
         assert state["head.weight"].shape[1] == DEV_DIMS[-1]
-    assert "convnext_dev" not in jax_registry._REGISTRY
-    assert not {"convnext_dev", "resnet_2211"} & set(torch_registry._REGISTRY)
+        for name in ("densenet_micro", "regnet_micro"):
+            assert jax_registry.get_model(name).dev_only and torch_registry.get_model(name).dev_only
+            assert torch_registry.get_model(name).build(num_classes=3).num_classes == 3
+    assert not {"convnext_dev", "densenet_micro", "regnet_micro"} & set(jax_registry._REGISTRY)
+    assert not {"convnext_dev", "resnet_2211", "densenet_micro", "regnet_micro"} & set(
+        torch_registry._REGISTRY)

@@ -4,7 +4,8 @@
 Same randomised weights (``tests/test_torch_engine_pairs.py``), same staged uint8
 canvas, fp32. At n = 1 (vanilla gradient) the port's heat map must lie
 within 1e-4 of the JAX step's, with the same top-k and scores within 1e-5,
-on ``resnet_tiny``, a one-block-a-stage ConvNeXt and ``swin_micro`` (the
+on ``resnet_tiny``, a one-block-a-stage ConvNeXt, ``swin_micro``, ``densenet_micro``
+and ``regnet_micro`` (the
 port's CPU path: the plain versions of the depthwise and window-attention
 kernels, differentiated by autograd). The 16x16 resize is held to
 ``jax.image.resize(..., "linear")`` at 1e-5 on 224, 384 and 256 px maps.
@@ -37,7 +38,8 @@ def staged():
     return canvas, sizes
 
 
-@pytest.fixture(scope="module", params=["resnet_tiny", "convnext_dev", "swin_micro"])
+@pytest.fixture(scope="module", params=["resnet_tiny", "convnext_dev", "swin_micro",
+                                        "densenet_micro", "regnet_micro"])
 def pair(request):
     with dev_models():
         return engine_pair(request.param, num_classes=6)

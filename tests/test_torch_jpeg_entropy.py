@@ -284,3 +284,160 @@ def test_mutated_files_never_crash_the_process(seed):
     assert out.returncode == 0, out.stderr[-3000:]
     seen = json.loads(out.stdout.strip().splitlines()[-1])
     assert seen["none"] + seen["decoded"] == 1600 and seen["decoded"] > 0
+
+
+# -- restart segments on worker threads (ics_tpu/native/jpeg_mt.cpp's counterpart) --
+
+@pytest.fixture()
+def small_files_take_threads(monkeypatch):
+    """The threads are not started below ``MT_MIN_BYTES``; these files are
+    small, so it is set to 0, as the reference's tests do."""
+    monkeypatch.setattr(port, "MT_MIN_BYTES", 0)
+
+
+def assert_bytes_equal(a, b):
+    assert a is not None and b is not None
+    assert (a.width, a.height, len(a.components)) == (b.width, b.height, len(b.components))
+    for ca, cb in zip(a.components, b.components):
+        assert (ca["h_samp"], ca["v_samp"]) == (cb["h_samp"], cb["v_samp"])
+        assert ca["quant"].tobytes() == cb["quant"].tobytes()
+        assert ca["coeffs"].tobytes() == cb["coeffs"].tobytes()
+
+
+def threaded_against_serial(data: bytes, threads: int, expect_threads: bool):
+    """The decode on ``threads`` threads equals the serial one byte for byte,
+    and the serial one equals libjpeg's; whether the threads ran is asserted."""
+    before = port.threaded_scans()
+    got = port.jpeg_coefficients(data, threads)
+    assert (port.threaded_scans() - before) == int(expect_threads)
+    assert_bytes_equal(got, assert_same(data))
+    return got
+
+
+@pytest.mark.parametrize("threads", [2, 4, 8])
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("size", [(64, 96), (61, 97), (173, 250)])
+def test_threads_equal_serial_in_every_mode(small_files_take_threads, size, mode, threads):
+    data = encode(*size, mode, seed=sum(size), restart_marker_rows=1)
+    threaded_against_serial(data, threads, expect_threads=True)
+
+
+@pytest.mark.parametrize("layout", [{"restart_marker_rows": 3}, {"restart_marker_blocks": 1},
+                                    {"restart_marker_blocks": 5}])
+def test_threads_equal_serial_at_other_restart_intervals(small_files_take_threads, layout):
+    data = encode(120, 160, "420", seed=3, **layout)
+    threaded_against_serial(data, 4, expect_threads=True)
+
+
+def test_more_threads_than_segments(small_files_take_threads):
+    data = encode(32, 40, "420", restart_marker_rows=1)     # one MCU row a segment: 2
+    threaded_against_serial(data, 8, expect_threads=True)
+    threaded_against_serial(data, 64, expect_threads=True)
+
+
+@pytest.mark.parametrize("case", ["no_restarts", "progressive", "one_segment", "one_thread"])
+def test_other_files_go_serial(small_files_take_threads, case):
+    data = {"no_restarts": lambda: encode(64, 96, "420"),
+            "progressive": lambda: encode(64, 96, "420", progressive=True, restart_marker_rows=1),
+            "one_segment": lambda: encode(16, 16, "420", restart_marker_rows=1),
+            "one_thread": lambda: encode(64, 96, "420", restart_marker_rows=1)}[case]()
+    threaded_against_serial(data, 1 if case == "one_thread" else 4, expect_threads=False)
+
+
+def test_small_files_stay_serial_unless_asked():
+    data = encode(64, 96, "420", restart_marker_rows=1)
+    assert len(data) < port.MT_MIN_BYTES == 96 * 1024
+    threaded_against_serial(data, 4, expect_threads=False)
+
+
+def test_a_wrong_or_missing_marker_goes_serial(small_files_take_threads):
+    data = encode(64, 96, "420", restart_marker_rows=1)
+    first = data.index(b"\xff\xd0")
+    wrong = data[:first + 1] + b"\xd3" + data[first + 2:]       # RST3 where RST0 belongs
+    dropped = data[:first] + data[first + 2:]                   # a segment boundary gone
+    extra = data[:first] + b"\xff\xd0" + data[first:]           # one marker too many
+    for damaged in (wrong, dropped, extra):
+        threaded_against_serial(damaged, 4, expect_threads=False)
+
+
+def test_concurrent_threaded_decodes_stay_apart(small_files_take_threads):
+    """Service threads decode side by side (ctypes lets go of the interpreter
+    lock): 12 callers, more than this host's cores, each on 4 segment
+    threads, give each file's serial bytes, and the count of threaded scans
+    loses no update."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    blobs = [encode(48 + 16 * (i % 4), 64, mode, seed=i, restart_marker_rows=1)
+             for i, mode in enumerate(list(MODES) * 3)]
+    serial = [port.jpeg_coefficients(b, 1) for b in blobs]
+    before = port.threaded_scans()
+    with ThreadPoolExecutor(12) as pool:
+        got = list(pool.map(lambda b: port.jpeg_coefficients(b, 4), blobs * 4))
+    assert port.threaded_scans() - before == len(blobs) * 4
+    for i, co in enumerate(got):
+        assert_bytes_equal(co, serial[i % len(blobs)])
+
+
+_MT_FUZZ = r"""
+import io, json, sys
+import numpy as np
+from PIL import Image, ImageFilter
+from ics_tpu_torch.native import imgcodec
+
+imgcodec.MT_MIN_BYTES = 0
+rng = np.random.default_rng(int(sys.argv[1]))
+seen = {"none": 0, "decoded": 0, "threaded": 0}
+for mode, kw in (("420", {"restart_marker_rows": 1}), ("444", {"restart_marker_blocks": 2}),
+                 ("gray", {"restart_marker_rows": 1}), ("422", {"restart_marker_blocks": 3})):
+    img = Image.fromarray(rng.integers(0, 256, (48, 64, 3), np.uint8))
+    img = img.filter(ImageFilter.GaussianBlur(1))
+    buf = io.BytesIO()
+    if mode == "gray":
+        img.convert("L").save(buf, "JPEG", quality=85, **kw)
+    else:
+        img.save(buf, "JPEG", quality=85, subsampling={"444": 0, "422": 1, "420": 2}[mode], **kw)
+    data = buf.getvalue()
+    scan = data.index(b"\xff\xda")
+    for _ in range(300):
+        b = bytearray(data)
+        for _ in range(int(rng.integers(1, 4))):
+            pos = int(rng.integers(scan, len(b)))     # the entropy-coded data and its markers
+            r = rng.random()
+            if r < 0.5:
+                b[pos] = int(rng.integers(0, 256))
+            elif r < 0.8:
+                b[pos] ^= 1 << int(rng.integers(0, 8))
+            else:
+                b[pos:pos] = bytes([0xFF, 0xD0 + int(rng.integers(0, 8))])
+        if rng.random() < 0.2:
+            b = b[: int(rng.integers(scan, len(b)))]
+        before = imgcodec.threaded_scans()
+        got = [imgcodec.jpeg_coefficients(bytes(b), t) for t in (1, 4, 8)]
+        seen["threaded"] += imgcodec.threaded_scans() - before > 0
+        if got[0] is None:
+            assert got[1] is None and got[2] is None
+            seen["none"] += 1
+            continue
+        seen["decoded"] += 1
+        for other in got[1:]:
+            assert (other.width, other.height) == (got[0].width, got[0].height)
+            for a, c in zip(got[0].components, other.components):
+                assert a["coeffs"].tobytes() == c["coeffs"].tobytes()
+                assert a["quant"].tobytes() == c["quant"].tobytes()
+print(json.dumps(seen))
+"""
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_mutated_restart_streams_decode_as_serial_and_never_crash(seed):
+    """Seeded mutations of restart streams (bytes of the scan changed, bits
+    flipped, RSTn markers inserted, files cut short) on 4 and 8 threads give
+    the serial decode's bytes, in a child process so that a crash shows as
+    its exit status; some of them still take the threads."""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    out = subprocess.run([sys.executable, "-c", _MT_FUZZ, str(seed)], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    seen = json.loads(out.stdout.strip().splitlines()[-1])
+    assert seen["none"] + seen["decoded"] == 1200
+    assert seen["decoded"] > 0 and seen["threaded"] > 0, seen
