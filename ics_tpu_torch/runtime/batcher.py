@@ -185,6 +185,12 @@ class DynamicBatcher:
                         )
                         batch.append(nxt)
                     except asyncio.TimeoutError:
+                        # a request put while this poll timed out stays in
+                        # the queue with its announcement already retracted:
+                        # take it before reading _incoming, or it waits for
+                        # the next flush
+                        while len(batch) < self.max_batch and not self._queue.empty():
+                            batch.append(self._queue.get_nowait())
                         if self._incoming > 0 and limit - time.perf_counter() > 0:
                             continue
                         break
