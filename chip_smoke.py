@@ -4,7 +4,7 @@
 Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
 
 1. The card's name and power limit, as ``nvidia-smi`` gives them.
-2. Build every CUDA kernel from ``ics_tpu_torch/ops/csrc`` (six sources
+2. Build every CUDA kernel from ``ics_tpu_torch/ops/csrc`` (seven sources
    and two shared headers, one ``nvcc`` per source, all started together)
    and time it.
 3. Each kernel against its plain PyTorch version on the card, at the main
@@ -141,6 +141,25 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    / 2) of the plain fp32 forward, 1e-3), version 2 promoted and version 1
    stopped; ``POST /monitor/latency-budget`` within its ``cuda`` lines; each
    stretch with the launch counts set to 0 before it and read after it.
+9. The fine-tuner on the card, over a seeded database of 32 labelled JPEGs
+   of 10 classes (``train.data``: ``labeled_examples``, ``batch_iterator``,
+   ``prefetch``). (a) ResNet-50 at full width (BASELINE config 5) through
+   ``FineTuner.run``: batch 32 at 224 from 512 canvases, bf16 over fp32
+   parameters, SGD momentum 0.9 on the warmup-cosine schedule, augment on,
+   20 steps: every loss finite, the mean of the last five below the first;
+   the checkpoint restored and served by an engine whose top-5 and scores
+   equal those of an engine on the weights in memory. (b) One fp32 step of
+   ResNet-50 on the card (TF32 off) against the same step on the CPU. (c)
+   ConvNeXt-T and Swin-T at full width, batch 32, bf16, AdamW with LLRD 0.75:
+   three steps through the depthwise and window-attention kernels with the
+   launch counts set to 0 before and read after (forward, input gradient,
+   and the new ``depthwise_conv_dw`` and ``window_attention_dtable``, once a
+   block and step), and one step's gradients against the plain path. (d) The
+   fine-tune step's images/s by CUDA events for the three models, ``remat``
+   off and on, with the peak memory and a profile of one step. (e) The two
+   new kernels against their plain versions at every call of a bucket-32
+   ConvNeXt-T and Swin-T step (and the taps at EfficientNet-B4's and
+   MobileNetV3-Small's calls), timed beside their bounds and yardsticks.
 
 Prints ``{"kernels": [...]}`` on the line before the last and
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
@@ -1047,6 +1066,7 @@ def check_new_models(torch) -> None:
     one bucket-32 engine step of each, kernels on and off, by CUDA events."""
     import numpy as np
 
+    from ics_tpu_torch.models.registry import get_model
     from ics_tpu_torch.models.registry import get_model
     from ics_tpu_torch.nn.layers import set_use_kernels
     from ics_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -2958,6 +2978,517 @@ def check_extras(torch, card: str) -> dict:
     return launches
 
 
+# ---- phase 9: the fine-tuner on the card ------------------------------------------------
+
+FT_CLASSES = 10
+FT_IMAGES = 32            # a fixed labelled set: every batch of 32 is a permutation of it
+FT_BATCH = 32
+FT_CANVAS = 512
+FT_STEPS = 20
+# ResNet-50, SGD momentum 0.9, warmup and cosine over FT_STEPS: ImageNet's 0.1 at batch 256
+# scaled to batch 32. The weights are random, not pretrained: at a peak of 0.05 the loss
+# left 3.2 for 63 within five steps on an H100 and was at 2.2 after twenty
+FT_LR = 0.0125
+FT_ADAMW_LR = 1e-4        # ConvNeXt-T and Swin-T, AdamW with LLRD 0.75
+FT_LLRD = 0.75
+FT_TIMED_STEPS = 5
+PARITY_BATCH = 8
+# one fp32 step on the card (TF32 off) against the same step on the CPU: the loss at 1e-4
+# relative (the same fp32 sums in another order), the BatchNorm statistics at 1e-4 of their
+# largest magnitude, and the update (parameters after minus before, all of them as one
+# vector) in L2 at the larger of 1e-2 and twice what the CPU's own update moves when its
+# input takes noise of PARITY_NOISE of its largest magnitude. A randomly initialised ResNet's
+# gradient is shattered: where a ReLU sits on its kink, a rounding-size change of the input
+# flips it (tests/test_torch_finetune.py), and the card and the CPU round differently.
+PARITY_LOSS_TOL = 1e-4
+PARITY_UPDATE_TOL = 1e-2
+PARITY_STATS_TOL = 1e-4
+PARITY_NOISE = 1e-6
+# one bf16 step's gradients through the kernels against the same step with them off
+# (cuDNN's grouped convolution, the plain window attention), as one vector: bf16 rounds
+# activations at other places on the two paths (an ulp is 2^-8 relative), and the
+# differences add up over the depth
+FT_GRAD_BF16_TOL = 5e-2
+# the new kernels against their plain versions: fp32 sums of the same products in another
+# order, relative to the largest gradient; the table's gradient in bf16 goes through dS,
+# which the plain version rounds to bf16 where the kernel does not
+DW_GRAD_TOL = 1e-4
+DTABLE_BF16_TOL = 2e-2
+
+
+def finetune_corpus() -> list:
+    """``FT_IMAGES`` seeded JPEGs (256 to 480 px a side, q90), ``FT_CLASSES``
+    classes in turn: a class is a hue and a stripe period, under noise."""
+    import colorsys
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(11)
+    corpus = []
+    for i in range(FT_IMAGES):
+        label = i % FT_CLASSES
+        h, w = (int(v) for v in rng.integers(256, 481, 2))
+        base = np.array(colorsys.hsv_to_rgb(label / FT_CLASSES, 0.8, 0.9)) * 255.0
+        stripes = ((np.arange(h)[:, None] // (6 + 3 * label)) % 2) * 50.0
+        img = base + rng.normal(0, 30, (h, w, 3)) + stripes[..., None]
+        buf = io.BytesIO()
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(buf, "JPEG", quality=90)
+        corpus.append((buf.getvalue(), label))
+    return corpus
+
+
+def finetune_examples(directory: str, corpus: list) -> tuple:
+    """A seeded database of the port holding ``corpus`` as images of one
+    conjunto, an ambiente with ``FT_CLASSES`` options and one specialist's
+    label for each image; returns ``(examples, class_map, fetch)`` from
+    ``train.data.labeled_examples``."""
+    from ics_tpu_torch.core import timezone as tz
+    from ics_tpu_torch.core.security import sha256_hex
+    from ics_tpu_torch.db import models as m
+    from ics_tpu_torch.db.engine import Database
+    from ics_tpu_torch.train.data import labeled_examples
+
+    db = Database(f"sqlite:///{directory}/finetune.db")
+    db.create_all()
+    now = tz.utcnow()
+    blobs = {}
+    with db.session() as s:
+        s.add_all([m.TipoUsuario(id_tipo=1, nome="convencional"),
+                   m.TipoUsuario(id_tipo=2, nome="admin")])
+        users = [m.Usuario(nome_completo=n, email=f"{n}@example.com", senha_hash="h",
+                           data_criado=now, id_tipo=t) for n, t in (("adm", 2), ("esp", 1))]
+        s.add_all(users)
+        s.flush()
+        adm = m.UsuarioAdministrador(cpf="1" * 11, id_usu=users[0].id_usu)
+        con = m.UsuarioConvencional(cpf="2" * 11, id_usu=users[1].id_usu)
+        cnj = m.ConjuntoImagens(nome_conj="ft", caminho_conj="/ft", file_id="1", data_proc=now,
+                                data_sinc=now)
+        s.add_all([adm, con, cnj])
+        s.flush()
+        amb = m.Ambiente(titulo_amb="Smoke fine-tune", descricao_questionario="phase 9",
+                         data_criado=now, id_adm=adm.id_adm)
+        s.add(amb)
+        s.flush()
+        s.add(m.AmbienteConjuntoImagens(id_amb=amb.id_amb, id_cnj=cnj.id_cnj,
+                                        data_associado=now))
+        options = [m.Opcao(texto=f"classe {c}", id_amb=amb.id_amb) for c in range(FT_CLASSES)]
+        s.add_all(options)
+        s.flush()
+        for i, (data, label) in enumerate(corpus):
+            h = sha256_hex(data)
+            blobs[h] = data
+            s.add(m.Imagem(content_hash=h, nome_img=f"{i}.jpg", caminho_img=f"ft/{i}.jpg",
+                           data_proc=now, data_sinc=now, id_cnj=cnj.id_cnj))
+            s.add(m.Classificacao(id_con=con.id_con, id_img=h, id_opc=options[label].id_opc,
+                                  data_criado=now, ativo=True))
+        s.commit()
+        amb_id = amb.id_amb
+    examples, class_map = labeled_examples(db, amb_id)
+    return examples, class_map, lambda h, _path: blobs[h]
+
+
+def _ft_batches(examples, fetch, seed: int = 0):
+    from ics_tpu_torch.train.data import batch_iterator, prefetch
+
+    return prefetch(batch_iterator(examples, fetch, batch_size=FT_BATCH, canvas=FT_CANVAS,
+                                   seed=seed, epochs=None))
+
+
+def _ft_model(torch, name: str, seed: int = 0):
+    """A model of ``name`` with ``FT_CLASSES`` classes and ``_model_state``'s
+    weights, fp32 parameters on the card."""
+    from ics_tpu_torch.models.registry import get_model
+
+    model = get_model(name).build(num_classes=FT_CLASSES)
+    model.load_state_dict(_model_state(torch, name, FT_CLASSES, seed))
+    return model.to(DEVICE)
+
+
+def _ft_optimizer(name: str):
+    from ics_tpu_torch.train.finetune import make_lr_schedule, make_optimizer
+
+    if name == RESNET:
+        return make_optimizer(lr=make_lr_schedule(FT_LR, FT_STEPS), momentum=0.9), 0.0
+    return make_optimizer(lr=FT_ADAMW_LR, kind="adamw"), FT_LLRD
+
+
+def check_finetune_resnet(torch, examples, fetch, directory: str) -> None:
+    """Phase 9a: ResNet-50 (BASELINE config 5) at full width through
+    ``FineTuner.run``: batch 32 at 224 from 512 canvases, bf16 compute over
+    fp32 parameters, SGD momentum 0.9 on the warmup-cosine schedule, augment
+    on, ``FT_STEPS`` steps on the fixed labelled set. Every loss finite and
+    the mean of the last five below the first; then the checkpoint restored
+    and served: an engine on the restored state dict gives the same top-5
+    and scores as one on the weights in memory."""
+    import numpy as np
+
+    from ics_tpu_torch.ops.augment import AugmentConfig
+    from ics_tpu_torch.runtime.decode import decode_image, stage_batch
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+    from ics_tpu_torch.train.finetune import FineTuner
+
+    model = _ft_model(torch, RESNET)
+    optimizer, _ = _ft_optimizer(RESNET)
+    tuner = FineTuner(model, optimizer, image_size=224, resize_short=256,
+                      compute_dtype=torch.bfloat16, checkpoint_dir=f"{directory}/resnet50",
+                      augment=AugmentConfig(), seed=0)
+    batches = _ft_batches(examples, fetch)
+    t0 = time.perf_counter()
+    _, _, history = tuner.run(batches, max_steps=FT_STEPS, checkpoint_every=10)
+    seconds = time.perf_counter() - t0
+    batches.close()                     # the prefetch thread stops and is joined
+    losses = [h["loss"] for h in history]
+    log(f"  {RESNET} fine-tune losses ({len(losses)} steps of {FT_BATCH}, {seconds:.1f} s with "
+        f"the host decode): {[round(v, 4) for v in losses]}")
+    tail = sum(losses[-5:]) / 5
+    if len(losses) != FT_STEPS or not all(np.isfinite(losses)) or not tail < losses[0]:
+        fail(f"{RESNET} fine-tune: losses {losses} (mean of the last five {tail} against the "
+             f"first {losses[0]})")
+    steps = tuner.checkpoint.steps()
+    restored = tuner.checkpoint.restore()
+    live = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    same = all(torch.equal(restored["state_dict"][k], v) for k, v in live.items())
+    log(f"  checkpoints {steps}; step {restored['metadata']['step']} restored, equal to the "
+        f"weights in memory: {same}")
+    if steps[-1] != FT_STEPS or not same or restored["metadata"]["step"] != FT_STEPS:
+        fail(f"{RESNET} fine-tune checkpoint: steps {steps}, equal {same}")
+    canvas, sizes = stage_batch([decode_image(fetch(ex["content_hash"], None))
+                                 for ex in examples[:8]], canvas=FT_CANVAS)
+    answers = []
+    for state in (restored["state_dict"], live):
+        engine = InferenceEngine(RESNET, num_classes=FT_CLASSES, precision="bf16", buckets=(8,),
+                                 canvas=FT_CANVAS, state_dict=state, device=DEVICE)
+        answers.append(engine.predict_staged(canvas, sizes))
+        del engine
+    (idx_r, sc_r), (idx_m, sc_m) = answers
+    labels = [ex["label"] for ex in examples[:8]]
+    log(f"  served from the checkpoint: top-1 {idx_r[:, 0].tolist()} (labels {labels}); "
+        f"top-5 equal to the in-memory engine's {np.array_equal(idx_r, idx_m)}, scores "
+        f"equal {np.array_equal(sc_r, sc_m)}")
+    if not (np.array_equal(idx_r, idx_m) and np.array_equal(sc_r, sc_m)):
+        fail("the engine on the restored checkpoint answers otherwise than the in-memory one")
+    del model, tuner
+    torch.cuda.empty_cache()
+
+
+def check_finetune_parity(torch, examples, fetch) -> None:
+    """Phase 9b: one fp32 step of ResNet-50 at full width on the card (TF32
+    off) against the same step of the port on the CPU, on the same
+    preprocessed batch of ``PARITY_BATCH``, SGD at ``FT_LR``. The update is
+    also taken on the CPU from the batch under noise of ``PARITY_NOISE`` of
+    its largest magnitude: how far rounding-size changes of the input move
+    this step by themselves, the yardstick of the card's deviation."""
+    from ics_tpu_torch.models.registry import get_model
+    from ics_tpu_torch.ops.preproc import preprocess_batch
+    from ics_tpu_torch.train.finetune import TrainOptimizer, make_optimizer, make_train_step
+
+    canvas, sizes = _staged(examples[:PARITY_BATCH], fetch)
+    images = preprocess_batch(torch.from_numpy(canvas), torch.from_numpy(sizes), 224, 256,
+                              torch.float32)
+    noisy = images + PARITY_NOISE * images.abs().max() * torch.randn(
+        images.shape, generator=torch.Generator().manual_seed(5))
+    labels = torch.tensor([ex["label"] for ex in examples[:PARITY_BATCH]])
+    state = _model_state(torch, RESNET, FT_CLASSES)
+    out = {}
+    for run, device, x in (("card", DEVICE, images), ("cpu", "cpu", images),
+                           ("cpu_noisy", "cpu", noisy)):
+        model = get_model(RESNET).build(num_classes=FT_CLASSES)
+        model.load_state_dict(state)
+        model.to(device)
+        step = make_train_step(model, TrainOptimizer(model, make_optimizer(lr=FT_LR)),
+                               torch.float32)
+        t0 = time.perf_counter()
+        loss = float(step(x.to(device), labels.to(device))["loss"])
+        out[run] = (loss, {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                    time.perf_counter() - t0)
+    params = [k for k in state if "running" not in k]
+    update = {run: torch.cat([(sd[k] - state[k]).flatten() for k in params])
+              for run, (_, sd, _) in out.items()}
+    card_dev = float((update["card"] - update["cpu"]).norm() / update["cpu"].norm())
+    self_dev = float((update["cpu_noisy"] - update["cpu"]).norm() / update["cpu"].norm())
+    tol = max(PARITY_UPDATE_TOL, 2 * self_dev)
+    (loss_g, sd_g, _), (loss_c, sd_c, cpu_s) = out["card"], out["cpu"]
+    stats_rel = max(float((sd_g[k] - sd_c[k]).abs().max() / sd_c[k].abs().max().clamp_min(1e-30))
+                    for k in state if "running" in k)
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    log(f"  one fp32 step, card against CPU (batch {PARITY_BATCH}, the CPU took {cpu_s:.1f} s): "
+        f"loss {loss_g:.6f} vs {loss_c:.6f} (rel {loss_rel:.2e}, tol {PARITY_LOSS_TOL:g}); "
+        f"update |d_card - d_cpu| / |d_cpu| = {card_dev:.2e} (tol {tol:.2e}: the larger of "
+        f"{PARITY_UPDATE_TOL:g} and twice the CPU's own {self_dev:.2e} under {PARITY_NOISE:g} of "
+        f"input noise); BatchNorm statistics max rel {stats_rel:.2e} (tol {PARITY_STATS_TOL:g})")
+    if not (loss_rel <= PARITY_LOSS_TOL and card_dev <= tol and stats_rel <= PARITY_STATS_TOL):
+        fail("the fp32 fine-tune step on the card disagrees with the CPU's")
+    torch.cuda.empty_cache()
+
+
+FT_KERNELS = {CONVNEXT: ("depthwise_conv", "depthwise_conv_dx", "depthwise_conv_dw",
+                         sum(CONVNEXT_DEPTHS)),
+              SWIN: ("window_attention", "window_attention_bwd", "window_attention_dtable",
+                     sum(SWIN_DEPTHS))}
+
+
+def check_finetune_kernels(torch, examples, fetch) -> dict:
+    """Phase 9c: ConvNeXt-T and Swin-T at full width, batch 32 at 224, bf16,
+    AdamW with LLRD 0.75, augment on: three ``FineTuner`` steps through the
+    depthwise and window-attention kernels, with the launch counts set to 0
+    before and read after (forward, input gradient and parameter gradient,
+    one each a block and step); then one step's gradients through the
+    kernels against the same step with them off. Returns the launches."""
+    from ics_tpu_torch.models.registry import get_model
+    from ics_tpu_torch.nn.layers import set_use_kernels
+    from ics_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ics_tpu_torch.ops.augment import AugmentConfig
+    from ics_tpu_torch.ops.preproc import preprocess_batch
+    from ics_tpu_torch.train.finetune import FineTuner, cross_entropy_loss
+
+    launches = {}
+    for name, (fwd, dx, dparam, blocks) in FT_KERNELS.items():
+        model = _ft_model(torch, name)
+        optimizer, llrd = _ft_optimizer(name)
+        size = get_model(name).image_size
+        tuner = FineTuner(model, optimizer, image_size=size, compute_dtype=torch.bfloat16,
+                          augment=AugmentConfig(), seed=1, llrd=llrd)
+        batches = _ft_batches(examples, fetch, seed=1)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        _, _, history = tuner.run(batches, max_steps=3)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        batches.close()
+        log(f"  {name} three steps: losses {[round(h['loss'], 4) for h in history]}; launches "
+            f"{json.dumps(counts)}")
+        want = {fwd: 3 * blocks, dx: 3 * blocks, dparam: 3 * blocks}
+        if counts != want or not all(map(lambda h: h["loss"] == h["loss"], history)):
+            fail(f"{name} fine-tune steps launched {counts}, not {want}")
+        for kernel, count in counts.items():
+            launches[kernel] = launches.get(kernel, 0) + count
+
+        canvas, sizes = (torch.from_numpy(a).to(DEVICE) for a in _staged(examples, fetch))
+        labels = torch.tensor([ex["label"] for ex in examples], device=DEVICE)
+        images = preprocess_batch(canvas, sizes, size, size * 8 // 7, torch.bfloat16)
+        grads = []
+        for on in (True, False):
+            set_use_kernels(model, on)
+            model.zero_grad(set_to_none=True)
+            model.train()
+            cross_entropy_loss(model(images), labels).backward()
+            grads.append(torch.cat([p.grad.float().flatten() for p in model.parameters()]))
+        set_use_kernels(model, True)
+        rel = float((grads[0] - grads[1]).norm() / grads[1].norm())
+        log(f"  {name} one bf16 step's gradients, kernels against plain path: "
+            f"|g_kernel - g_plain| / |g_plain| = {rel:.2e} (tol {FT_GRAD_BF16_TOL:g}) over "
+            f"{grads[1].numel()} parameters")
+        if not rel <= FT_GRAD_BF16_TOL:
+            fail(f"{name}: the kernel path's gradients disagree with the plain path's: {rel}")
+        del model, tuner, grads, images
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _staged(examples, fetch):
+    from ics_tpu_torch.runtime.decode import decode_image, stage_batch
+
+    return stage_batch([decode_image(fetch(ex["content_hash"], None)) for ex in examples],
+                       canvas=FT_CANVAS)
+
+
+def time_finetune(torch, examples, fetch, card: str) -> None:
+    """Phase 9d: the fine-tune step's images/s by CUDA events (``FT_TIMED_STEPS``
+    steps after two of warm-up) for ResNet-50, ConvNeXt-T and Swin-T, bf16,
+    batch 32 from a canvas batch staged on the card (augment, forward,
+    backward, optimizer; the host's decode left out), ``remat`` off and on,
+    with the peak of allocated device memory; with ``remat`` off, where one
+    step's device time goes by ``torch.profiler`` (``tools.profile_step``'s
+    groups)."""
+    from ics_tpu_torch.models.registry import get_model
+    from ics_tpu_torch.ops.augment import AugmentConfig
+    from ics_tpu_torch.train.finetune import (
+        TrainOptimizer,
+        make_augmented_train_step,
+        step_generator,
+        training_kernels,
+    )
+
+    canvas, sizes = (torch.from_numpy(a).to(DEVICE) for a in _staged(examples, fetch))
+    labels = torch.tensor([ex["label"] for ex in examples], device=DEVICE)
+    for name in (RESNET, CONVNEXT, SWIN):
+        for remat in (False, True):
+            model = _ft_model(torch, name)
+            model.remat = remat
+            training_kernels(model)
+            config, llrd = _ft_optimizer(name)
+            step = make_augmented_train_step(model, TrainOptimizer(model, config, llrd=llrd),
+                                             AugmentConfig(), get_model(name).image_size,
+                                             torch.bfloat16)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(2):
+                step(canvas, sizes, labels, step_generator(0, i))
+            ms = cuda_ms(lambda: step(canvas, sizes, labels, step_generator(0, 9)),
+                         FT_TIMED_STEPS, ahead=False)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            log(f"  fine-tune step {name} remat={'on' if remat else 'off'}: {ms:.2f} ms, "
+                f"{FT_BATCH / ms * 1e3:.1f} images/s, peak {peak:.2f} GiB allocated ({card})")
+            if not remat:
+                count, groups = kernels_a_step(
+                    torch, lambda: step(canvas, sizes, labels, step_generator(0, 9)))
+                device_ms = sum(t for _, t in groups.values())
+                log(f"    one step by torch.profiler: {count} kernels, {device_ms:.2f} ms of "
+                    f"device time; by group {json.dumps(groups)}")
+            del model, step
+            torch.cuda.empty_cache()
+
+
+def check_param_grads(torch, depthwise, window_attention) -> tuple:
+    """Phase 9e: the two new kernels against their plain versions, each case
+    twice (bit for bit the same), at every call of a bucket-32 fine-tune step
+    (ConvNeXt-T's depthwise taps and bias at its four stage shapes; Swin-T's
+    table at its seven calls), bf16, then timed in turns with the plain
+    versions, beside their bounds and their yardsticks
+    (``torch.nn.grad.conv2d_weight`` with ``groups=C`` on channels_last, the
+    taps alone; SDPA's autograd backward with a float ``attn_mask`` that
+    requires grad, replayed from a CUDA graph); the depthwise taps also at
+    every depthwise call of EfficientNet-B4 and MobileNetV3-Small at batch 32
+    (errors only). Returns ({kernel: largest |error|}, {kernel: times})."""
+    import torch.nn.functional as F
+
+    from ics_tpu_torch.tools import bench_window
+    from ics_tpu_torch.tools.bench_depthwise import depthwise_calls
+    from ics_tpu_torch.tools.bench_window import swin_calls
+
+    worst = {"depthwise_conv_dw": 0.0, "window_attention_dtable": 0.0}
+
+    def judge(name, label, runs, refs, tol):
+        for got, again, ref in zip(runs[0], runs[1], refs):
+            rel, top = _rel_err(torch, got, ref)
+            same = torch.equal(got, again)
+            log(f"  {label}: max|err|/max|ref| = {rel:.3e} (tol {tol:g}), max|ref| {top:.3e}, "
+                f"twice the same {same}")
+            if not bool(torch.isfinite(got).all()) or not rel <= tol or not same:
+                fail(f"{label} disagrees with its plain version: {rel}, same {same}")
+            worst[name] = max(worst[name], rel * top)
+
+    shapes = [((FT_BATCH, hw, hw, c), 7, count)
+              for (hw, c), count in zip(CONVNEXT_SHAPES, CONVNEXT_DEPTHS)]
+    for model in (EFFICIENTNET, MOBILENET):
+        shapes += [(shape, k, None) for shape, k, _ in sorted(depthwise_calls(model, FT_BATCH))]
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    by = set()
+    for shape, k, count in shapes:
+        g = torch.Generator().manual_seed(k + shape[-1])
+        x, dy = (torch.randn(shape, generator=g).to(torch.bfloat16).to(DEVICE) for _ in range(2))
+        runs = [depthwise.depthwise_conv_dw(x, dy, k) for _ in range(2)]
+        torch.cuda.synchronize()
+        judge("depthwise_conv_dw", f"depthwise_conv_dw {list(shape)} k={k} bf16", runs,
+              depthwise.depthwise_dw_reference(x, dy, k), DW_GRAD_TOL)
+        if count is None:
+            continue
+        ms, plain_ms = in_turns(f"depthwise_conv_dw {list(shape)} k={k} bf16",
+                                lambda: depthwise.depthwise_conv_dw(x, dy, k),
+                                lambda: depthwise.depthwise_dw_reference(x, dy, k))
+        c = shape[-1]
+        x_nchw, dy_nchw = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)   # channels_last
+        lib = library_ms(lambda: torch.nn.grad.conv2d_weight(x_nchw, (c, 1, k, k), dy_nchw,
+                                                             padding=k // 2, groups=c))
+        # x and dy read once, dtaps and dbias written once (fp32), or 2 k^2 operations a
+        # value on bf16 operands at the bf16 peak, as the forward's row reckons it
+        case = bound(2 * x.numel() * 2 + (k * k + 1) * c * 4, 2.0 * k * k * x.numel(),
+                     BF16_FLOPS)
+        log(f"    conv2d_weight(groups=C) channels_last (yardstick only, taps alone) {lib:.4f} "
+            f"ms; bound {case['bound_ms']:.4f} ms by {case['bound_by']}; x{count} a step; "
+            f"{depthwise.dw_grad_rows(*shape[:2], c)} rows a block")
+        for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib),
+                           ("bound_ms", case["bound_ms"])):
+            total[key] += count * value
+        by.add(case["bound_by"])
+    times = {"depthwise_conv_dw": {**total,
+                                   "bound_by": "operations" if "operations" in by else "bytes"}}
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    by = set()
+    for grid, heads, shift, count, window, hd in swin_calls("swin_tiny"):
+        call = bench_window.make_call(FT_BATCH, grid, heads, shift, window, hd)
+        qkv = call["qkv"]
+        dout = torch.randn((FT_BATCH, grid, grid, heads * hd), device=DEVICE).to(qkv.dtype)
+        args = (qkv, dout, call["table"], call["index16"], call["mask"], window, shift,
+                hd ** -0.5)
+        runs = [window_attention.window_attention_qkv_bwd(*args, with_table=True)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        ref = window_attention.window_attention_qkv_bwd_reference(*args, with_table=True)
+        judge("window_attention_dtable", f"window_attention dtable {list(qkv.shape)} "
+              f"shift={shift} bf16", [runs[0][1:], runs[1][1:]], ref[1:], DTABLE_BF16_TOL)
+        ms, plain_ms = in_turns(
+            f"window_attention_qkv_bwd with the table {list(qkv.shape)} shift={shift} bf16",
+            lambda: window_attention.window_attention_qkv_bwd(*args, with_table=True),
+            lambda: window_attention.window_attention_qkv_bwd_reference(*args, with_table=True),
+            iters=10)
+        without, _ = in_turns("  the same without the table",
+                              lambda: window_attention.window_attention_qkv_bwd(*args),
+                              lambda: window_attention.window_attention_qkv_bwd(*args), iters=10)
+        q, k, v = (call[n].detach().requires_grad_() for n in ("q", "k", "v"))
+        m = bench_window.sdpa_mask(call).requires_grad_()
+        lib = library_ms(_graphed_grad(
+            torch, lambda q, k, v, m: F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                                                     scale=1.0),
+            (q, k, v, m), torch.randn_like(q)), iters=10)
+        ww = window * window
+        items = FT_BATCH * (grid // window) ** 2 * heads
+        # the backward's bound (qkv and dO read, dqkv written, table, index and mask read,
+        # or its 12 ww^2 hd operations an item at the bf16 peak), plus the table's gradient
+        # written once
+        n_bytes = 7 * qkv[..., 0, :, :].numel() * 2 + call["table"].numel() * 4 * 2 \
+            + ww * ww * 2 + (0 if call["mask"] is None else call["mask"].numel() * 4)
+        case = bound(n_bytes, 12.0 * ww * ww * hd * items, BF16_FLOPS)
+        log(f"    the table's gradient adds {ms - without:.4f} ms to the backward; SDPA backward "
+            f"with a mask that requires grad, a CUDA graph (yardstick only) {lib:.4f} ms; bound "
+            f"{case['bound_ms']:.4f} ms by {case['bound_by']}; x{count} a step; "
+            f"{window_attention.table_groups(items // heads, heads)} groups a head")
+        for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib),
+                           ("bound_ms", case["bound_ms"])):
+            total[key] += count * value
+        by.add(case["bound_by"])
+    times["window_attention_dtable"] = {
+        **total, "bound_by": "operations" if "operations" in by else "bytes"}
+    torch.cuda.empty_cache()
+    return worst, times
+
+
+def check_finetune(torch, depthwise, window_attention, card: str) -> tuple:
+    """Phase 9: the fine-tuner on the card (9a to 9e). Returns (launches,
+    errors, times) of the two new kernels."""
+    corpus = finetune_corpus()
+    with tempfile.TemporaryDirectory() as directory:
+        examples, class_map, fetch = finetune_examples(directory, corpus)
+        if len(examples) != FT_IMAGES or len(class_map) != FT_CLASSES:
+            fail(f"the fine-tune corpus has {len(examples)} examples of {len(class_map)} classes")
+        t = time.perf_counter()
+        log(f"[9a] {RESNET} fine-tune at full width (batch {FT_BATCH} at 224 from {FT_CANVAS} "
+            f"canvases, bf16 over fp32, SGD 0.9 warmup-cosine, augment on), checkpoint, serve:")
+        check_finetune_resnet(torch, examples, fetch, directory)
+        log(f"  [9a] took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        log(f"[9b] one fp32 step of {RESNET} on the card against the CPU:")
+        check_finetune_parity(torch, examples, fetch)
+        log(f"  [9b] took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        log(f"[9c] {CONVNEXT} and {SWIN} at full width (batch {FT_BATCH}, bf16, AdamW, LLRD "
+            f"{FT_LLRD}): three steps through the kernels, gradients against the plain path:")
+        launches = check_finetune_kernels(torch, examples, fetch)
+        log(f"  [9c] took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        log(f"[9d] fine-tune step times (CUDA events), remat off and on, on {card}:")
+        time_finetune(torch, examples, fetch, card)
+        log(f"  [9d] took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    log("[9e] the parameter-gradient kernels against their plain versions at a bucket-32 "
+        "step's calls:")
+    errs, times = check_param_grads(torch, depthwise, window_attention)
+    log(f"  [9e] took {time.perf_counter() - t:.1f} s")
+    return launches, errs, times
+
+
 def main() -> None:
     import torch
 
@@ -3078,6 +3609,15 @@ def main() -> None:
     log(f"  [8c] took {time.perf_counter() - t8c:.1f} s; phase [8] {time.perf_counter() - t8:.1f} s "
         f"on {card}")
 
+    t9 = time.perf_counter()
+    log(f"[9] the fine-tuner on the card ({card}):")
+    ft_launches, ft_errs, ft_times = check_finetune(torch, depthwise, window_attention, card)
+    for name in ("depthwise_conv_dw", "window_attention_dtable"):
+        launches[name] = ft_launches[name]
+    errs.update(ft_errs)
+    times.update(ft_times)
+    log(f"  phase [9] {time.perf_counter() - t9:.1f} s on {card}")
+
     sources = {
         "flash_attention": ("ics_tpu_torch/ops/csrc/flash_attention.cu",
                             "ics_tpu/ops/attention.py:170"),
@@ -3097,6 +3637,10 @@ def main() -> None:
                                  "scripts/proto_window_attn.py:82"),
         "depthwise_conv_dx": ("ics_tpu_torch/ops/csrc/depthwise_conv.cu",
                               "ics_tpu/ops/pallas_depthwise.py:88"),
+        "depthwise_conv_dw": ("ics_tpu_torch/ops/csrc/depthwise_conv_dw.cu",
+                              "ics_tpu/ops/pallas_depthwise.py:88"),
+        "window_attention_dtable": ("ics_tpu_torch/ops/csrc/window_attention_bwd.cu",
+                                    "scripts/proto_window_attn.py:82"),
     }
     log(json.dumps({"kernels": [{
         "name": name,

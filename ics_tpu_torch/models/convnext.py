@@ -6,7 +6,8 @@ after. The depthwise convolution, bias included, runs in the hand-written
 kernel on the card (``ics_tpu_torch.ops.depthwise``, through ``Conv2D``):
 18 launches a forward for ConvNeXt-Tiny. The strided stem and downsampling
 convolutions go to cuDNN. There is no BatchNorm, so folding is the
-identity. ``remat`` of the JAX model (training) is not ported.
+identity. ``remat`` (training) rematerialises each block
+(``nn.layers.run_block``), as the JAX model's flag does.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ics_tpu_torch.nn.layers import Conv2D, Dense, LayerNorm, gelu, reset_all_parameters
+from ics_tpu_torch.nn.layers import Conv2D, Dense, LayerNorm, gelu, reset_all_parameters, run_block
 
 
 class ConvNeXtBlock(nn.Module):
@@ -54,6 +55,7 @@ class ConvNeXt(nn.Module):
                  dims: Sequence[int] = (96, 192, 384, 768),
                  num_classes: int = 1000, device=None):
         super().__init__()
+        self.remat = False   # per-block rematerialisation in training (run_block)
         self.depths = tuple(depths)
         self.dims = tuple(dims)
         self.num_classes = num_classes
@@ -83,7 +85,7 @@ class ConvNeXt(nn.Module):
             if i > 0:
                 y = self.down[i - 1](y)
             for blk in blocks:
-                y = blk(y)
+                y = run_block(self.remat, blk, y)
         return self.head(self.final_ln(y.mean(dim=(1, 2))))
 
     def fold(self) -> "ConvNeXt":

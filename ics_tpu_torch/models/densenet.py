@@ -46,6 +46,7 @@ from ics_tpu_torch.nn.layers import (
     max_pool,
     relu,
     reset_all_parameters,
+    run_block,
 )
 
 
@@ -115,6 +116,7 @@ class DenseNet(nn.Module):
     def __init__(self, block_config: Sequence[int] = (6, 12, 24, 16), growth: int = 32,
                  init_features: int = 64, num_classes: int = 1000, device=None):
         super().__init__()
+        self.remat = False   # per-block rematerialisation in training (run_block)
         self.block_config = tuple(block_config)
         # the stem is conv then BN: it folds into the conv
         self.stem = ConvBN(3, init_features, 7, 2, padding=3, device=device)
@@ -144,7 +146,7 @@ class DenseNet(nn.Module):
         y = max_pool(relu(apply(self.stem, x)), 3, 2, 1)
         for i, layers in enumerate(self.stages):
             for layer in layers:
-                y = apply(layer, y)
+                y = apply(layer, y) if folded else run_block(self.remat, layer, y)
             if i < len(self.down):
                 y = apply(self.down[i], y)
         y = relu(apply(self.final_bn, y))

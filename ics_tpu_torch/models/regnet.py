@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from ics_tpu_torch.nn.blocks import ConvBN, SEBlock, apply_as, fold_convbn
-from ics_tpu_torch.nn.layers import Dense, global_avg_pool, relu, reset_all_parameters
+from ics_tpu_torch.nn.layers import Dense, global_avg_pool, relu, reset_all_parameters, run_block
 
 
 class RegNetBlock(nn.Module):
@@ -59,6 +59,7 @@ class RegNet(nn.Module):
     def __init__(self, depths: Sequence[int], widths: Sequence[int], group_width: int,
                  num_classes: int = 1000, device=None):
         super().__init__()
+        self.remat = False   # per-block rematerialisation in training (run_block)
         self.stem = ConvBN(3, self.STEM_WIDTH, 3, 2, padding=1, device=device)
         self.stages = nn.ModuleList()
         w_in = self.STEM_WIDTH
@@ -82,7 +83,7 @@ class RegNet(nn.Module):
         y = relu(apply_as(folded)(self.stem, x))
         for blocks in self.stages:
             for blk in blocks:
-                y = apply_as(folded)(blk, y)
+                y = apply_as(folded)(blk, y) if folded else run_block(self.remat, blk, y)
         return self.head(global_avg_pool(y))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -5,8 +5,9 @@ memory (the JAX package leaves those to XLA). ``fold(fused_chains=True)``
 packs the stride-1 identity bottlenecks of the early stages for the
 hand-written fused kernel (``ics_tpu_torch.ops.bottleneck``), by the same
 byte rule as the JAX ``fold(pallas_chains=True)``, so ResNet-50 chains
-stages 0 and 1 and nothing else. The space-to-depth stem and ``remat`` of
-the JAX model are not ported.
+stages 0 and 1 and nothing else. The space-to-depth stem of the JAX model
+is not ported; ``remat`` (training) rematerialises each block
+(``nn.layers.run_block``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from ics_tpu_torch.nn.layers import (
     max_pool,
     relu,
     reset_all_parameters,
+    run_block,
 )
 from ics_tpu_torch.ops.bottleneck import ChainWeights, bottleneck_chain, pack_chain_weights
 
@@ -129,6 +131,7 @@ class ResNet(nn.Module):
         self.num_classes = num_classes
         # stage index (as a string) -> ChainWeights, filled by fold(fused_chains=True)
         self.chains = nn.ModuleDict()
+        self.remat = False   # per-block rematerialisation in training (run_block)
 
     def init_weights(self, generator: Optional[torch.Generator] = None) -> "ResNet":
         """Seeded random weights with the JAX initialisers' distributions."""
@@ -140,7 +143,7 @@ class ResNet(nn.Module):
         y = max_pool(relu(self.stem(x)), 3, 2, 1)
         for blocks in self.stages:
             for blk in blocks:
-                y = blk(y)
+                y = run_block(self.remat, blk, y)
         return self.head(global_avg_pool(y))
 
     @property

@@ -16,7 +16,7 @@ Scores are fp32 in the kernel and in its plain version, which is what the
 JAX package's training forward computes; its serving forward keeps the
 materialised score tensor in bf16, a memory-traffic workaround this port
 has no use for, because the score tensor never reaches device memory here.
-``remat`` of the JAX model (training) is not ported.
+``remat`` (training) rematerialises each block (``nn.layers.run_block``).
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from ics_tpu_torch.nn.layers import (
     LayerNorm,
     gelu,
     reset_all_parameters,
+    run_block,
     trunc_normal_,
 )
 from ics_tpu_torch.ops.window_attention import (
@@ -217,6 +218,7 @@ class SwinTransformer(nn.Module):
                 grid //= 2
         self.ln = LayerNorm(dim, eps=1e-5, device=device)
         self.head = Dense(dim, num_classes, init="trunc_normal", device=device)
+        self.remat = False   # per-block rematerialisation in training (run_block)
 
     def init_weights(self, generator: Optional[torch.Generator] = None) -> "SwinTransformer":
         """Seeded random weights with the JAX initialisers' distributions."""
@@ -227,7 +229,7 @@ class SwinTransformer(nn.Module):
         y = self.patch_norm(self.patch_embed(x))               # [B, g, g, C]
         for si, blocks in enumerate(self.stages):
             for blk in blocks:
-                y = blk(y)
+                y = run_block(self.remat, blk, y)
             if si < len(self.merges):
                 y = self.merges[si](y)
         return self.head(self.ln(y).mean(dim=(1, 2)))

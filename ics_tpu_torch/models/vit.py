@@ -21,6 +21,7 @@ from ics_tpu_torch.nn.layers import (
     LayerNorm,
     gelu,
     reset_all_parameters,
+    run_block,
     trunc_normal_,
 )
 from ics_tpu_torch.ops.attention import attention_reference, flash_attention_qkv
@@ -86,6 +87,10 @@ class ViT(nn.Module):
         )
         self.ln = LayerNorm(dim, device=device)
         self.head = Dense(dim, num_classes, init="trunc_normal", device=device)
+        # the flash kernel has no backward: the fine-tuner turns it off, as the
+        # reference trains on its plain attention
+        self.use_flash = True
+        self.remat = False   # per-block rematerialisation in training (run_block)
 
     def init_weights(self, generator: Optional[torch.Generator] = None) -> "ViT":
         """Seeded random weights with the JAX initialisers' distributions."""
@@ -93,14 +98,17 @@ class ViT(nn.Module):
         trunc_normal_(self.pos_embed.data, generator)
         return reset_all_parameters(self, generator)
 
-    def forward(self, x: torch.Tensor, use_flash: bool = True) -> torch.Tensor:
-        """x: NHWC [B, image_size, image_size, 3] -> logits [B, num_classes]."""
+    def forward(self, x: torch.Tensor, use_flash: Optional[bool] = None) -> torch.Tensor:
+        """x: NHWC [B, image_size, image_size, 3] -> logits [B, num_classes];
+        the attention through the flash kernel unless ``use_flash`` (default:
+        the model's ``use_flash``) is False."""
         b = x.shape[0]
         y = self.patch_embed(x).reshape(b, -1, self.dim)       # [B, P, D]
         cls = self.cls_token.to(y.dtype).expand(b, 1, self.dim)
         y = torch.cat([cls, y], dim=1) + self.pos_embed.to(y.dtype)
+        use_flash = self.use_flash if use_flash is None else use_flash
         for blk in self.blocks:
-            y = blk(y, use_flash)
+            y = run_block(self.remat, blk, y, use_flash)
         return self.head(self.ln(y)[:, 0])
 
     def fold(self) -> "ViT":

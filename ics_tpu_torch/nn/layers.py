@@ -10,11 +10,14 @@ distributions as the JAX initialisers, from a ``torch.Generator``.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ics_tpu_torch.ops.depthwise import depthwise_conv_taps, flip_taps, kernel_taps
@@ -58,8 +61,10 @@ class Conv2D(nn.Module):
     been cast or been written; the parameter and the state dict stay OIHW.
     The flipped taps of the input gradient (``flip_taps``) are kept beside
     them, under the same key: under autograd the kernel's backward launches
-    the kernel on them, and a gradient asked of the weight or the bias
-    raises (training's work).
+    the kernel on them for the input gradient, and the parameter-gradient
+    kernel for the weight's and the bias's (in fp32, in their layout). An
+    optimizer step writes the parameters in place, which moves their version
+    counters: the next forward makes the taps anew.
 
     ``padding`` is symmetric, as an int; ``"SAME"`` is taken where it is
     symmetric too (stride 1 with an odd kernel, or a 1x1 kernel at any
@@ -217,14 +222,49 @@ class BatchNorm(nn.Module):
             x32 = x.float().reshape(-1, x.shape[-1])
             mean = x32.mean(dim=0)
             var = x32.var(dim=0, unbiased=False)
-            with torch.no_grad():
-                self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
-                self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+            # the backward's recomputation of a rematerialised block sees the
+            # same batch again: the statistics move once a step
+            if not recomputing():
+                with torch.no_grad():
+                    self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+                    self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
         else:
             mean, var = self.running_mean.float(), self.running_var.float()
         scale = self.weight.float() * torch.rsqrt(var + self.eps)
         bias = self.bias.float() - mean * scale
         return x * scale.to(x.dtype) + bias.to(x.dtype)
+
+
+_remat = threading.local()
+
+
+def recomputing() -> bool:
+    """Whether this thread is inside the backward's recomputation of a
+    rematerialised block (``run_block``)."""
+    return getattr(_remat, "on", False)
+
+
+@contextlib.contextmanager
+def _recomputation():
+    before = recomputing()
+    _remat.on = True
+    try:
+        yield
+    finally:
+        _remat.on = before
+
+
+def run_block(remat: bool, block, *args):
+    """``block(*args)``; with ``remat`` and autograd recording, rematerialised
+    (the ``remat`` flag of the JAX models, ``jax.checkpoint`` per block): the
+    block keeps only its inputs for the backward, which runs its forward
+    again. BatchNorm updates its running statistics in the first forward
+    only (``recomputing``)."""
+    if not (remat and torch.is_grad_enabled()):
+        return block(*args)
+    return torch.utils.checkpoint.checkpoint(
+        block, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recomputation()))
 
 
 def fold_batchnorm(bn: BatchNorm) -> tuple[torch.Tensor, torch.Tensor]:

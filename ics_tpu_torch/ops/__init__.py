@@ -46,7 +46,8 @@ LAUNCHES: dict[str, LaunchCounter] = {
     name: LaunchCounter()
     for name in ("flash_attention", "bottleneck_chain", "normalize_u8",
                  "depthwise_conv", "window_attention", "flash_attention_bf16_exp",
-                 "depthwise_conv_dx", "window_attention_bwd")
+                 "depthwise_conv_dx", "window_attention_bwd", "depthwise_conv_dw",
+                 "window_attention_dtable")
 }
 
 

@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ics_tpu_torch"
 KERNELS = ("flash_attention", "bottleneck_chain", "normalize_u8", "depthwise_conv",
-           "window_attention", "window_attention_bwd")
+           "window_attention", "window_attention_bwd", "depthwise_conv_dw")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

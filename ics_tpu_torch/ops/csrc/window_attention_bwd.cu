@@ -13,7 +13,18 @@
 //   dP = dO V^T,   dS = P (dP - D),
 //   dq = scale dS K,   dk = dS^T (q scale)_T,   dv = (P)_T^T dO,
 // every sum in fp32, each gradient rounded once to T on its store. The bias table, its
-// index and the mask are read as the forward reads them; no gradient of them is made.
+// index and the mask are read as the forward reads them; the mask takes no gradient.
+//
+// The gradient of the bias table (training): the bias is the same for every window of a
+// head, so its gradient is dB[h, i, j] = sum over windows of dS_ij, and the table's is
+// that gathered back through the index. Where it is asked for, a block takes several
+// windows of one head (windows g, g + G, g + 2G, ... of the call) and adds their dS into
+// a [ww, ww] fp32 block in shared memory, a row a thread, which it writes once to a
+// partial [G, heads, ww, ww] buffer: Swin-T's first stage at batch 32 has 2,048 windows of
+// 3 heads, whose dS would be 59 MB written window by window. ics_window_attention_dtable
+// then sums the G partials of each (head, i, j) in their order (table_sum_windows_kernel) and
+// each table row over the (i, j) that index it, in the order of a stable sort of the
+// index (table_gather_kernel): no atomics, the same sums on every run.
 //
 // Token map: as the forward's. Window n of a gy x gx grid of tokens in windows of
 // wh x wwid takes image token ((wy wh + i + shift) mod gy, (wx wwid + j + shift) mod gx)
@@ -77,6 +88,9 @@ struct Params {
   int n_mask;
   float scale;
   int ld;                     // row stride of the [ww, ww] block in shared memory
+  float* dbias_part;          // [groups, heads, ww, ww] sums of dS, or null: no table gradient
+  int groups;                 // blocks a head; block g takes windows g, g + groups, ...
+  int windows;                // windows of the call
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -131,151 +145,195 @@ window_bwd_kernel(const Params p) {
   float* vs = ks + ww * D;
   float* dos = vs + ww * D;
   float* ps = dos + ww * D;         // [ww][ld]: P, then dS
+  float* accs = ps + ww * p.ld;     // [ww][ld]: the sum of dS over the block's windows
 
   const int head = blockIdx.x % p.heads;
-  const int n = blockIdx.x / p.heads;
-  const int b = n / p.nw_img;
-  const int local = n - b * p.nw_img;
-  const int wy = local / p.nwx;
-  const int wx = local - wy * p.nwx;
+  const int group = blockIdx.x / p.heads;
   const T* q = static_cast<const T*>(p.q) + head * p.sh;
   const T* k = static_cast<const T*>(p.k) + head * p.sh;
   const T* v = static_cast<const T*>(p.v) + head * p.sh;
   const T* dout = static_cast<const T*>(p.dout) + head * p.oh;
-
-  for (int e = threadIdx.x; e < ww * D; e += blockDim.x) {
-    const int t = e / D;
-    const int d = e - t * D;
-    const int ti = t / p.wwid;
-    const int tj = t - ti * p.wwid;
-    const long long off = token_offset(p, b, wy, wx, ti, tj, p.sb, p.sy, p.sx) + d;
-    qs[e] = round_t<T>(__fmul_rn(to_f(q[off]), p.scale));
-    ks[e] = to_f(k[off]);
-    vs[e] = to_f(v[off]);
-    dos[e] = to_f(dout[token_offset(p, b, wy, wx, ti, tj, p.ob, p.oy, p.ox) + d]);
-  }
-  __syncthreads();
-
+  const bool table_grad = p.dbias_part != nullptr;
   const int r = threadIdx.x;        // a query row in phases 1 and 3, a key row in 2 and 4
   const bool live = r < ww;
   const int ri = live ? r / p.wwid : 0;
   const int rj = live ? r - ri * p.wwid : 0;
-  const long long g_off = token_offset(p, b, wy, wx, ri, rj, p.gb, p.gy_s, p.gx_s) + head * p.gh;
-  float dor[D];
-  float dd = 0.f;
-
-  // 1. S_i and P_i (as the forward computes them), O'_i = P_i V and D_i = dO_i . O'_i
-  if (live) {
-    float* prow = ps + r * p.ld;
-    const short* idx = p.index + r * ww;
-    const float* tb = p.table + head * p.t_head;
-    const float* mrow = p.mask == nullptr
-                            ? nullptr
-                            : p.mask + (static_cast<long long>(n % p.n_mask) * ww + r) * ww;
-    float qr[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      qr[d] = qs[r * D + d];
-      dor[d] = dos[r * D + d];
-    }
-    float m = kNegInf;
-    for (int j = 0; j < ww; ++j) {
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) s = fmaf(qr[d], ks[j * D + d], s);
-      s += tb[static_cast<unsigned short>(idx[j]) * p.t_row];
-      if (mrow != nullptr) s += mrow[j];
-      prow[j] = s;
-      m = fmaxf(m, s);
-    }
-    float l = 0.f;
-    for (int j = 0; j < ww; ++j) {
-      const float e = exp_shifted<T>(prow[j], m);
-      prow[j] = e;
-      l += e;
-    }
-    float o[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) o[d] = 0.f;
-    for (int j = 0; j < ww; ++j) {
-      const float pj = __fdiv_rn(prow[j], l);
-      prow[j] = pj;
-#pragma unroll
-      for (int d = 0; d < D; ++d) o[d] = fmaf(pj, vs[j * D + d], o[d]);
-    }
-#pragma unroll
-    for (int d = 0; d < D; ++d) dd = fmaf(dor[d], o[d], dd);
+  if (table_grad && live) {
+    for (int j = 0; j < ww; ++j) accs[r * p.ld + j] = 0.f;
   }
-  __syncthreads();
 
-  // 2. dv_j = sum_i (P_ij)_T dO_i: P as the forward rounded it before P V
-  if (live) {
-    float acc[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] = 0.f;
-    for (int i = 0; i < ww; ++i) {
-      const float pij = round_t<T>(ps[i * p.ld + r]);
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(pij, dos[i * D + d], acc[d]);
+  for (int n = group; n < p.windows; n += p.groups) {
+    const int b = n / p.nw_img;
+    const int local = n - b * p.nw_img;
+    const int wy = local / p.nwx;
+    const int wx = local - wy * p.nwx;
+
+    for (int e = threadIdx.x; e < ww * D; e += blockDim.x) {
+      const int t = e / D;
+      const int d = e - t * D;
+      const int ti = t / p.wwid;
+      const int tj = t - ti * p.wwid;
+      const long long off = token_offset(p, b, wy, wx, ti, tj, p.sb, p.sy, p.sx) + d;
+      qs[e] = round_t<T>(__fmul_rn(to_f(q[off]), p.scale));
+      ks[e] = to_f(k[off]);
+      vs[e] = to_f(v[off]);
+      dos[e] = to_f(dout[token_offset(p, b, wy, wx, ti, tj, p.ob, p.oy, p.ox) + d]);
     }
-    T* dv = static_cast<T*>(p.dv) + g_off;
+    __syncthreads();
+
+    const long long g_off =
+        token_offset(p, b, wy, wx, ri, rj, p.gb, p.gy_s, p.gx_s) + head * p.gh;
+    float dor[D];
+    float dd = 0.f;
+
+    // 1. S_i and P_i (as the forward computes them), O'_i = P_i V and D_i = dO_i . O'_i
+    if (live) {
+      float* prow = ps + r * p.ld;
+      const short* idx = p.index + r * ww;
+      const float* tb = p.table + head * p.t_head;
+      const float* mrow = p.mask == nullptr
+                              ? nullptr
+                              : p.mask + (static_cast<long long>(n % p.n_mask) * ww + r) * ww;
+      float qr[D];
 #pragma unroll
-    for (int d = 0; d < D; ++d) dv[d] = from_f<T>(acc[d]);
+      for (int d = 0; d < D; ++d) {
+        qr[d] = qs[r * D + d];
+        dor[d] = dos[r * D + d];
+      }
+      float m = kNegInf;
+      for (int j = 0; j < ww; ++j) {
+        float s = 0.f;
+#pragma unroll
+        for (int d = 0; d < D; ++d) s = fmaf(qr[d], ks[j * D + d], s);
+        s += tb[static_cast<unsigned short>(idx[j]) * p.t_row];
+        if (mrow != nullptr) s += mrow[j];
+        prow[j] = s;
+        m = fmaxf(m, s);
+      }
+      float l = 0.f;
+      for (int j = 0; j < ww; ++j) {
+        const float e = exp_shifted<T>(prow[j], m);
+        prow[j] = e;
+        l += e;
+      }
+      float o[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) o[d] = 0.f;
+      for (int j = 0; j < ww; ++j) {
+        const float pj = __fdiv_rn(prow[j], l);
+        prow[j] = pj;
+#pragma unroll
+        for (int d = 0; d < D; ++d) o[d] = fmaf(pj, vs[j * D + d], o[d]);
+      }
+#pragma unroll
+      for (int d = 0; d < D; ++d) dd = fmaf(dor[d], o[d], dd);
+    }
+    __syncthreads();
+
+    // 2. dv_j = sum_i (P_ij)_T dO_i: P as the forward rounded it before P V
+    if (live) {
+      float acc[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc[d] = 0.f;
+      for (int i = 0; i < ww; ++i) {
+        const float pij = round_t<T>(ps[i * p.ld + r]);
+#pragma unroll
+        for (int d = 0; d < D; ++d) acc[d] = fmaf(pij, dos[i * D + d], acc[d]);
+      }
+      T* dv = static_cast<T*>(p.dv) + g_off;
+#pragma unroll
+      for (int d = 0; d < D; ++d) dv[d] = from_f<T>(acc[d]);
+    }
+    __syncthreads();
+
+    // 3. dS_i = P_i (dO_i V^T - D_i) over P_i; dq_i = scale dS_i K
+    if (live) {
+      float* prow = ps + r * p.ld;
+      float acc[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc[d] = 0.f;
+      for (int j = 0; j < ww; ++j) {
+        float dp = 0.f;
+#pragma unroll
+        for (int d = 0; d < D; ++d) dp = fmaf(dor[d], vs[j * D + d], dp);
+        const float ds = prow[j] * (dp - dd);
+        prow[j] = ds;
+        if (table_grad) accs[r * p.ld + j] += ds;
+#pragma unroll
+        for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, ks[j * D + d], acc[d]);
+      }
+      T* dq = static_cast<T*>(p.dq) + g_off;
+#pragma unroll
+      for (int d = 0; d < D; ++d) dq[d] = from_f<T>(acc[d] * p.scale);
+    }
+    __syncthreads();
+
+    // 4. dk_j = sum_i dS_ij (q scale)_i
+    if (live) {
+      float acc[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc[d] = 0.f;
+      for (int i = 0; i < ww; ++i) {
+        const float ds = ps[i * p.ld + r];
+#pragma unroll
+        for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, qs[i * D + d], acc[d]);
+      }
+      T* dk = static_cast<T*>(p.dk) + g_off;
+#pragma unroll
+      for (int d = 0; d < D; ++d) dk[d] = from_f<T>(acc[d]);
+    }
+    __syncthreads();   // the next window's staging overwrites what phase 4 read
   }
-  __syncthreads();
 
-  // 3. dS_i = P_i (dO_i V^T - D_i) over P_i; dq_i = scale dS_i K
-  if (live) {
-    float* prow = ps + r * p.ld;
-    float acc[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] = 0.f;
-    for (int j = 0; j < ww; ++j) {
-      float dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) dp = fmaf(dor[d], vs[j * D + d], dp);
-      const float ds = prow[j] * (dp - dd);
-      prow[j] = ds;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, ks[j * D + d], acc[d]);
-    }
-    T* dq = static_cast<T*>(p.dq) + g_off;
-#pragma unroll
-    for (int d = 0; d < D; ++d) dq[d] = from_f<T>(acc[d] * p.scale);
-  }
-  __syncthreads();
-
-  // 4. dk_j = sum_i dS_ij (q scale)_i
-  if (live) {
-    float acc[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] = 0.f;
-    for (int i = 0; i < ww; ++i) {
-      const float ds = ps[i * p.ld + r];
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, qs[i * D + d], acc[d]);
-    }
-    T* dk = static_cast<T*>(p.dk) + g_off;
-#pragma unroll
-    for (int d = 0; d < D; ++d) dk[d] = from_f<T>(acc[d]);
+  if (table_grad && live) {
+    float* out = p.dbias_part + (static_cast<long long>(group * p.heads + head) * ww + r) * ww;
+    for (int j = 0; j < ww; ++j) out[j] = accs[r * p.ld + j];
   }
 }
 
-int smem_bytes(int ww, int head_dim, int ld) { return (4 * ww * head_dim + ww * ld) * 4; }
+// dbias[h, t] = sum over g of part[g, h, t], t < ww^2
+__global__ void table_sum_windows_kernel(const float* __restrict__ part,
+                                         float* __restrict__ dbias, int groups, int heads,
+                                         int ww2) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= heads * ww2) return;
+  float s = 0.f;
+  for (int g = 0; g < groups; ++g) s += part[static_cast<long long>(g) * heads * ww2 + t];
+  dbias[t] = s;
+}
+
+// out[row, h] = sum of dbias[h, order[e]] over e in [offsets[row], offsets[row + 1])
+__global__ void table_gather_kernel(const float* __restrict__ dbias,
+                                    const int* __restrict__ order,
+                                    const int* __restrict__ offsets, float* __restrict__ out,
+                                    int rows, int heads, int ww2) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= rows * heads) return;
+  const int row = t / heads;
+  const int h = t - row * heads;
+  float s = 0.f;
+  for (int e = offsets[row]; e < offsets[row + 1]; ++e) s += dbias[h * ww2 + order[e]];
+  out[t] = s;
+}
+
+int smem_bytes(int ww, int head_dim, int ld, bool table_grad) {
+  return (4 * ww * head_dim + (table_grad ? 2 : 1) * ww * ld) * 4;
+}
 
 template <typename T, int D>
 cudaError_t launch(const Params& p, long long items, cudaStream_t stream, int device) {
   auto kernel = window_bwd_kernel<T, D>;
   static bool configured[kMaxDevices] = {};
   if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-  const int most = smem_bytes(kMaxTokens, D, kMaxTokens + 1);
+  const int most = smem_bytes(kMaxTokens, D, kMaxTokens + 1, true);
   if (!configured[device]) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (err != cudaSuccess) return err;
     configured[device] = true;
   }
-  kernel<<<static_cast<unsigned>(items), kMaxTokens, smem_bytes(p.ww, D, p.ld), stream>>>(p);
+  kernel<<<static_cast<unsigned>(items), kMaxTokens,
+           smem_bytes(p.ww, D, p.ld, p.dbias_part != nullptr), stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -291,7 +349,9 @@ const char* ics_cuda_error_string(int code) {
 // head h of q lies at q + b sb + y sy + x sx + h sh (elements; the same strides for k and
 // v), its head_dim values contiguous; dout's by ob, oy, ox, oh, and dq's, dk's and dv's
 // by gb, gys, gxs, gh. Grid, windows, shift, table, index, mask and scale as
-// ics_window_attention takes them. Returns a cudaError_t; 0 when the launch was accepted.
+// ics_window_attention takes them. dbias_part: null, or [groups, heads, ww, ww] fp32 for
+// the sums of dS over windows (then block g of a head takes windows g, g + groups, ...).
+// Returns a cudaError_t; 0 when the launch was accepted.
 int ics_window_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                              const void* dout, void* dq, void* dk, void* dv, long long sb,
                              long long sy, long long sx, long long sh, long long ob,
@@ -300,7 +360,7 @@ int ics_window_attention_bwd(int dtype, const void* q, const void* k, const void
                              int gx, int wh, int wwid, int shift, int heads, int head_dim,
                              const void* table, long long t_row, long long t_head,
                              const void* index, const void* mask, int n_mask, float scale,
-                             void* stream, int device) {
+                             void* dbias_part, int groups, void* stream, int device) {
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
@@ -349,8 +409,13 @@ int ics_window_attention_bwd(int dtype, const void* q, const void* k, const void
   p.n_mask = mask != nullptr ? n_mask : 1;
   p.scale = scale;
   p.ld = ww % 2 == 1 ? ww : ww + 1;
-  const long long items = static_cast<long long>(batch) * p.nw_img * heads;
-  if (items > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const long long windows = static_cast<long long>(batch) * p.nw_img;
+  if (windows * heads > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  p.windows = static_cast<int>(windows);
+  p.dbias_part = static_cast<float*>(dbias_part);
+  p.groups = dbias_part != nullptr ? groups : p.windows;
+  if (p.groups <= 0 || p.groups > p.windows) return static_cast<int>(cudaErrorInvalidValue);
+  const long long items = static_cast<long long>(p.groups) * heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim * 2 + dtype) {
     case 32: return static_cast<int>(launch<bf16, 16>(p, items, s, device));
@@ -359,6 +424,34 @@ int ics_window_attention_bwd(int dtype, const void* q, const void* k, const void
     case 65: return static_cast<int>(launch<float, 32>(p, items, s, device));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The table gradient from the partial sums that ics_window_attention_bwd wrote: part
+// [groups, heads, ww, ww] fp32 -> dbias [heads, ww, ww] fp32 (scratch) -> out [rows,
+// heads] fp32, contiguous. order: the ww^2 positions of the index sorted by table row
+// (stable), offsets: [rows + 1] starts of each row's run in order, both int32. Two
+// launches on the stream. Returns a cudaError_t; 0 when both were accepted.
+int ics_window_attention_dtable(const void* part, int groups, int heads, int ww, void* dbias,
+                                const void* order, const void* offsets, int rows, void* out,
+                                void* stream, int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (groups <= 0 || heads <= 0 || ww <= 0 || ww > kMaxTokens || rows <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ww2 = ww * ww;
+  const int threads = 256;
+  table_sum_windows_kernel<<<(heads * ww2 + threads - 1) / threads, threads, 0, s>>>(
+      static_cast<const float*>(part), static_cast<float*>(dbias), groups, heads, ww2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  table_gather_kernel<<<(rows * heads + threads - 1) / threads, threads, 0, s>>>(
+      static_cast<const float*>(dbias), static_cast<const int*>(order),
+      static_cast<const int*>(offsets), static_cast<float*>(out), rows, heads, ww2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

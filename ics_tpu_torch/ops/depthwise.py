@@ -22,16 +22,18 @@ k and stride 1, ``dx = depthwise_conv(dy, taps flipped in both spatial
 axes)`` (``flip_taps``), with the same fp32 sums and one rounding. Where
 autograd would record a call on the card, the entries run under
 ``_DepthwiseConv``, whose backward launches it (counted apart, as
-``depthwise_conv_dx``).
-Gradients of the taps and the bias are training's work (ROADMAP.md item 7):
-asked for on the card, they raise ``NotImplementedError``. On the CPU the
-plain version is differentiated as it is.
+``depthwise_conv_dx``). The gradients of the taps and the bias come from a
+kernel of their own, ``csrc/depthwise_conv_dw.cu`` (``depthwise_conv_dw``,
+counted as ``depthwise_conv_dw``): fp32 sums over the batch and the image,
+taken in a fixed order. On the CPU the plain version is differentiated as it
+is.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -84,7 +86,12 @@ STRIP_SHORT_ROWS = 12
 
 _launches = LAUNCHES["depthwise_conv"]
 _dx_launches = LAUNCHES["depthwise_conv_dx"]
+_dw_launches = LAUNCHES["depthwise_conv_dw"]
 _lib = None
+# the parameter-gradient kernel: blocks of 32 channels by one strip of rows of
+# one image; H is cut into strips until the grid has about this many blocks
+DW_TARGET_BLOCKS = 1024
+DW_KERNEL_SIZES = (3, 5, 7, 9, 11)
 
 
 def _kernel():
@@ -296,30 +303,101 @@ def _launch(x: torch.Tensor, taps: torch.Tensor, b: Optional[torch.Tensor], k: i
     return out
 
 
+def _dw_kernel():
+    from ics_tpu_torch.ops import _build
+
+    lib = _build.load("depthwise_conv_dw")
+    fn = lib.ics_depthwise_conv_dw
+    if fn.argtypes is None:
+        c_int, ptr = ctypes.c_int, ctypes.c_void_p
+        fn.argtypes = [c_int] + [ptr] * 6 + [c_int] * 6 + [ptr, c_int]
+        fn.restype = c_int
+        lib.ics_cuda_error_string.argtypes = [c_int]
+        lib.ics_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def dw_grad_rows(b: int, h: int, c: int) -> int:
+    """Rows of one image a block of the parameter-gradient kernel sums: H cut
+    into strips until the grid has about ``DW_TARGET_BLOCKS`` blocks."""
+    strips = max(1, min(h, _ceil_div(DW_TARGET_BLOCKS, _ceil_div(c, 32) * b)))
+    return _ceil_div(h, strips)
+
+
+def _launch_dw(x: torch.Tensor, dy: torch.Tensor, k: int,
+               with_bias: bool) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One call of the parameter-gradient kernel (its partial pass and its
+    reduction, counted once) on CUDA tensors that the caller has checked: x
+    and dy contiguous [B, H, W, C] of one dtype -> (dtaps [k * k, C], dbias
+    [C] or None), fp32."""
+    bsz, h, wd, c = x.shape
+    rh = dw_grad_rows(bsz, h, c)
+    strips = bsz * _ceil_div(h, rh)
+    part = torch.empty(strips * (k * k + 1) * c, dtype=torch.float32, device=x.device)
+    dtaps = torch.empty(k * k, c, dtype=torch.float32, device=x.device)
+    dbias = torch.empty(c, dtype=torch.float32, device=x.device) if with_bias else None
+    lib = _dw_kernel()
+    rc = lib.ics_depthwise_conv_dw(
+        _DTYPE_CODES[x.dtype], x.data_ptr(), dy.data_ptr(), part.data_ptr(),
+        part.data_ptr() + strips * k * k * c * 4, dtaps.data_ptr(),
+        None if dbias is None else dbias.data_ptr(), bsz, h, wd, c, k, rh,
+        *stream_and_device(x),
+    )
+    if rc != 0:
+        msg = lib.ics_cuda_error_string(rc).decode()
+        raise RuntimeError(f"depthwise_conv_dw kernel launch failed: {msg} (cudaError {rc})")
+    _dw_launches.add()
+    return dtaps, dbias
+
+
+def _taps_grad(dtaps: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """dtaps [k * k, C] laid out as the weight ``like`` ([k * k, C], [k, k,
+    C], HWIO [k, k, 1, C] or OIHW [C, 1, k, k]), in its dtype."""
+    c = dtaps.shape[1]
+    if like.dim() == 2:
+        return dtaps.to(like.dtype)
+    k = math.isqrt(dtaps.shape[0])
+    grad = torch.empty(like.shape, dtype=like.dtype, device=dtaps.device)
+    _taps(grad, c).copy_(dtaps.view(k, k, c))
+    return grad
+
+
 class _DepthwiseConv(torch.autograd.Function):
     """The kernel under autograd: the forward launch, and a backward that
-    launches the kernel on the flipped taps for the input gradient. ``weight``
-    and ``bias_param`` are the parameters that ``taps`` and ``bias`` were made
-    from (None where those are the operands themselves): passed only so that
-    a gradient asked of them is seen and refused."""
+    launches the kernel on the flipped taps for the input gradient and the
+    parameter-gradient kernel for the taps and the bias. ``weight`` and
+    ``bias_param`` are the parameters that ``taps`` and ``bias`` were made
+    from (None where those are the operands themselves): their gradients
+    come back in their layout and dtype."""
 
     @staticmethod
     def forward(ctx, x, taps, bias, flipped, k, weight, bias_param):
-        if any(ctx.needs_input_grad[1:]):
-            raise NotImplementedError(
-                "depthwise_conv has a backward for its input only: gradients of the taps "
-                "and the bias are training's work (ROADMAP.md item 7); turn requires_grad "
-                "off on them")
         # a constant of the backward, kept as an attribute: a module's cached
         # taps may be made under inference_mode, and such a tensor cannot be
         # saved for backward
         ctx.flipped, ctx.k = flipped, k
+        needs = ctx.needs_input_grad
+        ctx.taps_like = weight if needs[5] else taps if needs[1] else None
+        ctx.bias_like = bias_param if needs[6] else bias if needs[2] else None
+        if ctx.taps_like is not None or ctx.bias_like is not None:
+            ctx.save_for_backward(x)
         return _launch(x, taps, bias, k)
 
     @staticmethod
     def backward(ctx, dy):
-        dx = _launch(dy.contiguous(), ctx.flipped, None, ctx.k, counter=_dx_launches)
-        return dx, None, None, None, None, None, None
+        dy = dy.contiguous()
+        needs = ctx.needs_input_grad
+        grads = [None] * 7
+        if needs[0]:
+            grads[0] = _launch(dy, ctx.flipped, None, ctx.k, counter=_dx_launches)
+        if ctx.taps_like is not None or ctx.bias_like is not None:
+            (x,) = ctx.saved_tensors
+            dtaps, dbias = _launch_dw(x, dy.to(x.dtype), ctx.k, ctx.bias_like is not None)
+            if ctx.taps_like is not None:
+                grads[5 if needs[5] else 1] = _taps_grad(dtaps, ctx.taps_like)
+            if ctx.bias_like is not None:
+                grads[6 if needs[6] else 2] = dbias.to(ctx.bias_like.dtype)
+        return tuple(grads)
 
 
 def depthwise_conv_taps(x: torch.Tensor, taps: torch.Tensor, b: Optional[torch.Tensor],
@@ -330,7 +408,8 @@ def depthwise_conv_taps(x: torch.Tensor, taps: torch.Tensor, b: Optional[torch.T
     made for ``x.dtype`` on ``x``'s device by the module from its parameters
     ``weight`` and ``bias_param``. Checks what changes from call to call and
     launches; where autograd would record the call, it runs under
-    ``_DepthwiseConv``, which refuses a gradient of the parameters."""
+    ``_DepthwiseConv``, whose backward gives the gradients of ``x``,
+    ``weight`` and ``bias_param``."""
     if not x.is_cuda or x.dtype not in _DTYPE_CODES or taps.dtype != x.dtype \
             or x.dim() != 4 or taps.shape[1] != x.shape[3] or not x.is_contiguous() \
             or x.numel() >= 2**31:
@@ -413,3 +492,49 @@ def depthwise_dx_reference(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         x = torch.zeros_like(dy, requires_grad=True)
         (dx,) = torch.autograd.grad(depthwise_reference(x, w.detach()), x, dy)
     return dx
+
+
+def depthwise_conv_dw(x: torch.Tensor, dy: torch.Tensor, k: int,
+                      with_bias: bool = True) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The gradients of ``depthwise_conv(x, w, b)``'s taps and bias given
+    ``dy``: x and dy [B, H, W, C] -> (dtaps [k * k, C], dbias [C] or None),
+    fp32, tap (i, j) of channel c at ``dtaps[i * k + j, c]``.
+
+    CUDA tensors go through the kernel (bf16 or fp32 x and dy of one dtype,
+    contiguous, odd k from 3 to 11); anything it does not take raises. CPU
+    tensors take the plain version, ``depthwise_dw_reference``."""
+    if x.dim() != 4 or dy.shape != x.shape:
+        raise ValueError(f"depthwise_conv_dw wants x and dy of one [B, H, W, C] shape; got "
+                         f"{tuple(x.shape)}, {tuple(dy.shape)}")
+    if {x.device, dy.device} == {torch.device("cpu")}:
+        dtaps, dbias = depthwise_dw_reference(x, dy, k)
+        return dtaps, dbias if with_bias else None
+    if x.device != dy.device or x.device.type != "cuda":
+        raise ValueError(f"depthwise_conv_dw wants x and dy on one CUDA device; got "
+                         f"{x.device}, {dy.device}")
+    if x.dtype not in _DTYPE_CODES or dy.dtype != x.dtype:
+        raise ValueError(f"depthwise_conv_dw takes bf16 or fp32 x and dy of one dtype; got "
+                         f"{x.dtype}, {dy.dtype}")
+    if k not in DW_KERNEL_SIZES:
+        raise ValueError(f"depthwise_conv_dw takes k in {DW_KERNEL_SIZES}; got {k}")
+    if not (x.is_contiguous() and dy.is_contiguous()) or x.numel() >= 2**31:
+        raise ValueError(f"depthwise_conv_dw wants contiguous x and dy with fewer than 2^31 "
+                         f"elements; got {tuple(x.shape)}")
+    b, h, _, c = x.shape
+    if b * _ceil_div(h, dw_grad_rows(b, h, c)) > 65535:
+        raise ValueError(f"depthwise_conv_dw: batch {b} is too large")
+    return _launch_dw(x, dy, k, with_bias)
+
+
+def depthwise_dw_reference(x: torch.Tensor, dy: torch.Tensor,
+                           k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``depthwise_conv_dw``: autograd of
+    ``depthwise_reference`` with respect to its taps and bias, in fp32 (no
+    TF32) -> (dtaps [k * k, C], dbias [C])."""
+    c = x.shape[-1]
+    with torch.enable_grad(), torch.backends.cudnn.flags(allow_tf32=False):
+        w = torch.zeros(k, k, c, dtype=torch.float32, device=x.device, requires_grad=True)
+        b = torch.zeros(c, dtype=torch.float32, device=x.device, requires_grad=True)
+        y = depthwise_reference(x.detach().float(), w, b)
+        dw, db = torch.autograd.grad(y, (w, b), dy.float())
+    return dw.reshape(k * k, c), db

@@ -30,9 +30,11 @@ Gradients: where autograd would record a call of ``window_attention_qkv`` on
 the card, it runs under ``_WindowAttentionQKV``, whose backward is the kernel
 of ``csrc/window_attention_bwd.cu`` (``window_attention_qkv_bwd``, counted as
 ``window_attention_bwd``): the gradient with respect to qkv, S and P
-recomputed in the kernel, one rounding of dqkv. Gradients of the table and
-the mask are training's work (ROADMAP.md item 7) and raise
-``NotImplementedError`` when asked for; the 4-D entry has no backward and
+recomputed in the kernel, one rounding of dqkv. Where the table requires
+grad, the same launch also sums dS over the windows a block takes, and a
+second entry of the source (``window_attention_dtable``) reduces those sums
+and gathers them back through the index into the table's gradient, fp32, in
+a fixed order. The mask takes no gradient. The 4-D entry has no backward and
 raises ``KernelHasNoGradient``. On the CPU the plain versions are
 differentiated as they are.
 """
@@ -57,7 +59,11 @@ _H100_MULTIPROCESSORS = 132  # what pick_head_group counts with where no device 
 
 _launches = LAUNCHES["window_attention"]
 _bwd_launches = LAUNCHES["window_attention_bwd"]
+_dtable_launches = LAUNCHES["window_attention_dtable"]
 _identity_index: dict = {}
+# a head's windows are cut into this many groups or fewer (a block each, which
+# sums dS over its windows) when the table's gradient is asked for
+TABLE_TARGET_BLOCKS = 1056
 
 
 def _kernel():
@@ -85,11 +91,33 @@ def _bwd_kernel():
     if fn.argtypes is None:
         c_int, c_ll, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
         fn.argtypes = ([c_int] + [ptr] * 7 + [c_ll] * 12 + [c_int] * 8 + [ptr, c_ll, c_ll]
-                       + [ptr, ptr, c_int, ctypes.c_float, ptr, c_int])
+                       + [ptr, ptr, c_int, ctypes.c_float, ptr, c_int, ptr, c_int])
         fn.restype = ctypes.c_int
+        table = lib.ics_window_attention_dtable
+        table.argtypes = [ptr, c_int, c_int, c_int, ptr, ptr, ptr, c_int, ptr, ptr, c_int]
+        table.restype = ctypes.c_int
         lib.ics_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ics_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def table_groups(windows: int, heads: int) -> int:
+    """Blocks a head of the backward launch when the table's gradient is asked
+    for: each sums dS over the windows it takes and writes one [ww, ww]
+    partial, so fewer groups write fewer partials; ``TABLE_TARGET_BLOCKS``
+    keeps the card full."""
+    return max(1, min(windows, TABLE_TARGET_BLOCKS // heads))
+
+
+def _index_order(rel_index: torch.Tensor, rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(order, offsets) of the [ww, ww] index, int32 on its device: the
+    positions sorted by the table row they read (stable), and where each row's
+    run starts, [rows + 1]."""
+    flat = rel_index.reshape(-1).long()
+    order = torch.sort(flat, stable=True).indices.to(torch.int32)
+    offsets = torch.zeros(rows + 1, dtype=torch.int32, device=flat.device)
+    offsets[1:] = torch.cumsum(torch.bincount(flat, minlength=rows), 0)
+    return order, offsets
 
 
 def _round_up(v: int, m: int) -> int:
@@ -401,16 +429,12 @@ def _qkv_forward(qkv, rel_table, rel_index, mask, window: int, shift: int,
 
 class _WindowAttentionQKV(torch.autograd.Function):
     """``window_attention_qkv`` under autograd: the forward kernel, and the
-    backward kernel for the gradient with respect to qkv. Nothing of the
-    forward is kept but its inputs: the backward recomputes S and P."""
+    backward kernel for the gradients with respect to qkv and, where it
+    requires grad, the table (the mask takes none). Nothing of the forward is
+    kept but its inputs: the backward recomputes S and P."""
 
     @staticmethod
     def forward(ctx, qkv, rel_table, mask, rel_index, window, shift, scale):
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            raise NotImplementedError(
-                "window_attention_qkv has a backward for qkv only: gradients of rel_table and "
-                "the mask are training's work (ROADMAP.md item 7); turn requires_grad off "
-                "on them")
         ctx.save_for_backward(qkv)
         # the table, mask and index are constants of the backward, kept as
         # attributes: a module's cached copies may be made under
@@ -421,14 +445,15 @@ class _WindowAttentionQKV(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         (qkv,) = ctx.saved_tensors
-        dqkv = _qkv_backward(qkv, dout, *ctx.args)
-        return dqkv, None, None, None, None, None, None
+        dqkv, dtable = _qkv_backward(qkv, dout, *ctx.args, with_table=ctx.needs_input_grad[1])
+        return dqkv, dtable, None, None, None, None, None
 
 
 def _qkv_backward(qkv, dout, rel_table, rel_index, mask, window: int, shift: int,
-                  scale: float) -> torch.Tensor:
-    """The backward launch on checked tensors: dqkv, contiguous, in qkv's
-    shape and dtype."""
+                  scale: float, with_table: bool = False):
+    """The backward launch on checked tensors: (dqkv, contiguous, in qkv's
+    shape and dtype; the table's gradient [rows, H] fp32, or None unless
+    ``with_table``)."""
     b, grid, _, _, h, hd = qkv.shape
     if tuple(dout.shape) != (b, grid, grid, h * hd):
         raise ValueError(f"window_attention_qkv_bwd wants dout as {[b, grid, grid, h * hd]}; "
@@ -436,7 +461,12 @@ def _qkv_backward(qkv, dout, rel_table, rel_index, mask, window: int, shift: int
     dout = dout.to(qkv.dtype).contiguous()
     dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
     if dqkv.numel() == 0:
-        return dqkv
+        return dqkv, torch.zeros_like(rel_table) if with_table else None
+    ww = window * window
+    windows = b * (grid // window) ** 2
+    groups = table_groups(windows, h)
+    part = (torch.empty(groups * h * ww * ww, dtype=torch.float32, device=qkv.device)
+            if with_table else None)
     size = qkv.element_size()
     q_ptr, g_ptr = qkv.data_ptr(), dqkv.data_ptr()
     step, g_step = qkv.stride(3) * size, dqkv.stride(3) * size
@@ -450,20 +480,34 @@ def _qkv_backward(qkv, dout, rel_table, rel_index, mask, window: int, shift: int
         b, grid, grid, window, window, shift, h, hd,
         rel_table.data_ptr(), rel_table.stride(0), rel_table.stride(1), rel_index.data_ptr(),
         None if mask is None else mask.data_ptr(), 1 if mask is None else mask.shape[0], scale,
-        *stream_and_device(qkv),
+        None if part is None else part.data_ptr(), groups, *stream_and_device(qkv),
     )
     if rc != 0:
         msg = lib.ics_cuda_error_string(rc).decode()
         raise RuntimeError(f"window_attention_bwd kernel launch failed: {msg} (cudaError {rc})")
     _bwd_launches.add()
-    return dqkv
+    if not with_table:
+        return dqkv, None
+    rows = rel_table.shape[0]
+    order, offsets = _index_order(rel_index, rows)
+    dbias = torch.empty(h * ww * ww, dtype=torch.float32, device=qkv.device)
+    dtable = torch.empty(rows, h, dtype=torch.float32, device=qkv.device)
+    rc = lib.ics_window_attention_dtable(
+        part.data_ptr(), groups, h, ww, dbias.data_ptr(), order.data_ptr(), offsets.data_ptr(),
+        rows, dtable.data_ptr(), *stream_and_device(qkv))
+    if rc != 0:
+        msg = lib.ics_cuda_error_string(rc).decode()
+        raise RuntimeError(f"window_attention_dtable kernel launch failed: {msg} (cudaError {rc})")
+    _dtable_launches.add()
+    return dqkv, dtable
 
 
 def window_attention_qkv_bwd(qkv: torch.Tensor, dout: torch.Tensor, rel_table: torch.Tensor,
                              rel_index: torch.Tensor, mask: Optional[torch.Tensor],
-                             window: int, shift: int, scale: float) -> torch.Tensor:
+                             window: int, shift: int, scale: float, with_table: bool = False):
     """The gradient of ``window_attention_qkv(qkv, ...)`` with respect to qkv,
-    given ``dout`` [B, G, G, H·hd] -> dqkv in qkv's shape and dtype.
+    given ``dout`` [B, G, G, H·hd] -> dqkv in qkv's shape and dtype; with
+    ``with_table``, (dqkv, the gradient of ``rel_table`` [rows, H] fp32).
 
     CUDA tensors go through the backward kernel (what the forward entry
     takes, and dout of qkv's dtype); CPU tensors take the plain version,
@@ -472,28 +516,30 @@ def window_attention_qkv_bwd(qkv: torch.Tensor, dout: torch.Tensor, rel_table: t
     tensors = [qkv, dout, rel_table, rel_index] + ([] if mask is None else [mask])
     if {t.device for t in tensors} == {torch.device("cpu")}:
         return window_attention_qkv_bwd_reference(qkv, dout, rel_table, rel_index, mask, window,
-                                                  shift, scale)
+                                                  shift, scale, with_table)
     _check_qkv_call("window_attention_qkv_bwd", qkv, rel_table, rel_index, mask, window, dout)
     if dout.dtype != qkv.dtype:
         raise ValueError(f"window_attention_qkv_bwd wants dout of qkv's dtype {qkv.dtype}; "
                          f"got {dout.dtype}")
     if qkv.stride(-1) != 1:
         raise ValueError("window_attention_qkv_bwd wants qkv's last dimension contiguous")
-    return _qkv_backward(qkv, dout, rel_table, rel_index, mask, window, shift, scale)
+    dqkv, dtable = _qkv_backward(qkv, dout, rel_table, rel_index, mask, window, shift, scale,
+                                 with_table)
+    return (dqkv, dtable) if with_table else dqkv
 
 
 def window_attention_qkv_bwd_reference(qkv: torch.Tensor, dout: torch.Tensor,
                                        rel_table: torch.Tensor, rel_index: torch.Tensor,
                                        mask: Optional[torch.Tensor], window: int, shift: int,
-                                       scale: float) -> torch.Tensor:
+                                       scale: float, with_table: bool = False):
     """The plain version of ``window_attention_qkv_bwd``: autograd of
-    ``window_attention_qkv_reference`` with respect to qkv."""
+    ``window_attention_qkv_reference`` with respect to qkv (and the table)."""
     with torch.enable_grad():
         x = qkv.detach().requires_grad_()
-        y = window_attention_qkv_reference(x, rel_table.detach(), rel_index, mask, window,
-                                           shift, scale)
-        (dqkv,) = torch.autograd.grad(y, x, dout)
-    return dqkv
+        table = rel_table.detach().requires_grad_(with_table)
+        y = window_attention_qkv_reference(x, table, rel_index, mask, window, shift, scale)
+        grads = torch.autograd.grad(y, (x, table) if with_table else (x,), dout)
+    return grads if with_table else grads[0]
 
 
 def window_attention_qkv_reference(qkv: torch.Tensor, rel_table: torch.Tensor,

@@ -81,6 +81,11 @@ def warn_unserved_settings() -> None:
         _warn_once("pp_stages",
                    f"TPU_PP_STAGES={settings.TPU_PP_STAGES}, but pipeline parallelism is "
                    "not ported yet: the whole model runs on one GPU")
+    if settings.TPU_TRAIN_DEVICES.strip():
+        _warn_once("train_devices",
+                   f"TPU_TRAIN_DEVICES={settings.TPU_TRAIN_DEVICES!r}, but training on a "
+                   "device group of its own is not ported yet (ROADMAP.md item 9): the "
+                   "fine-tuner runs on one GPU")
 
 
 class InferenceService:

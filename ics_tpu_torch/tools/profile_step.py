@@ -45,7 +45,8 @@ GROUPS = (
     # every __global__ of ops/csrc (tests/test_torch_standalone.py holds the two in line)
     ("port kernels", ("flash_wgmma", "flash_mma", "flash_f32", "bottleneck_wgmma",
                       "normalize_vec", "normalize_scalar", "dw_strip", "dw_tile", "dw_direct",
-                      "window_bf16", "window_f32", "window_bwd")),
+                      "window_bf16", "window_f32", "window_bwd", "dw_grad", "table_sum",
+                      "table_gather")),
     ("convolution and GEMM", ("gemm", "cutlass", "nvjet", "xmma", "conv", "cudnn", "wgrad",
                               "implicit", "sm90_", "sm80_")),
     ("pooling, softmax, top-k", ("pool", "softmax", "topk", "sort", "gather", "reduce")),

@@ -365,6 +365,7 @@ _UNSERVED = {
     "TPU_SERVING_REPLICAS": ("2", "TPU_SERVING_REPLICAS"),
     "TPU_MESH_SHAPE": ("2,1", "TPU_MESH_SHAPE"),
     "TPU_PP_STAGES": ("2", "TPU_PP_STAGES"),
+    "TPU_TRAIN_DEVICES": ("1,2", "TPU_TRAIN_DEVICES"),
 }
 # served since the sync engine, classify-on-sync and the embed step were
 # ported (NEXTCLOUD_BASE_URL with TPU_CLASSIFY_ON_SYNC at its default, on),

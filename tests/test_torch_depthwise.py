@@ -297,3 +297,81 @@ def test_module_keeps_its_taps_until_the_weight_moves_is_cast_or_is_written():
     assert torch.equal(conv.kernel_operands(torch.float32)[0], second)
     assert sorted(conv.state_dict()) == ["bias", "weight"]
     assert tuple(conv.state_dict()["weight"].shape) == (c, 1, k, k)
+
+
+# ---- the gradients of the taps and the bias (training) ---------------------------
+#
+# The JAX package trains the depthwise convolution through XLA (its Pallas
+# kernel has no backward): jax.grad of its Conv2D against the port's plain
+# version of ``depthwise_conv_dw`` and autograd of the port's Conv2D, fp32,
+# 1e-5 of the largest gradient (the same products summed in another order).
+
+@pytest.mark.parametrize("shape,k", [((2, 14, 14, 24), 7), ((3, 9, 7, 16), 3),
+                                     ((2, 6, 11, 40), 5), ((1, 1, 1, 8), 3)])
+def test_taps_and_bias_gradients_match_jax(shape, k):
+    import jax
+
+    x, w, b = _case(shape, k, True, seed=k)
+    dy = np.random.default_rng(k + 1).standard_normal(shape).astype(np.float32)
+    c = shape[-1]
+    jconv = JaxConv2D(c, c, k, 1, padding="SAME", groups=c, use_bias=True)
+    params = {"w": jnp.asarray(w[:, :, None, :]), "b": jnp.asarray(b)}
+    grads = jax.grad(lambda p: jnp.sum(jconv.apply(p, jnp.asarray(x)) * dy))(params)
+    ref_w = np.asarray(grads["w"])[:, :, 0, :].reshape(k * k, c)
+    ref_b = np.asarray(grads["b"])
+    dtaps, dbias = depthwise.depthwise_conv_dw(torch.from_numpy(x), torch.from_numpy(dy), k)
+    for ours, ref in ((dtaps, ref_w), (dbias, ref_b)):
+        assert ours.dtype == torch.float32
+        assert np.abs(ours.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+    conv = Conv2D(c, c, k, 1, padding=k // 2, groups=c, use_bias=True)
+    conv.load_state_dict(weights.from_jax_variables({"params": jax.tree_util.tree_map(
+        np.asarray, params)}))
+    (conv(torch.from_numpy(x)) * torch.from_numpy(dy)).sum().backward()
+    assert np.abs(conv.weight.grad.numpy().reshape(c, k * k).T - ref_w).max() \
+        <= 1e-5 * np.abs(ref_w).max()
+    assert np.abs(conv.bias.grad.numpy() - ref_b).max() <= 1e-5 * np.abs(ref_b).max()
+    assert depthwise.depthwise_conv_dw(torch.from_numpy(x), torch.from_numpy(dy), k,
+                                       with_bias=False)[1] is None
+
+
+@pytest.mark.parametrize("layout", ["kk_c", "kkc", "hwio", "oihw"])
+def test_taps_gradient_comes_back_in_the_weights_layout(layout):
+    k, c = 5, 6
+    dtaps = torch.arange(k * k * c, dtype=torch.float32).reshape(k * k, c)
+    like = {"kk_c": torch.empty(k * k, c), "kkc": torch.empty(k, k, c),
+            "hwio": torch.empty(k, k, 1, c), "oihw": torch.empty(c, 1, k, k)}[layout]
+    grad = depthwise._taps_grad(dtaps, like.to(torch.bfloat16))
+    assert grad.shape == like.shape and grad.dtype == torch.bfloat16
+    assert torch.equal(depthwise.kernel_taps(grad.float(), c) if grad.dim() != 2 else
+                       grad.float(), dtaps)
+
+
+@pytest.mark.parametrize("b,h,c", [(32, 56, 96), (32, 7, 768), (1, 95, 192), (32, 14, 576),
+                                   (1, 1, 16), (8, 12, 1632)])
+def test_gradient_strips_fill_the_card_and_cover_every_row(b, h, c):
+    rh = depthwise.dw_grad_rows(b, h, c)
+    strips = -(-h // rh)
+    blocks = -(-c // 32) * b * strips
+    assert 1 <= rh <= h and (strips - 1) * rh < h <= strips * rh
+    # about the target: cutting H into whole strips of rh rows rounds it down
+    assert blocks >= min(depthwise.DW_TARGET_BLOCKS // 2, -(-c // 32) * b * h)
+    assert b * strips <= 65535
+
+
+def test_an_optimizer_step_makes_the_cached_taps_anew():
+    """A training step writes the weight in place: the taps the kernel reads
+    follow it (the version counter moves), so no stale taps are launched."""
+    c, k = 8, 3
+    conv = Conv2D(c, c, k, 1, padding=1, groups=c, use_bias=True)
+    conv.reset_parameters(torch.Generator().manual_seed(0))
+    opt = torch.optim.SGD(conv.parameters(), lr=0.5, momentum=0.9)
+    for _ in range(2):
+        taps, bias = conv.kernel_operands(torch.float32)
+        before = taps.clone()
+        conv(torch.randn(2, 5, 5, c)).square().sum().backward()
+        opt.step()
+        opt.zero_grad()
+        after, after_bias = conv.kernel_operands(torch.float32)
+        assert not torch.equal(after, before)
+        assert torch.equal(after, depthwise.kernel_taps(conv.weight.detach(), c))
+        assert torch.equal(after_bias, conv.bias.detach())

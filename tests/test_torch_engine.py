@@ -87,7 +87,7 @@ def test_status_and_warmup(engine):
     assert set(st["kernel_launches"]) == {
         "flash_attention", "bottleneck_chain", "normalize_u8", "depthwise_conv",
         "window_attention", "flash_attention_bf16_exp", "depthwise_conv_dx",
-        "window_attention_bwd"}
+        "window_attention_bwd", "depthwise_conv_dw", "window_attention_dtable"}
     assert st["fused_chains"] is False
 
 

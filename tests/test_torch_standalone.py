@@ -391,6 +391,7 @@ def test_registry_is_the_jax_registry_minus_what_is_not_ported():
     "ics_tpu_torch.api.routes.classificacoes",
     "ics_tpu_torch.models.densenet", "ics_tpu_torch.models.regnet",
     "ics_tpu_torch.train.pretrained",
+    "ics_tpu_torch.train.finetune", "ics_tpu_torch.train.data", "ics_tpu_torch.ops.augment",
 ])
 def test_new_modules_import_alone_and_build_nothing_at_import(module):
     """Each module of this slice imports in a fresh interpreter with no JAX
@@ -420,10 +421,12 @@ def test_kernel_sources_of_this_slice_are_plain_cuda_with_a_c_interface():
 
     assert set(_build.KERNELS) == {p.stem for p in csrc.glob("*.cu")} == {
         "flash_attention", "bottleneck_chain", "normalize_u8", "depthwise_conv",
-        "window_attention", "window_attention_bwd"}
+        "window_attention", "window_attention_bwd", "depthwise_conv_dw"}
     for name, symbol in (("depthwise_conv", "ics_depthwise_conv"),
                          ("window_attention", "ics_window_attention"),
-                         ("window_attention_bwd", "ics_window_attention_bwd")):
+                         ("window_attention_bwd", "ics_window_attention_bwd"),
+                         ("window_attention_bwd", "ics_window_attention_dtable"),
+                         ("depthwise_conv_dw", "ics_depthwise_conv_dw")):
         text = (csrc / f"{name}.cu").read_text()
         assert f"int {symbol}(" in text and 'extern "C"' in text
         for library in ("torch/", "ATen", "cudnn", "cublas", "cutlass"):

@@ -326,3 +326,76 @@ def test_smem_formula_of_the_bf16_kernel(ww, hd, group, table_rows, masked):
     stage = group * 3 * rows * (hd + 8) * 2 + -(-(group * table_rows * 4) // 16) * 16
     stage += -(-((3 + (ww - 1) * ww + keys) * 4) // 16) * 16 if masked else 0
     assert wa.smem_bytes(ww, hd, group, table_rows, masked) == index + 2 * stage
+
+
+# ---- the gradient of the bias table (training) -------------------------------------
+#
+# The JAX package trains Swin through XLA (SwinBlock.apply, fp32 scores): its
+# jax.grad against autograd of the port's SwinBlock on the CPU, whose window
+# attention is the plain version the kernel is held to on the card. fp32, 1e-5
+# of the largest gradient.
+
+@pytest.mark.parametrize("grid,window,shift,heads,hd", [(8, 4, 2, 2, 16), (8, 4, 0, 2, 16),
+                                                        (14, 7, 3, 2, 32)])
+def test_table_and_qkv_gradients_match_jax(grid, window, shift, heads, hd):
+    import jax
+
+    from ics_tpu_torch import weights
+    from ics_tpu_torch.models.swin import SwinBlock
+
+    dim = heads * hd
+    jblock = jax_swin.SwinBlock(dim, heads, window, shift, grid)
+    params = jax.tree_util.tree_map(np.asarray, jblock.init(jax.random.PRNGKey(grid + shift)))
+    rng = np.random.default_rng(shift)
+    params["attn"]["rel_bias"] = rng.normal(0, 0.5, params["attn"]["rel_bias"].shape).astype(
+        np.float32)
+    x = rng.standard_normal((2, grid, grid, dim)).astype(np.float32)
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+    grads = jax.grad(lambda p: jnp.sum(jblock.apply(p, jnp.asarray(x)) * dy))(
+        jax.tree_util.tree_map(jnp.asarray, params))
+    ref = weights.from_jax_variables({"params": jax.tree_util.tree_map(np.asarray, grads)})
+    block = SwinBlock(dim, heads, window, shift, grid)
+    block.load_state_dict(weights.from_jax_variables({"params": params}))
+    (block(torch.from_numpy(x)) * torch.from_numpy(dy)).sum().backward()
+    ours = dict(block.named_parameters())
+    assert ours["attn.rel_bias"].grad is not None
+    for name in ("attn.rel_bias", "attn.qkv.weight", "attn.qkv.bias", "ln1.weight"):
+        got, want = ours[name].grad.numpy(), ref[name].numpy()
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max(), name
+
+
+@pytest.mark.parametrize("window", [4, 7])
+def test_index_runs_gather_each_table_row_once(window):
+    index = torch.from_numpy(_relative_position_index(window)).to(torch.int16)
+    rows = (2 * window - 1) ** 2
+    order, offsets = wa._index_order(index, rows)
+    assert order.dtype == offsets.dtype == torch.int32 and offsets.shape == (rows + 1,)
+    flat = index.reshape(-1).long()
+    assert int(offsets[-1]) == flat.numel() and sorted(order.tolist()) == list(range(flat.numel()))
+    for row in range(rows):
+        run = order[offsets[row]:offsets[row + 1]].long()
+        assert bool((flat[run] == row).all()) and run.tolist() == sorted(run.tolist())
+
+
+@pytest.mark.parametrize("windows,heads", [(2048, 3), (512, 6), (128, 12), (32, 24), (1, 2)])
+def test_table_groups_keep_partials_few_and_the_card_full(windows, heads):
+    groups = wa.table_groups(windows, heads)
+    assert 1 <= groups <= windows
+    assert groups * heads <= max(wa.TABLE_TARGET_BLOCKS, heads)
+    assert groups == windows or groups * heads >= wa.TABLE_TARGET_BLOCKS - heads
+
+
+def test_qkv_backward_with_the_table_on_the_cpu_is_autograd_of_the_plain_version():
+    qkv, table, index = _qkv_inputs(2, 8, 4, 2, 16, seed=3)
+    qkv, table = torch.from_numpy(qkv), torch.from_numpy(table)
+    index16 = torch.from_numpy(index).to(torch.int16)
+    mask = torch.from_numpy(_shift_attn_mask(8, 4, 2))
+    dout = torch.randn(2, 8, 8, 32, generator=torch.Generator().manual_seed(0))
+    dqkv, dtable = wa.window_attention_qkv_bwd(qkv, dout, table, index16, mask, 4, 2, 0.25,
+                                               with_table=True)
+    x, t = qkv.clone().requires_grad_(), table.clone().requires_grad_()
+    (wa.window_attention_qkv(x, t, index16, mask, 4, 2, 0.25) * dout).sum().backward()
+    torch.testing.assert_close(dqkv, x.grad, atol=0, rtol=0)
+    torch.testing.assert_close(dtable, t.grad, atol=0, rtol=0)
+    assert torch.equal(wa.window_attention_qkv_bwd(qkv, dout, table, index16, mask, 4, 2, 0.25),
+                       dqkv)
