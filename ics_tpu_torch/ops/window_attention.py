@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from typing import Optional
 
 import torch
@@ -61,6 +62,9 @@ _launches = LAUNCHES["window_attention"]
 _bwd_launches = LAUNCHES["window_attention_bwd"]
 _dtable_launches = LAUNCHES["window_attention_dtable"]
 _identity_index: dict = {}
+# (order, offsets) of an index tensor for the table's gradient, kept while the
+# tensor lives (Swin's are buffers): a dozen small launches a call otherwise
+_index_runs: dict = {}
 # a head's windows are cut into this many groups or fewer (a block each, which
 # sums dS over its windows) when the table's gradient is asked for
 TABLE_TARGET_BLOCKS = 1056
@@ -112,12 +116,19 @@ def table_groups(windows: int, heads: int) -> int:
 def _index_order(rel_index: torch.Tensor, rows: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(order, offsets) of the [ww, ww] index, int32 on its device: the
     positions sorted by the table row they read (stable), and where each row's
-    run starts, [rows + 1]."""
-    flat = rel_index.reshape(-1).long()
-    order = torch.sort(flat, stable=True).indices.to(torch.int32)
-    offsets = torch.zeros(rows + 1, dtype=torch.int32, device=flat.device)
-    offsets[1:] = torch.cumsum(torch.bincount(flat, minlength=rows), 0)
-    return order, offsets
+    run starts, [rows + 1]. Kept per index tensor while it lives and is not
+    written."""
+    key = (0 if rel_index.is_inference() else rel_index._version, rows)
+    runs = _index_runs.get(id(rel_index))
+    if runs is None or runs[0]() is not rel_index or runs[1] != key:
+        if runs is None or runs[0]() is not rel_index:
+            weakref.finalize(rel_index, _index_runs.pop, id(rel_index), None)
+        flat = rel_index.reshape(-1).long()
+        order = torch.sort(flat, stable=True).indices.to(torch.int32)
+        offsets = torch.zeros(rows + 1, dtype=torch.int32, device=flat.device)
+        offsets[1:] = torch.cumsum(torch.bincount(flat, minlength=rows), 0)
+        runs = _index_runs[id(rel_index)] = (weakref.ref(rel_index), key, order, offsets)
+    return runs[2:]
 
 
 def _round_up(v: int, m: int) -> int:

@@ -111,7 +111,7 @@ async def test_routes_of_the_port(served):
     assert r.status_code == 200 and set(r.json()["anteriores"]) == {
         "flash_attention", "bottleneck_chain", "normalize_u8", "depthwise_conv",
         "window_attention", "flash_attention_bf16_exp", "depthwise_conv_dx",
-        "window_attention_bwd"}
+        "window_attention_bwd", "depthwise_conv_dw", "window_attention_dtable"}
     r = await client.post("/inferencia/warmup", headers=h)
     assert r.status_code == 200 and r.json()["buckets"] == [1, 4]
     assert r.json()["replicas"] == 1                      # as the JAX route answers

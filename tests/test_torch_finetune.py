@@ -6,9 +6,11 @@ weights (bridged by ``weights.py``) through both.
 - Steps: one and three SGD steps of a ConvNeXt and a ResNet (1, 1, 1, 1) and
   one AdamW step of the ConvNeXt through the preprocessing train step, fp32:
   the loss, every parameter and every BatchNorm statistic at atol 2e-4, rtol
-  1e-4. A randomly initialised ResNet's gradient moves by up to 25 % under
-  1e-5 of input noise at some batch shapes (ReLU and max-pool kinks), so its
-  steps are taken at lr 0.01 on batches of 8 at 32 px, where they do not.
+  1e-4. A randomly initialised ResNet's gradient is shattered: where a ReLU
+  or a max-pool window sits on its kink, a rounding-size change of the input
+  moves it (chip_smoke.py [9b] reads how far for ResNet-50), so its steps are
+  taken at lr 0.01 on batches of 8 at 32 px, where the two frameworks'
+  rounding crosses no kink.
 - The optimizer's parts (EMA, gradient accumulation, the linear probe, LLRD
   with AdamW, a scheduled rate) fed the same random gradients as the optax
   chains the reference builds: parameters and the EMA shadow at atol 1e-6,

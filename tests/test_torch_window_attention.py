@@ -375,6 +375,13 @@ def test_index_runs_gather_each_table_row_once(window):
     for row in range(rows):
         run = order[offsets[row]:offsets[row + 1]].long()
         assert bool((flat[run] == row).all()) and run.tolist() == sorted(run.tolist())
+    again = wa._index_order(index, rows)
+    assert again[0] is order and again[1] is offsets        # kept while the index lives
+    index[0, 0] = 1                                          # ... and is not written
+    assert not torch.equal(wa._index_order(index, rows)[1], offsets)
+    key = id(index)
+    del index, again
+    assert key not in wa._index_runs                         # nor kept after it
 
 
 @pytest.mark.parametrize("windows,heads", [(2048, 3), (512, 6), (128, 12), (32, 24), (1, 2)])
