@@ -160,6 +160,35 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    new kernels against their plain versions at every call of a bucket-32
    ConvNeXt-T and Swin-T step (and the taps at EfficientNet-B4's and
    MobileNetV3-Small's calls), timed beside their bounds and yardsticks.
+10. The job surface on the card: one ``python -m ics_tpu_torch.main``
+   (ResNet-50, fused chains, bf16, the pixel lane) with the job manager's
+   bytes read from the fake NextCloud as a program over TCP
+   (``nextcloud_bytes_provider`` -> ``NextCloudClient``), serving [9]'s
+   seeded set (32 JPEGs, 10 classes, ambiente A; ambiente B with the same
+   option texts). (a) ``POST /treinamento/ambiente/A`` with the route's
+   default model (ResNet-50, batch 32, 20 steps) cancelled after 3 steps
+   (``cancelado``, nothing registered), then resumed with ``retomar_de``:
+   the step count goes on, the version is registered and promoted, and
+   ``classificar-tpu`` answers with the option texts. (f) 16 classify
+   requests while job (a) runs and 16 with the card idle, p50 and p99 each.
+   (b) Swin-T, AdamW with LLRD 0.75, ``avaliar_cada`` 5, 10 steps: the window
+   kernels' forward, backward and table launches over the job, counted with
+   serving idle; ``melhor_passo`` on the row; ``classificar-tpu`` on it
+   launches the window kernel. (d) ``exportar`` of (b)'s version: the
+   package (about 0.9 GiB: three steps of weights and AdamW state) is over
+   the HTTP server's 64 MiB body cap, so the import route answers 413 (read
+   after the headers alone), and the function behind the route
+   (``train.export.unpack_model``) imports it into B, whose
+   ``classificar-tpu`` answers top-5 and scores equal to A's. (c) ConvNeXt-T
+   with EMA 0.99, 5 steps, followed on its SSE stream: the depthwise kernels'
+   forward and gradient launches over the job, ``ema_final``, the version
+   served through kernel 4. (e) ``avaliar`` (``metricas.reavaliacao``),
+   ``sugerir`` (every image of A), ``POST /inferencia/indexar`` (every image,
+   the chain kernel's launches over it), ``GET /monitor/painel``,
+   ``POST /treinamento/gc``, ``ativar`` of (b)'s version (the answer of
+   before). (g) ``python -m ics_tpu_torch.train --ambiente A --steps 5
+   --no-ativar`` against the same database and fake NextCloud: exit 0, an
+   inactive version, the job's JSON. Any failure fails the run.
 
 Prints ``{"kernels": [...]}`` on the line before the last and
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
@@ -180,6 +209,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 BF16_TOL = 1e-2   # outputs are O(1); one bf16 ulp at 1.0 is 7.8e-3
@@ -2211,6 +2241,35 @@ def _hold_to_scores(route: str, got: list, scores: dict, exclude=None) -> tuple:
     return gap, sum(ranked[j] - ranked[j + 1] <= SCORE_TOL for j in range(len(got) - 1))
 
 
+@contextlib.contextmanager
+def fake_nextcloud(tmp: str, root: Path, gate: Optional[Path] = None):
+    """``python -m ics_tpu_torch.tools.fake_nextcloud`` over the folders of
+    ``root`` on a free port (its log in ``tmp``); yields the server settings
+    that point the port's NextCloud client at it, and stops it on the way
+    out."""
+    nc_port = _free_port()
+    nc_log_path = Path(tmp) / "fake_nextcloud.log"
+    with open(nc_log_path, "w") as nc_log:
+        fake = subprocess.Popen(
+            [sys.executable, "-m", "ics_tpu_torch.tools.fake_nextcloud", "--root", str(root),
+             "--port", str(nc_port), *(["--gate", str(gate)] if gate else [])],
+            cwd=ROOT, stdout=nc_log, stderr=subprocess.STDOUT)
+        try:
+            t0 = time.perf_counter()
+            while True:
+                with socket.socket() as sock:
+                    if sock.connect_ex(("127.0.0.1", nc_port)) == 0:
+                        break
+                if fake.poll() is not None or time.perf_counter() - t0 > 60:
+                    fail("the fake NextCloud did not start:\n" + nc_log_path.read_text()[-2000:])
+                time.sleep(0.2)
+            yield dict(NEXTCLOUD_BASE_URL=f"http://127.0.0.1:{nc_port}",
+                       NEXTCLOUD_USERNAME="tester", NEXTCLOUD_PASSWORD="smoke",
+                       NEXTCLOUD_USER_PATH="/files/tester", NEXTCLOUD_VERIFY_SSL="false")
+        finally:
+            _stop(fake)
+
+
 def check_ingestion(torch) -> int:
     """Phase 7: the ingestion front. Returns the chain launches of the sync
     stretch."""
@@ -2222,37 +2281,15 @@ def check_ingestion(torch) -> int:
         for (folder, name), blob in corpus.items():
             (root / folder).mkdir(parents=True, exist_ok=True)
             (root / folder / name).write_bytes(blob)
-        nc_port = _free_port()
-        with open(Path(tmp) / "fake_nextcloud.log", "w") as nc_log:
-            fake = subprocess.Popen(
-                [sys.executable, "-m", "ics_tpu_torch.tools.fake_nextcloud", "--root", str(root),
-                 "--port", str(nc_port), "--gate", str(gate)],
-                cwd=ROOT, stdout=nc_log, stderr=subprocess.STDOUT)
-            try:
-                t0 = time.perf_counter()
-                while True:
-                    with socket.socket() as sock:
-                        if sock.connect_ex(("127.0.0.1", nc_port)) == 0:
-                            break
-                    if fake.poll() is not None or time.perf_counter() - t0 > 60:
-                        fail("the fake NextCloud did not start:\n"
-                             + (Path(tmp) / "fake_nextcloud.log").read_text()[-2000:])
-                    time.sleep(0.2)
-                env = dict(
-                    NEXTCLOUD_BASE_URL=f"http://127.0.0.1:{nc_port}",
-                    NEXTCLOUD_USERNAME="tester", NEXTCLOUD_PASSWORD="smoke",
-                    NEXTCLOUD_USER_PATH="/files/tester", NEXTCLOUD_VERIFY_SSL="false",
-                    NEXTCLOUD_SYNC_INITIAL_ON_STARTUP="true",
-                    TPU_CLASSIFY_ON_SYNC="true", TPU_EMBED_ON_SYNC="true",
-                )
-                with serving(tmp, **env) as (base, admin, database, up_s):
-                    log(f"  server up in {up_s:.1f} s; the initial sync waits at the fake "
-                        "NextCloud's gate")
-                    asyncio.run(await_lane_warm_up(base, admin, time.perf_counter() - up_s))
-                    drive = asyncio.run(drive_ingestion(base, admin, database, gate, corpus))
-                    server_log = (Path(tmp) / "server.log").read_text()
-            finally:
-                _stop(fake)
+        with fake_nextcloud(tmp, root, gate) as nc_env:
+            with serving(tmp, **nc_env, NEXTCLOUD_SYNC_INITIAL_ON_STARTUP="true",
+                         TPU_CLASSIFY_ON_SYNC="true", TPU_EMBED_ON_SYNC="true") as (
+                    base, admin, database, up_s):
+                log(f"  server up in {up_s:.1f} s; the initial sync waits at the fake "
+                    "NextCloud's gate")
+                asyncio.run(await_lane_warm_up(base, admin, time.perf_counter() - up_s))
+                drive = asyncio.run(drive_ingestion(base, admin, database, gate, corpus))
+                server_log = (Path(tmp) / "server.log").read_text()
     n, rows, vectors = drive["images"], drive["rows"], drive["vectors"]
     original, q75, found = drive["near_duplicate"]
     hashes = sorted(vectors)
@@ -3038,13 +3075,46 @@ def finetune_corpus() -> list:
     return corpus
 
 
+def seed_finetune(s, adm_id, con_id, corpus: list, folder: str = "ft") -> tuple:
+    """The fine-tune set written through the port's session ``s``: a conjunto
+    holding ``corpus`` as images ``{folder}/{i}.jpg``, an ambiente over it with
+    ``FT_CLASSES`` options ("classe c") and the specialist ``con_id``'s label
+    for each image; returns (the ambiente, the options, the bytes by hash)."""
+    from ics_tpu_torch.core import timezone as tz
+    from ics_tpu_torch.core.security import sha256_hex
+    from ics_tpu_torch.db import models as m
+
+    now = tz.utcnow()
+    blobs = {}
+    cnj = m.ConjuntoImagens(nome_conj=folder, caminho_conj=f"/{folder}", file_id="1",
+                            data_proc=now, data_sinc=now)
+    s.add(cnj)
+    s.flush()
+    amb = m.Ambiente(titulo_amb="Smoke fine-tune", descricao_questionario="phase 9",
+                     data_criado=now, id_adm=adm_id)
+    s.add(amb)
+    s.flush()
+    s.add(m.AmbienteConjuntoImagens(id_amb=amb.id_amb, id_cnj=cnj.id_cnj, data_associado=now))
+    options = [m.Opcao(texto=f"classe {c}", id_amb=amb.id_amb) for c in range(FT_CLASSES)]
+    s.add_all(options)
+    s.flush()
+    for i, (data, label) in enumerate(corpus):
+        h = sha256_hex(data)
+        blobs[h] = data
+        s.add(m.Imagem(content_hash=h, nome_img=f"{i}.jpg", caminho_img=f"{folder}/{i}.jpg",
+                       data_proc=now, data_sinc=now, id_cnj=cnj.id_cnj))
+        s.add(m.Classificacao(id_con=con_id, id_img=h, id_opc=options[label].id_opc,
+                              data_criado=now, ativo=True))
+    s.flush()
+    return amb, options, blobs
+
+
 def finetune_examples(directory: str, corpus: list) -> tuple:
     """A seeded database of the port holding ``corpus`` as images of one
     conjunto, an ambiente with ``FT_CLASSES`` options and one specialist's
     label for each image; returns ``(examples, class_map, fetch)`` from
     ``train.data.labeled_examples``."""
     from ics_tpu_torch.core import timezone as tz
-    from ics_tpu_torch.core.security import sha256_hex
     from ics_tpu_torch.db import models as m
     from ics_tpu_torch.db.engine import Database
     from ics_tpu_torch.train.data import labeled_examples
@@ -3052,7 +3122,6 @@ def finetune_examples(directory: str, corpus: list) -> tuple:
     db = Database(f"sqlite:///{directory}/finetune.db")
     db.create_all()
     now = tz.utcnow()
-    blobs = {}
     with db.session() as s:
         s.add_all([m.TipoUsuario(id_tipo=1, nome="convencional"),
                    m.TipoUsuario(id_tipo=2, nome="admin")])
@@ -3062,26 +3131,9 @@ def finetune_examples(directory: str, corpus: list) -> tuple:
         s.flush()
         adm = m.UsuarioAdministrador(cpf="1" * 11, id_usu=users[0].id_usu)
         con = m.UsuarioConvencional(cpf="2" * 11, id_usu=users[1].id_usu)
-        cnj = m.ConjuntoImagens(nome_conj="ft", caminho_conj="/ft", file_id="1", data_proc=now,
-                                data_sinc=now)
-        s.add_all([adm, con, cnj])
+        s.add_all([adm, con])
         s.flush()
-        amb = m.Ambiente(titulo_amb="Smoke fine-tune", descricao_questionario="phase 9",
-                         data_criado=now, id_adm=adm.id_adm)
-        s.add(amb)
-        s.flush()
-        s.add(m.AmbienteConjuntoImagens(id_amb=amb.id_amb, id_cnj=cnj.id_cnj,
-                                        data_associado=now))
-        options = [m.Opcao(texto=f"classe {c}", id_amb=amb.id_amb) for c in range(FT_CLASSES)]
-        s.add_all(options)
-        s.flush()
-        for i, (data, label) in enumerate(corpus):
-            h = sha256_hex(data)
-            blobs[h] = data
-            s.add(m.Imagem(content_hash=h, nome_img=f"{i}.jpg", caminho_img=f"ft/{i}.jpg",
-                           data_proc=now, data_sinc=now, id_cnj=cnj.id_cnj))
-            s.add(m.Classificacao(id_con=con.id_con, id_img=h, id_opc=options[label].id_opc,
-                                  data_criado=now, ativo=True))
+        amb, _, blobs = seed_finetune(s, adm.id_adm, con.id_con, corpus)
         s.commit()
         amb_id = amb.id_amb
     examples, class_map = labeled_examples(db, amb_id)
@@ -3489,6 +3541,401 @@ def check_finetune(torch, depthwise, window_attention, card: str) -> tuple:
     return launches, errs, times
 
 
+JOB_CLASSIFY = 16          # classify requests beside a running job, and as many idle
+JOB_TIMEOUT_S = 300
+JOB_A_STEPS = 20           # (a) ResNet-50, cancelled after JOB_CANCEL_AFTER steps, then resumed
+JOB_CANCEL_AFTER = 3
+JOB_ADAMW = {"otimizador": "adamw", "lr": FT_ADAMW_LR}
+JOB_B = {"modelo": SWIN, "llrd": FT_LLRD, "avaliar_cada": 5, "max_steps": 10, "epochs": 50,
+         **JOB_ADAMW}
+JOB_C = {"modelo": CONVNEXT, "ema_decaimento": 0.99, "max_steps": 5, "epochs": 50, **JOB_ADAMW}
+CLI_STEPS = 5
+
+
+def seed_job_surface(database: str, corpus: list) -> dict:
+    """Phase 10's data in the server's database: a specialist who can log in,
+    [9]'s fine-tune set as ``seed_finetune`` writes it (ambiente A, images
+    ``ft/{i}.jpg`` that the fake NextCloud serves) and ambiente B over the same
+    conjunto with the same option texts and no label (the import's target)."""
+    from ics_tpu_torch.core import timezone as tz
+    from ics_tpu_torch.core.security import hash_password
+    from ics_tpu_torch.db import models as m
+    from ics_tpu_torch.db.engine import Database
+
+    now = tz.utcnow()
+    password = "Smoke-" + os.urandom(6).hex()
+    db = Database(database)
+    with db.session() as s:
+        esp = m.Usuario(nome_completo="Especialista Jobs", email="esp-jobs@example.com",
+                        senha_hash=hash_password(password), data_criado=now, id_tipo=1)
+        s.add(esp)
+        s.flush()
+        con = m.UsuarioConvencional(cpf="8" * 11, id_usu=esp.id_usu)
+        s.add(con)
+        s.flush()
+        adm = s.fetchone("SELECT id_adm FROM usuarios_administradores LIMIT 1")["id_adm"]
+        amb, options, blobs = seed_finetune(s, adm, con.id_con, corpus)
+        cnj = s.fetchone("SELECT id_cnj FROM ambientes_conjuntos_imagens WHERE id_amb = ?",
+                         [amb.id_amb])["id_cnj"]
+        amb_b = m.Ambiente(titulo_amb="Smoke import", descricao_questionario="phase 10",
+                           data_criado=now, id_adm=adm)
+        s.add(amb_b)
+        s.flush()
+        s.add(m.AmbienteConjuntoImagens(id_amb=amb_b.id_amb, id_cnj=cnj, data_associado=now))
+        s.add_all([m.Opcao(texto=o.texto, id_amb=amb_b.id_amb) for o in options])
+        for a in (amb, amb_b):
+            s.add(m.UsuarioAmbiente(id_con=con.id_con, id_amb=a.id_amb, data_associado=now))
+        s.commit()
+        return {"a": str(amb.id_amb), "b": str(amb_b.id_amb), "email": esp.email,
+                "password": password, "textos": {o.texto for o in options}, "blobs": blobs}
+
+
+def _too_large_answer(base: str, path: str, headers: dict, n_bytes: int) -> str:
+    """The status line the server answers to a multipart POST of ``n_bytes``
+    to ``path``, read after the headers alone: a body over its cap is refused
+    before it is read."""
+    host, port = base.rsplit("//", 1)[1].split(":")
+    head = (f"POST {path} HTTP/1.1\r\nHost: {host}\r\n"
+            + "".join(f"{k}: {v}\r\n" for k, v in headers.items())
+            + "Content-Type: multipart/form-data; boundary=smoke\r\n"
+            + f"Content-Length: {n_bytes}\r\nConnection: close\r\n\r\n")
+    with socket.create_connection((host, int(port)), timeout=10) as sock:
+        sock.sendall(head.encode())
+        try:
+            return sock.recv(4096).split(b"\r\n", 1)[0].decode()
+        except socket.timeout:
+            return "no answer: the server waits for the body"
+
+
+async def drive_job_surface(base: str, admin: tuple, database: str, seeded: dict,
+                            queries: list, tmp: str) -> dict:
+    """Phase 10 (a)-(f) over HTTP against one server; returns what the
+    verdict reads."""
+    import httpx
+    import numpy as np
+
+    server_log = Path(tmp) / "server.log"
+    out: dict = {}
+    async with httpx.AsyncClient(base_url=base, timeout=600) as c:
+        async def login(user, password):
+            r = await c.post("/auth/login", data={"username": user, "password": password})
+            r.raise_for_status()
+            c.cookies.clear()
+            return {"Authorization": f"Bearer {r.json()['access_token']}"}
+
+        h_admin = await login(*admin)
+        h_esp = await login(seeded["email"], seeded["password"])
+
+        def refuse(what, r=None):
+            fail(f"job surface: {what}" + (f": {r.status_code} {r.text[:400]}" if r else "")
+                 + f"\n{server_log.read_text()[-6000:]}")
+
+        async def call(method, path, want=200, **kw):
+            r = await c.request(method, path, headers=h_admin, **kw)
+            if r.status_code != want:
+                refuse(f"{method} {path} answered, not {want}", r)
+            return r
+
+        async def start(id_amb, body):
+            return (await call("POST", f"/treinamento/ambiente/{id_amb}", 202,
+                               json=body)).json()["id_job"]
+
+        async def until(id_job, done=lambda j: j["status"] not in ("pendente", "executando")):
+            t0 = time.perf_counter()
+            while True:
+                job = (await call("GET", f"/treinamento/jobs/{id_job}")).json()
+                if done(job):
+                    return job
+                if job["status"] not in ("pendente", "executando"):
+                    refuse(f"job {id_job} ended {job['status']}: {job['erro']}")
+                if time.perf_counter() - t0 > JOB_TIMEOUT_S:
+                    refuse(f"job {id_job} still {job['status']} after {JOB_TIMEOUT_S} s")
+                await asyncio.sleep(0.05)
+
+        async def counts():
+            return (await call("POST", "/inferencia/kernels/zerar")).json()["anteriores"]
+
+        async def classify(blob):
+            t0 = time.perf_counter()
+            await call("POST", "/inferencia/classificar",
+                       files=[("files", ("q.jpg", blob, "image/jpeg"))])
+            return (time.perf_counter() - t0) * 1000
+
+        async def classify_tpu(id_amb, blob):
+            r = await c.post(f"/classificacoes/ambiente/{id_amb}/classificar-tpu",
+                             files={"file": ("q.jpg", blob, "image/jpeg")}, headers=h_esp)
+            if r.status_code != 200:
+                refuse(f"classificar-tpu on ambiente {id_amb}", r)
+            return r.json()
+
+        async def version(id_amb, id_mod):
+            rows = (await call("GET", f"/treinamento/modelos?id_amb={id_amb}")).json()["modelos"]
+            return next(m for m in rows if m["id_mod"] == id_mod)
+
+        def ended(job, status="concluido"):
+            if job["status"] != status:
+                refuse(f"job {job['id_job']} ended {job['status']}, not {status}: {job['erro']}")
+            return job
+
+        A, B = seeded["a"], seeded["b"]
+        # (a) ResNet-50 (the route's default), cancelled, resumed; (f) classify beside it
+        await counts()
+        t0 = time.perf_counter()
+        id_a = await start(A, {"max_steps": JOB_A_STEPS, "epochs": 50})
+        await until(id_a, lambda j: j["passos"] >= 1)
+        out["busy_ms"] = [await classify(queries[i % len(queries)]) for i in range(JOB_CLASSIFY)]
+        busy = (await call("GET", f"/treinamento/jobs/{id_a}")).json()
+        if busy["status"] != "executando":
+            refuse(f"job (a) ended ({busy['status']}) before the {JOB_CLASSIFY} classify "
+                   "requests beside it did")
+        await until(id_a, lambda j: j["passos"] >= JOB_CANCEL_AFTER)
+        await call("POST", f"/treinamento/jobs/{id_a}/cancelar", 202)
+        job_a = ended(await until(id_a), "cancelado")
+        if job_a["id_mod"] is not None or (await call(
+                "GET", f"/treinamento/modelos?id_amb={A}")).json()["total"]:
+            refuse("the cancelled job registered a version")
+        id_a2 = await start(A, {"max_steps": JOB_A_STEPS, "epochs": 50, "retomar_de": id_a})
+        job_a2 = ended(await until(id_a2))
+        out["a"] = {"s": time.perf_counter() - t0, "cancelled": job_a, "resumed": job_a2,
+                    "row": await version(A, job_a2["id_mod"]),
+                    "answer": await classify_tpu(A, queries[0])}
+        out["idle_ms"] = [await classify(queries[i % len(queries)]) for i in range(JOB_CLASSIFY)]
+        out["a"]["launches"] = await counts()
+
+        # (b) Swin-T, AdamW with LLRD, periodic eval; the launches over the job alone
+        await counts()
+        t0 = time.perf_counter()
+        id_b = ended(await until(await start(A, JOB_B)))["id_job"]
+        job_b = (await call("GET", f"/treinamento/jobs/{id_b}")).json()
+        out["b"] = {"s": time.perf_counter() - t0, "job": job_b, "launches": await counts(),
+                    "row": await version(A, job_b["id_mod"])}
+        out["b"]["answers"] = [await classify_tpu(A, q) for q in queries]
+        out["b"]["serve_launches"] = await counts()
+
+        # (d) export (b)'s version; the package through the import route's cap, and
+        # imported into B by the function the route calls; B serves it
+        t0 = time.perf_counter()
+        r = await call("GET", f"/treinamento/modelos/{job_b['id_mod']}/exportar")
+        package = r.content
+        out["d"] = {"export_s": time.perf_counter() - t0, "bytes": len(package),
+                    "type": r.headers["content-type"],
+                    "post_answer": _too_large_answer(
+                        base, f"/treinamento/ambiente/{B}/importar", h_admin, len(package))}
+        t0 = time.perf_counter()
+        from ics_tpu_torch.db.engine import Database
+        from ics_tpu_torch.train.export import unpack_model
+
+        with Database(database).session() as s:
+            row = unpack_model(s, package, B, f"{tmp}/weights", ativar=True)
+            s.commit()
+            out["d"]["id_mod"] = str(row.id_mod)
+        out["d"]["import_s"] = time.perf_counter() - t0
+        out["d"]["answers"] = [await classify_tpu(B, q) for q in queries]
+
+        # (c) ConvNeXt-T with EMA, followed on its SSE stream; the launches over the job
+        await counts()
+        t0 = time.perf_counter()
+        id_c = await start(A, JOB_C)
+        passos, fim, event = [], None, None
+        async with c.stream("GET", f"/treinamento/jobs/{id_c}/stream", headers=h_admin) as resp:
+            if resp.status_code != 200:
+                refuse("the SSE stream", resp)
+            async for line in resp.aiter_lines():
+                if line.startswith("event: "):
+                    event = line[len("event: "):]
+                elif line.startswith("data: "):
+                    if event == "passo":
+                        passos.append(json.loads(line[len("data: "):]))
+                    elif event == "fim":
+                        fim = json.loads(line[len("data: "):])
+                        break
+        job_c = ended(fim)
+        out["c"] = {"s": time.perf_counter() - t0, "job": job_c, "passos": passos,
+                    "launches": await counts(), "row": await version(A, job_c["id_mod"])}
+        out["c"]["answer"] = await classify_tpu(A, queries[0])
+        out["c"]["serve_launches"] = await counts()
+
+        # (e) the other routes
+        t0 = time.perf_counter()
+        id_mod_a = job_a2["id_mod"]
+        r = await call("POST", f"/treinamento/modelos/{id_mod_a}/avaliar", 202)
+        ev = ended(await until(r.json()["id_job"]))
+        e = {"avaliar": ev, "row_a": await version(A, id_mod_a)}
+        e["sugerir"] = (await call("POST", f"/treinamento/modelos/{job_c['id_mod']}/sugerir",
+                                   json={})).json()
+        await counts()
+        e["indexar"] = (await call("POST", "/inferencia/indexar", json={})).json()
+        e["indexar_launches"] = await counts()
+        r = await call("GET", "/monitor/painel")
+        e["painel"] = (r.headers["content-type"], len(r.text))
+        e["gc"] = (await call("POST", "/treinamento/gc")).json()
+        e["ativar"] = (await call("POST", f"/treinamento/modelos/{job_b['id_mod']}/ativar")).json()
+        e["reactivated"] = await classify_tpu(A, queries[0])
+        e["s"] = time.perf_counter() - t0
+        out["e"] = e
+    return out
+
+
+def _answers_equal(a: dict, b: dict) -> bool:
+    return ([o["texto_opcao"] for o in a["opcoes"]] == [o["texto_opcao"] for o in b["opcoes"]]
+            and [o["score"] for o in a["opcoes"]] == [o["score"] for o in b["opcoes"]])
+
+
+def run_training_cli(database: str, nc_env: dict, tmp: str, id_amb: str) -> dict:
+    """Phase 10 (g): ``python -m ics_tpu_torch.train`` against the server's
+    database and the fake NextCloud; returns its exit code, seconds and the
+    job's JSON."""
+    env = dict(os.environ, ENV="test", DATABASE_URL=database, TPU_WEIGHTS_DIR=f"{tmp}/weights",
+               **nc_env)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ics_tpu_torch.train", "--ambiente", id_amb,
+         "--steps", str(CLI_STEPS), "--no-ativar"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=JOB_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"job surface (g): the CLI exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-3000:]}")
+    start = proc.stdout.find("\n{")
+    try:
+        job = json.loads(proc.stdout[start + 1:] if start >= 0 else proc.stdout)
+    except ValueError:
+        fail(f"job surface (g): the CLI printed no job JSON:\n{proc.stdout[-3000:]}")
+    return {"rc": proc.returncode, "s": seconds, "job": job,
+            "steps": proc.stdout.count("\nstep ") + proc.stdout.startswith("step ")}
+
+
+def check_job_surface(torch, card: str) -> dict:
+    """Phase 10: the job surface on the card. Returns the launches of the
+    kernels over its jobs and requests."""
+    import numpy as np
+
+    from ics_tpu_torch.db.engine import Database
+
+    corpus = finetune_corpus()
+    queries = _images(JPEG_SIZES[:4], "JPEG", quality=90)    # none of them in the corpus
+    t10 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ics_tpu_torch_jobs_") as tmp:
+        root = Path(tmp) / "nextcloud"
+        (root / "ft").mkdir(parents=True)
+        for i, (blob, _) in enumerate(corpus):
+            (root / "ft" / f"{i}.jpg").write_bytes(blob)
+        with fake_nextcloud(tmp, root) as nc_env:
+            with serving(tmp, **nc_env, NEXTCLOUD_SYNC_INITIAL_ON_STARTUP="false",
+                         TPU_DEVICE_DECODE="false", TPU_WEIGHTS_DIR=f"{tmp}/weights") as (
+                    base, admin, database, up_s):
+                log(f"  server up in {up_s:.1f} s ({RESNET}, fused chains, bf16, pixel lane; "
+                    f"bytes from the fake NextCloud over TCP)")
+                seeded = seed_job_surface(database, corpus)
+                drive = asyncio.run(drive_job_surface(base, admin, database, seeded, queries,
+                                                      tmp))
+                t = time.perf_counter()
+                log(f"[10g] python -m ics_tpu_torch.train --ambiente A --steps {CLI_STEPS} "
+                    "--no-ativar:")
+                cli = run_training_cli(database, nc_env, tmp, seeded["a"])
+                with Database(database).session() as s:
+                    cli_row = s.fetchone("SELECT versao, ativo FROM modelos_treinados "
+                                         "WHERE id_mod = ?", [cli["job"]["id_mod"]])
+                server_log = (Path(tmp) / "server.log").read_text()
+    log(f"  card: {card}")
+    a, b, c, d, e = (drive[k] for k in "abcde")
+    # (a)
+    cancelled, resumed = a["cancelled"]["passos"], a["resumed"]
+    first = resumed["historico"][0]["step"] if resumed["historico"] else None
+    log(f"[10a] {RESNET} (route default, bf16, batch 32): cancelled after {cancelled} steps, "
+        f"resumed from step {first} to {resumed['ultimo_passo']['step']}, registered v"
+        f"{resumed['versao']} ({a['s']:.1f} s for both jobs and the classify stretches); "
+        f"loss {resumed['historico'][0]['loss']:.4f} -> {resumed['ultimo_passo']['loss']:.4f}")
+    if cancelled < JOB_CANCEL_AFTER or first != cancelled + 1:
+        fail(f"job surface (a): cancelled at {cancelled} steps, the resumed job began at {first}")
+    if not (a["row"]["ativo"] and resumed["versao"] == 1 and len(resumed["historico"])):
+        fail(f"job surface (a): the resumed job's version {a['row']}")
+    if not {o["texto_opcao"] for o in a["answer"]["opcoes"]} <= seeded["textos"] or \
+            a["answer"]["modelo_versao"] != 1:
+        fail(f"job surface (a): classificar-tpu answered {a['answer']}")
+    # (f)
+    busy, idle = np.asarray(drive["busy_ms"]), np.asarray(drive["idle_ms"])
+    log(f"[10f] classify (POST /inferencia/classificar, one JPEG, {RESNET} bf16 chains) on "
+        f"{card}: beside job (a) p50 {np.percentile(busy, 50):.2f} ms p99 "
+        f"{np.percentile(busy, 99):.2f} ms; card idle p50 {np.percentile(idle, 50):.2f} ms p99 "
+        f"{np.percentile(idle, 99):.2f} ms ({JOB_CLASSIFY} requests each, all 200)")
+    # (b)
+    lb = b["launches"]
+    log(f"[10b] {SWIN} (AdamW, LLRD {FT_LLRD}, avaliar_cada 5, {JOB_B['max_steps']} steps): "
+        f"{b['s']:.1f} s, melhor_passo {b['row']['metricas']['melhor_passo']}; launches over "
+        f"the job: window_attention {lb['window_attention']}, window_attention_bwd "
+        f"{lb['window_attention_bwd']}, window_attention_dtable {lb['window_attention_dtable']}; "
+        f"classificar-tpu x{len(queries)}: window_attention "
+        f"{b['serve_launches']['window_attention']}")
+    if min(lb["window_attention"], lb["window_attention_bwd"],
+           lb["window_attention_dtable"]) <= 0 or b["serve_launches"]["window_attention"] <= 0:
+        fail(f"job surface (b): launches {lb}, served {b['serve_launches']}")
+    if b["row"]["metricas"].get("melhor_passo") is None:
+        fail(f"job surface (b): the row has no melhor_passo: {b['row']['metricas']}")
+    # (c)
+    lc = c["launches"]
+    log(f"[10c] {CONVNEXT} (EMA 0.99, {JOB_C['max_steps']} steps): {c['s']:.1f} s, ema_final "
+        f"{c['job'].get('ema_final')}, SSE {len(c['passos'])} passo events and fim; launches "
+        f"over the job: depthwise_conv {lc['depthwise_conv']}, depthwise_conv_dx "
+        f"{lc['depthwise_conv_dx']}, depthwise_conv_dw {lc['depthwise_conv_dw']}; served v"
+        f"{c['answer']['modelo_versao']}: depthwise_conv {c['serve_launches']['depthwise_conv']}")
+    if min(lc["depthwise_conv"], lc["depthwise_conv_dw"]) <= 0 or \
+            c["serve_launches"]["depthwise_conv"] <= 0:
+        fail(f"job surface (c): launches {lc}, served {c['serve_launches']}")
+    if not c["job"].get("ema_final") or c["row"]["metricas"]["ema_decaimento"] != 0.99:
+        fail(f"job surface (c): no EMA version: {c['job']}")
+    if not c["passos"] or c["answer"]["modelo_versao"] != c["job"]["versao"]:
+        fail(f"job surface (c): SSE events {len(c['passos'])}, served {c['answer']}")
+    # (d)
+    gaps = [max(abs(x["score"] - y["score"]) for x, y in zip(p["opcoes"], q["opcoes"]))
+            for p, q in zip(b["answers"], d["answers"])]
+    log(f"[10d] export of (b)'s version: {d['bytes'] / 2**20:.1f} MiB ({d['type']}) in "
+        f"{d['export_s']:.1f} s; POST importar with it: {d['post_answer']!r} (the server's 64 MiB "
+        f"body cap); imported into B by train.export.unpack_model in {d['import_s']:.1f} s; "
+        f"classificar-tpu on B against A, {len(queries)} images: top-5 equal "
+        f"{all(_answers_equal(p, q) for p, q in zip(b['answers'], d['answers']))}, max|d| "
+        f"{max(gaps):.3e}")
+    if not all(_answers_equal(p, q) for p, q in zip(b["answers"], d["answers"])):
+        fail("job surface (d): the imported version answers otherwise than the original")
+    if d["post_answer"].split()[1:2] != ["413"] or d["type"] != "application/gzip":
+        fail(f"job surface (d): {d['post_answer']!r}, {d['type']}")
+    # (e)
+    reav = e["row_a"]["metricas"].get("reavaliacao")
+    log(f"[10e] avaliar: {e['avaliar']['status']}, reavaliacao {reav is not None} "
+        f"(eval_accuracy {e['avaliar']['eval_accuracy']}); sugerir: sugeridas "
+        f"{e['sugerir']['sugeridas']}, pendentes {e['sugerir']['pendentes']}; indexar: indexadas "
+        f"{e['indexar']['indexadas']}, pendentes {e['indexar']['pendentes']}, bottleneck_chain "
+        f"{e['indexar_launches']['bottleneck_chain']}; painel {e['painel']}; gc {e['gc']}; "
+        f"ativar v{e['ativar']['versao']} serves the answer of before: "
+        f"{_answers_equal(e['reactivated'], b['answers'][0])} ({e['s']:.1f} s)")
+    if reav is None or e["sugerir"]["pendentes"] or e["sugerir"]["sugeridas"] != len(corpus):
+        fail(f"job surface (e): reavaliacao {reav}, sugerir {e['sugerir']}")
+    if e["indexar"]["pendentes"] or e["indexar"]["indexadas"] != len(corpus) or \
+            e["indexar_launches"]["bottleneck_chain"] <= 0:
+        fail(f"job surface (e): indexar {e['indexar']}, launches {e['indexar_launches']}")
+    if not e["painel"][0].startswith("text/html") or \
+            not _answers_equal(e["reactivated"], b["answers"][0]):
+        fail(f"job surface (e): painel {e['painel']}, reactivated {e['reactivated']}")
+    # (g)
+    job = cli["job"]
+    log(f"  [10g] exit {cli['rc']} in {cli['s']:.1f} s, {cli['steps']} step lines, job "
+        f"{job['status']}, v{cli_row['versao'] if cli_row else None} active "
+        f"{bool(cli_row['ativo']) if cli_row else None}")
+    if job["status"] != "concluido" or job["passos"] != CLI_STEPS or cli_row is None or \
+            cli_row["ativo"]:
+        fail(f"job surface (g): {job}, row {cli_row}")
+    if "Traceback" in server_log:
+        fail("job surface: the server logged a traceback:\n"
+             + server_log[server_log.index("Traceback"):][:4000])
+    log(f"  phase [10] {time.perf_counter() - t10:.1f} s on {card}")
+    launches: dict = {}
+    for counts in (a["launches"], b["launches"], b["serve_launches"], c["launches"],
+                   c["serve_launches"], e["indexar_launches"]):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -3617,6 +4064,13 @@ def main() -> None:
     errs.update(ft_errs)
     times.update(ft_times)
     log(f"  phase [9] {time.perf_counter() - t9:.1f} s on {card}")
+
+    log(f"[10] the job surface on the card ({card}): python -m ics_tpu_torch.main "
+        f"({RESNET}, fused chains) with the treinamento routes, bytes from the fake NextCloud:")
+    for name, count in check_job_surface(torch, card).items():
+        key = "window_attention_qkv_bwd" if name == "window_attention_bwd" else name
+        if key in launches:
+            launches[key] += count
 
     sources = {
         "flash_attention": ("ics_tpu_torch/ops/csrc/flash_attention.cu",

@@ -9,11 +9,10 @@
 - ``POST /inferencia/kernels/zerar`` — set the kernel-launch counts to 0
   and return what they were (admin): a window over which the counts say
   which kernels a stretch of traffic ran
+- ``POST /inferencia/indexar`` — backfill the embeddings of synced images
+  the default model has none of (admin), the bytes read through
+  ``app.state.trainer.fetch_bytes``
 - ``POST /inferencia/profiler/start|stop`` — a ``torch.profiler`` trace (admin)
-
-``POST /inferencia/indexar`` is not served yet: it reads the image's bytes
-through ``app.state.trainer`` (the training job manager, ``ROADMAP.md`` item
-7b), which the port does not have; the embed step it calls is served.
 """
 
 from __future__ import annotations
@@ -119,6 +118,83 @@ async def classificar_direto(request: Request):
         # undecodable uploads are the client's fault; anything else is a 500
         raise HTTPException(422, f"Uma ou mais imagens são inválidas: {exc}")
     return JSONResponse({"total": len(results), "resultados": results})
+
+
+@router.post("/indexar")
+async def indexar_embeddings(request: Request):
+    """Backfill embeddings for synced images that lack one under the
+    default model (admin). Body: ``{"limite": N}`` caps the pass (default
+    500, clamped to 1-5000) — run repeatedly until ``pendentes`` hits 0.
+    Images whose bytes can't be fetched/decoded are skipped and reported,
+    not fatal. Batches ride the engine's largest bucket."""
+    usuario = require_admin(request)
+    service = _engine(request)
+    db = request.state.db
+    trainer = request.app.state.get("trainer")
+    fetch = getattr(trainer, "fetch_bytes", None) if trainer else None
+    if fetch is None:
+        raise HTTPException(503, "Sem fonte de bytes (NextCloud não configurado).")
+    try:
+        body = await request.json()
+    except Exception:
+        body = {}
+    try:
+        limite = int((body or {}).get("limite", 500))
+    except (TypeError, ValueError) as exc:
+        raise HTTPException(422, f"Parâmetro numérico inválido: {exc}")
+    limite = max(1, min(limite, 5000))
+    engine = service.engine
+    modelo = engine.model_name
+
+    from ics_tpu_torch.crud import auditoria_crud
+    from ics_tpu_torch.crud.embedding_crud import (
+        contar_embeddings,
+        hashes_sem_embedding,
+        upsert_embedding,
+    )
+    from ics_tpu_torch.runtime.decode import decode_image, stage_batch
+
+    pend = hashes_sem_embedding(db, modelo, limit=limite)
+
+    def run_batches() -> tuple[int, int]:
+        done = falhas = 0
+        batch = max(engine.buckets)
+        for start in range(0, len(pend), batch):
+            chunk = pend[start:start + batch]
+            images, hashes = [], []
+            for item in chunk:
+                try:
+                    data = fetch(item["content_hash"], item["caminho_img"])
+                    images.append(decode_image(data))
+                    hashes.append(item["content_hash"])
+                except Exception:
+                    falhas += 1
+            if not images:
+                continue
+            canvas, sizes = stage_batch(images, canvas=None)
+            feats = engine.embed_staged(canvas, sizes)
+            with request.app.state.db.session() as s:
+                for h, vec in zip(hashes, feats):
+                    upsert_embedding(s, h, modelo, vec)
+                s.commit()
+            done += len(hashes)
+        return done, falhas
+
+    indexadas, falhas = await asyncio.get_running_loop().run_in_executor(None, run_batches)
+    total = contar_embeddings(db, modelo)
+    restantes = len(hashes_sem_embedding(db, modelo, limit=1))
+    auditoria_crud.registrar_evento(
+        db, "indexar_embeddings", usuario.id_usu,
+        {"modelo": modelo, "indexadas": indexadas, "falhas": falhas},
+    )
+    db.commit()
+    return JSONResponse({
+        "modelo": modelo,
+        "indexadas": indexadas,
+        "falhas": falhas,
+        "total_indexadas": total,
+        "pendentes": restantes,
+    })
 
 
 @router.post("/profiler/start")

@@ -8,7 +8,12 @@ the JAX package is imported. Startup: database schema and seed as in
 classify-on-sync (``TPU_CLASSIFY_ON_SYNC``) and embed-on-sync
 (``TPU_EMBED_ON_SYNC``). ``POST /monitor/latency-budget`` (admin) measures
 the serving latency components against the engine
-(``runtime.latency_budget``). An engine that fails to build fails startup, and so
+(``runtime.latency_budget``). With inference on, ``app.state.trainer`` (the
+fine-tune job manager, ``train.job``) trains on the engine's device and
+checkpoints under ``TPU_WEIGHTS_DIR``, its bytes from NextCloud where
+``NEXTCLOUD_BASE_URL`` is set; the ``/treinamento`` routes and
+``POST /inferencia/indexar`` read it; ``GET /monitor/painel`` (admin) is the
+operator's dashboard. An engine that fails to build fails startup, and so
 does an entropy decoder that cannot be built while ``TPU_DEVICE_DECODE`` is
 on; a service already placed in ``app.state.engine`` is used as it is.
 Shutdown: the sync scheduler, then the on-sync tasks still pending (a short
@@ -91,6 +96,22 @@ async def lifespan(app: App):
             app.state.engine_pool = pool
             owned = pool
             logger.info("inference service started: %s", service.engine.status())
+
+    # fine-tune job manager (specialist labels -> versioned weights), on the
+    # serving engine's device
+    app.state.trainer = None
+    if settings.TPU_ENABLE_INFERENCE and app.state.engine is not None:
+        from ics_tpu_torch.train.job import TrainingJobManager, nextcloud_bytes_provider
+
+        fetch = None
+        if settings.NEXTCLOUD_BASE_URL:
+            from ics_tpu_torch.sync.nextcloud_client import NextCloudClient
+
+            fetch = nextcloud_bytes_provider(NextCloudClient)
+        app.state.trainer = TrainingJobManager(
+            db, settings.TPU_WEIGHTS_DIR, fetch_bytes=fetch,
+            device=app.state.engine.engine.device,
+        )
 
     # NextCloud sync engine
     app.state.sync = None
@@ -273,6 +294,7 @@ def create_app(db: Database | None = None) -> App:
         nextcloud_images,
         opcoes,
         test_sync,
+        treinamento,
         usuarios,
         usuarios_ambientes,
         whitelist,
@@ -281,7 +303,7 @@ def create_app(db: Database | None = None) -> App:
     for module in (
         auth_routes, usuarios, whitelist, ambientes, opcoes, classificacoes,
         usuarios_ambientes, auditoria, nextcloud_images, test_sync, images,
-        inferencia,
+        inferencia, treinamento,
     ):
         app.include_router(module.router)
 
@@ -291,6 +313,7 @@ def create_app(db: Database | None = None) -> App:
             "message": "Sistema de Classificação de Imagens (PyTorch/CUDA)",
             "version": __import__("ics_tpu_torch").__version__,
             "docs": "/docs",
+            "painel": "/monitor/painel",
         })
 
     @app.get("/docs")
@@ -315,6 +338,19 @@ def create_app(db: Database | None = None) -> App:
             "service": "image-classification-system-gpu",
             "environment": settings.ENV,
         })
+
+    @app.get("/monitor/painel")
+    async def monitor_painel(request: Request):
+        """Operator dashboard: sync, engine, latency and lanes live, and the
+        training job list with an SSE loss sparkline (``web/painel.py``).
+        Admin-gated: it shows training-job parameters and sync folder
+        paths. ``/health`` and ``/monitor/metrics`` stay public: the load
+        balancer's probe and the Prometheus scrape target."""
+        from ics_tpu_torch.services.auth_service import require_admin
+        from ics_tpu_torch.web.painel import PAINEL_HTML
+
+        require_admin(request)
+        return Response(PAINEL_HTML, media_type="text/html; charset=utf-8")
 
     @app.get("/monitor/metrics")
     async def monitor_metrics(request: Request):

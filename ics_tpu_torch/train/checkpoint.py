@@ -10,7 +10,10 @@ step) are not read here: the port imports no orbax. A directory that holds
 them and no ``step_<n>.pt`` raises ``UnconvertedCheckpointError``, which
 names ``convert_checkpoints.py`` at the root of the repository: that tool
 reads the orbax steps with the JAX package and writes ``step_<n>.pt``
-beside them through ``ics_tpu_torch.weights``.
+beside them through ``ics_tpu_torch.weights``. It converts the weights
+alone: a converted step serves, but a run cannot continue from it
+(``UnresumableCheckpointError``), as the reference's would with its optimizer
+state.
 """
 
 from __future__ import annotations
@@ -36,6 +39,19 @@ class UnconvertedCheckpointError(FileNotFoundError):
         super().__init__(
             f"{directory} holds orbax steps {steps} of the JAX trainer and no step_<n>.pt; "
             f"convert them with `python {CONVERSION_TOOL} {directory}`")
+
+
+class UnresumableCheckpointError(ValueError):
+    """The newest step holds no optimizer state, as a step that
+    ``convert_checkpoints.py`` wrote: serving reads it, a resume cannot."""
+
+    def __init__(self, directory: Path, step: int):
+        self.directory = directory
+        self.step = step
+        super().__init__(
+            f"{directory}: step {step} holds no optimizer state: the optimizer state was not "
+            f"converted ({CONVERSION_TOOL} converts the weights alone), so a run cannot resume "
+            f"from it as the JAX trainer would")
 
 
 def orbax_steps(directory: str | Path) -> list[int]:
@@ -81,6 +97,12 @@ class CheckpointManager:
     def latest_step(self) -> Optional[int]:
         steps = self.steps()
         return steps[-1] if steps else None
+
+    def newest_step(self) -> Optional[int]:
+        """The newest step in the directory, whoever wrote it: the port's, or
+        an orbax step of the JAX trainer, which ``restore`` refuses."""
+        steps = self.steps() + orbax_steps(self.directory)
+        return max(steps) if steps else None
 
     def restore(self, step: Optional[int] = None) -> dict:
         """``{"state_dict": ..., ["opt_state": ...], ["metadata": ...]}`` of

@@ -508,8 +508,12 @@ class FineTuner:
         optimizer's state, the history: one ``{"step", "loss", "accuracy"[,
         "eval"]}`` a step).
 
-        A checkpoint directory that holds a step resumes from it: weights,
-        BatchNorm statistics, optimizer state, schedule count and EMA shadow.
+        A checkpoint directory that holds a step resumes from its newest:
+        weights, BatchNorm statistics, optimizer state, schedule count and EMA
+        shadow. Where that step is the JAX trainer's (orbax) it raises
+        ``UnconvertedCheckpointError``, and where it holds no optimizer state
+        (a step ``convert_checkpoints.py`` wrote) ``UnresumableCheckpointError``:
+        neither trains from the start in its place.
         ``eval_fn(model, opt_state, step) -> (metric, state_dict)`` runs every
         ``eval_every`` steps (higher is better); the best eval's state dict
         is kept on the host in ``self.best``; with ``patience > 0`` the loop
@@ -519,8 +523,13 @@ class FineTuner:
         self.stopped_early = False
         evals_since_best = 0
         optimizer = self.make_optimizer()
-        if self.checkpoint is not None and self.checkpoint.latest_step() is not None:
-            restored = self.checkpoint.restore()
+        newest = self.checkpoint.newest_step() if self.checkpoint is not None else None
+        if newest is not None:
+            restored = self.checkpoint.restore(newest)
+            if restored.get("opt_state") is None:
+                from ics_tpu_torch.train.checkpoint import UnresumableCheckpointError
+
+                raise UnresumableCheckpointError(self.checkpoint.directory, newest)
             self.model.load_state_dict(restored["state_dict"])
             optimizer.load_state_dict(restored["opt_state"])
             start_step = int(restored.get("metadata", {}).get("step", 0))

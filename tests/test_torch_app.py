@@ -122,11 +122,12 @@ async def test_routes_of_the_port(served):
     assert {"/classificacoes/ambiente/{id_amb}/explicar",
             "/classificacoes/ambiente/{id_amb}/classificar-tpu",
             "/monitor/latency-budget"} <= paths
-    assert not any(p.startswith("/treinamento") for p in paths)
+    assert {"/treinamento/ambiente/{id_amb}", "/treinamento/jobs/{id_job}/stream",
+            "/treinamento/modelos/{id_mod}/exportar", "/treinamento/gc"} <= paths
     assert {"/images/buscar-similares", "/images/{content_hash}/similares",
             "/images/buscar-por-hash", "/monitor/status",
             "/classificacoes/ambiente/{id_amb}/sugerir-vizinhos/{content_hash}"} <= paths
-    assert "/inferencia/indexar" not in paths and "/monitor/painel" not in paths
+    assert "/inferencia/indexar" in paths and "/monitor/painel" in paths
     r = await client.get("/openapi.json")
     assert r.status_code == 200 and "/inferencia/classificar" in r.json()["paths"]
 

@@ -39,7 +39,10 @@ against plain path in fp32: the same top-k, heat maps within 1e-4.
 DenseNet-121 and RegNet-Y 400MF in bf16 against fp32 on the card: the top-1
 equal wherever the fp32 margin exceeds twice the largest deviation, and no
 kernel of the port launched; a pretrained file written by ``save_npz`` and
-loaded onto the card: the seeded engine's logits exactly.
+loaded onto the card: the seeded engine's logits exactly. A fine-tune job
+of a manager with no device named trains on the card through the window
+kernels, while an engine on the card serves the same answers as when the
+card is idle (exactly: the same launches on the same inputs).
 """
 
 import numpy as np
@@ -1312,3 +1315,50 @@ def test_three_kernel_path_training_steps_equal_three_plain_path_steps(cuda_devi
     ours, plain = (dict(m.named_parameters()) for m in models)
     for name, p in plain.items():
         assert _rel(ours[name], p) <= 1e-4, name
+
+
+@pytest.mark.cuda
+def test_a_job_trains_on_the_card_beside_serving(cuda_device, tmp_path):
+    """A manager with no device named (the service's) trains a swin_micro job
+    on the card: its window kernels launch (forward, backward, table), the
+    version it registers serves; and a Swin engine on the card answers, while
+    the job runs, exactly what it answered idle."""
+    import importlib.util
+    from pathlib import Path
+
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+    from ics_tpu_torch.train.checkpoint import CheckpointManager
+
+    # by its path: a `tests` package installed elsewhere on a host would
+    # shadow the repository's directory of tests
+    spec = importlib.util.spec_from_file_location(
+        "torch_job_helpers", Path(__file__).with_name("test_torch_job.py"))
+    helpers = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(helpers)
+    TINY, seeded_manager, wait = helpers.TINY, helpers.seeded_manager, helpers.wait
+
+    manager, id_amb = seeded_manager(tmp_path)
+    manager.device = None
+    engine = InferenceEngine("swin_micro", num_classes=8, precision="bf16", buckets=(4,),
+                             canvas=64, device=cuda_device)
+    rng = np.random.default_rng(0)
+    canvas = rng.integers(0, 256, (4, 64, 64, 3), np.uint8)
+    sizes = np.full((4, 2), 60, np.int32)
+    idle = engine.predict_staged(canvas, sizes)
+    before = {k: LAUNCHES[k].value for k in ("window_attention_bwd", "window_attention_dtable")}
+    job = manager.start(id_amb, "swin_micro", **{**TINY, "max_steps": 6})
+    served = []
+    while job.status in ("pendente", "executando"):
+        served.append(engine.predict_staged(canvas, sizes))
+    wait(job)
+    assert job.status == "concluido", job.to_dict()
+    for k, v in before.items():
+        assert LAUNCHES[k].value - v >= 6 * 3, k          # 3 blocks a step, 6 steps
+    assert served
+    for idx, scores in served:
+        assert np.array_equal(idx, idle[0]) and np.array_equal(scores, idle[1])
+    state = CheckpointManager(job.ckpt_dir).restore()["state_dict"]
+    trained = InferenceEngine("swin_micro", num_classes=2, precision="bf16", buckets=(4,),
+                              canvas=64, device=cuda_device, state_dict=state)
+    idx, scores = trained.predict_staged(canvas, sizes)
+    assert np.isfinite(scores).all() and set(np.asarray(idx).ravel()) <= {0, 1}

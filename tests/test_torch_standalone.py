@@ -24,13 +24,9 @@ REPO = Path(__file__).resolve().parents[1]
 # users import it, never the port
 FORBIDDEN = ("ics_tpu", "jax", "jaxlib", "flax", "optax", "orbax", "convert_checkpoints")
 
-# routes of ics_tpu.main.create_app() the port does not serve yet
-# (ROADMAP.md, "Deferred from these modules")
-DEFERRED_PREFIXES = ("/treinamento",)
-DEFERRED_ROUTES = {
-    ("POST", "/inferencia/indexar"),
-    ("GET", "/monitor/painel"),
-}
+# routes of ics_tpu.main.create_app() the port does not serve yet: none
+DEFERRED_PREFIXES = ()
+DEFERRED_ROUTES: set = set()
 # routes only the port has
 PORT_ONLY_ROUTES = {("POST", "/inferencia/kernels/zerar")}
 

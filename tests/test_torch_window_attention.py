@@ -384,6 +384,36 @@ def test_index_runs_gather_each_table_row_once(window):
     assert key not in wa._index_runs                         # nor kept after it
 
 
+def test_index_runs_reached_from_threads_at_once_stay_each_indexs_own():
+    """A job's backward is what reaches the runs (a served Swin version never
+    asks for the table's gradient) and one job runs at a time; were threads
+    to reach them at once, each index keeps its own runs: the cache is keyed
+    by the index tensor's identity and each entry is written whole."""
+    import threading
+
+    indexes = [torch.from_numpy(_relative_position_index(w)).to(torch.int16)
+               for w in (4, 7) for _ in range(4)]
+    barrier = threading.Barrier(len(indexes))
+    got: dict = {}
+
+    def work(i, index):
+        barrier.wait()
+        for _ in range(50):
+            got[i] = wa._index_order(index, int(index.max()) + 1)
+
+    threads = [threading.Thread(target=work, args=(i, x)) for i, x in enumerate(indexes)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for i, index in enumerate(indexes):
+        flat = index.reshape(-1).long()
+        order, offsets = got[i]
+        assert torch.equal(order.long(), torch.sort(flat, stable=True).indices)
+        assert torch.equal(offsets[1:].long(), torch.cumsum(torch.bincount(flat), 0))
+        assert wa._index_runs[id(index)][2] is order
+
+
 @pytest.mark.parametrize("windows,heads", [(2048, 3), (512, 6), (128, 12), (32, 24), (1, 2)])
 def test_table_groups_keep_partials_few_and_the_card_full(windows, heads):
     groups = wa.table_groups(windows, heads)
