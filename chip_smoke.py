@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
 
 1. The card's name and power limit, as ``nvidia-smi`` gives them.
 2. Build every CUDA kernel from ``ics_tpu_torch/ops/csrc`` (seven sources
-   and two shared headers, one ``nvcc`` per source, all started together)
+   and three shared headers, one ``nvcc`` per source, all started together)
    and time it.
 3. Each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and at edge shapes, with the tolerance stated beside each
@@ -189,6 +189,35 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    before). (g) ``python -m ics_tpu_torch.train --ambiente A --steps 5
    --no-ativar`` against the same database and fake NextCloud: exit 0, an
    inactive version, the job's JSON. Any failure fails the run.
+11. Multi-device serving in this process (``parallel.mesh``,
+   ``parallel.pipeline``, ``runtime.hedging``). Where there are fewer cards
+   than a mesh's positions, every position names ``cuda:0`` (each on a CUDA
+   stream of its own), which the log says. (a) ResNet-50 bf16 with fused
+   chains (seed 0) on a ``("data",)`` mesh of 2 at buckets 8 and 32 of the
+   pixel lane and bucket 8 of the 4:2:0 device-decode lane, and ViT-B/16
+   @384 at bucket 8, each against the single-device engine on the same
+   weights and canvas: top-5 equal, scores within ``MESH_SCORE_TOL``, the
+   chain kernel 5 x 2 and the flash kernel 12 x 2 times a step, the same
+   bits on a second run; ``embed_staged`` under DP against the single
+   engine's (1 - cosine at most ``EMBED_MAX_ANGLE``). (b) ResNet-50 on a
+   ``("data", "model")`` mesh of (1, 2): the head split 500/500, answers as
+   in (a); a 7-class engine served with its head replicated. (c) ViT-B/16 on
+   a ``("pp",)`` mesh of 2 (6 blocks a stage), 4 microbatches at bucket 32,
+   built through ``InferenceService.from_settings``: the flash kernel 12 x 4
+   times a step, answers as in (a) against the unpipelined engine, the
+   service's ``device_decode`` off, TTA, explain and embed refused. (f) The
+   DP, TP and PP steps at bucket 32 by CUDA events, in turns with the
+   single-device step (on one card: the machinery's overhead). (d)
+   ``HedgedInferenceService.from_settings`` with two ResNet-50 replicas
+   started on the card: 4 requests split 2/2 with no hedge and answered the
+   same on a second run, a replica 2 s late hedged (answer under 1.9 s), a
+   failing replica hedged at once, both failing raising, undecodable bytes
+   raising ``ImagemInvalida`` as an input error, ``status()`` summing
+   ``images``. (e) On a one-card machine ``TPU_MESH_SHAPE=2``,
+   ``TPU_PP_STAGES=2`` and ``TPU_SERVING_REPLICAS=2`` refused with the
+   reference's messages, "auto" no mesh. The launch counts are set to 0
+   before each mesh step and read after it; the process's counts add one a
+   position, so a data mesh of 2 launches each kernel twice a step.
 
 Prints ``{"kernels": [...]}`` on the line before the last and
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
@@ -3936,6 +3965,345 @@ def check_job_surface(torch, card: str) -> dict:
     return launches
 
 
+# ---- phase 11: multi-device serving on the card -------------------------------------------
+
+# a mesh engine's bf16 scores against the single-device engine's: the chunks'
+# GEMMs and convolutions may take other cuDNN and cuBLAS plans than the whole
+# batch's (another summation order), as the server's bucket against this
+# process's engine does in phase 6, so the same bar holds: top-5 equal, scores
+# within SERVED_SCORE_TOL
+MESH_SCORE_TOL = SERVED_SCORE_TOL
+MESH_BUCKETS = (8, 32)
+MESH_CANVAS = 512
+PP_MICROBATCHES = 4
+# (h, w) of the device-decode lane's batch: 4:2:0 within 512 px, one lane
+MESH_JPEG_SIZES = [(512, 384), (400, 400), (300, 500), (384, 360), (256, 512), (500, 375),
+                   (224, 224), (333, 480)]
+HEDGE_SLEEP_S = 2.0
+# the refusals on a one-card machine, in the reference's words
+ONE_CARD_REFUSALS = {
+    "TPU_MESH_SHAPE": "TPU_MESH_SHAPE=2 needs 2 devices, but only 1 are visible",
+    "TPU_PP_STAGES": "TPU_PP_STAGES=2 precisa de 2 devices, mas só 1 visíveis",
+    "TPU_SERVING_REPLICAS": ("TPU_SERVING_REPLICAS=2 cannot partition 1 visible device(s) "
+                             "into equal groups"),
+}
+
+
+def mesh_devices(torch, n: int) -> list:
+    """n distinct cards where there are that many, else cuda:0 n times (one
+    card then plays every position, each on a stream of its own)."""
+    if torch.cuda.device_count() >= n:
+        return [f"cuda:{i}" for i in range(n)]
+    return ["cuda:0"] * n
+
+
+def _held_to_single(label: str, got, want) -> None:
+    import numpy as np
+
+    gap = float(np.abs(np.asarray(got[1]) - np.asarray(want[1])).max())
+    same = bool(np.array_equal(got[0], want[0]))
+    log(f"  {label}: top-5 {'equal' if same else 'DIFFERENT'} over {len(got[0])} images, "
+        f"scores max|d| {gap:.3e} (tol {MESH_SCORE_TOL})")
+    if not same or gap > MESH_SCORE_TOL:
+        fail(f"{label}: the mesh engine's answer differs from the single-device engine's")
+
+
+def _counted(torch, fn, names=("flash_attention", "bottleneck_chain")) -> tuple:
+    """fn()'s result and the launches of ``names`` it made: the counts set to
+    0 just before and read just after (synchronised)."""
+    from ics_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    return out, {name: counts[name] for name in names}
+
+
+def _mesh_corpus(n: int = 32):
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    canvas = rng.integers(0, 256, (n, MESH_CANVAS, MESH_CANVAS, 3), np.uint8)
+    sizes = rng.integers(MESH_CANVAS * 3 // 5, MESH_CANVAS + 1, (n, 2)).astype(np.int32)
+    return canvas, sizes
+
+
+def check_multi_device(torch, card: str) -> dict:
+    """Phase 11: the mesh (data parallelism and the tensor-parallel head),
+    the GPipe pipeline through the flash kernel and the hedged replicas, in
+    this process, on the card; returns the main-path launches of the flash
+    and chain kernels."""
+    import numpy as np
+
+    from ics_tpu_torch.core.config import Settings, reload_settings
+    from ics_tpu_torch.native import imgcodec
+    from ics_tpu_torch.parallel.mesh import make_mesh, mesh_from_settings
+    from ics_tpu_torch.runtime import device_decode as dd
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+    from ics_tpu_torch.runtime.hedging import HedgedInferenceService
+    from ics_tpu_torch.runtime.service import InferenceService
+
+    t11 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    log(f"  {cards} card(s) visible: " + (
+        "each mesh position takes a card of its own" if cards >= 4 else
+        "positions beyond the visible cards name cuda:0 again (meshes of 2 put both "
+        "positions on cuda:0, each on a stream of its own)"))
+    launches = {"flash_attention": 0, "bottleneck_chain": 0}
+
+    def add(counts):
+        for name in launches:
+            launches[name] += counts[name]
+
+    canvas, sizes = _mesh_corpus()
+    resnet_kw = dict(precision="bf16", buckets=MESH_BUCKETS, canvas=MESH_CANVAS,
+                     fused_chains=True, seed=0)
+    vit_kw = dict(precision="bf16", buckets=MESH_BUCKETS, canvas=MESH_CANVAS, seed=0)
+
+    # (a) data parallelism
+    dp_mesh = make_mesh((2,), ("data",), devices=mesh_devices(torch, 2))
+    single = InferenceEngine(RESNET, **resnet_kw)
+    dp = InferenceEngine(RESNET, mesh=dp_mesh, **resnet_kw)
+    for b in MESH_BUCKETS:
+        dp.predict_staged(canvas[:b], sizes[:b])          # first call: plans, not counted
+        got, counts = _counted(torch, lambda: dp.predict_staged(canvas[:b], sizes[:b]))
+        log(f"  (a) {RESNET} DP 2 at bucket {b}: launches {counts}")
+        if counts["bottleneck_chain"] != CHAIN_LAUNCHES * 2:
+            fail(f"DP {RESNET} step at bucket {b}: bottleneck_chain launched "
+                 f"{counts['bottleneck_chain']} times, not {CHAIN_LAUNCHES} x 2")
+        add(counts)
+        _held_to_single(f"(a) {RESNET} DP 2 bucket {b} against one engine", got,
+                        single.predict_staged(canvas[:b], sizes[:b]))
+        again = dp.predict_staged(canvas[:b], sizes[:b])
+        if not all(np.array_equal(x, y) for x, y in zip(again, got)):
+            fail(f"DP {RESNET} at bucket {b}: two runs of the same batch differ")
+    jpegs = _images(MESH_JPEG_SIZES, "JPEG", quality=90)       # PIL's default: 4:2:0
+    staged = dd.stage_coefficient_batch([imgcodec.jpeg_coefficients(b) for b in jpegs],
+                                        luma_blocks=64, mode="420")
+    dp.predict_coeff_staged(dict(staged))
+    got, counts = _counted(torch, lambda: dp.predict_coeff_staged(dict(staged)))
+    log(f"  (a) {RESNET} DP 2 device-decode lane 4:2:0/512 px at bucket 8: launches {counts}")
+    if counts["bottleneck_chain"] != CHAIN_LAUNCHES * 2:
+        fail("DP coefficient step: the chain kernel did not run once a position")
+    add(counts)
+    _held_to_single(f"(a) {RESNET} DP 2 coefficient step against one engine", got,
+                    single.predict_coeff_staged(dict(staged)))
+    feats, counts = _counted(torch, lambda: dp.embed_staged(canvas[:8], sizes[:8]))
+    add(counts)
+    ref = single.embed_staged(canvas[:8], sizes[:8])
+    angle = float((1.0 - (feats * ref).sum(-1)).max())
+    log(f"  (a) {RESNET} DP 2 embed_staged of 8: 1 - cosine with one engine's at most "
+        f"{angle:.2e} (tol {EMBED_MAX_ANGLE}); launches {counts}")
+    if feats.shape != ref.shape or angle > EMBED_MAX_ANGLE:
+        fail("DP embed differs from the single-device engine's")
+
+    vit_single = InferenceEngine(VIT, **vit_kw)
+    vit_dp = InferenceEngine(VIT, mesh=dp_mesh, **vit_kw)
+    vit_dp.predict_staged(canvas[:8], sizes[:8])
+    got, counts = _counted(torch, lambda: vit_dp.predict_staged(canvas[:8], sizes[:8]))
+    log(f"  (a) {VIT} DP 2 at bucket 8: launches {counts}")
+    if counts["flash_attention"] != VIT_DEPTH * 2:
+        fail(f"DP {VIT}: flash_attention launched {counts['flash_attention']} times, "
+             f"not {VIT_DEPTH} x 2")
+    add(counts)
+    _held_to_single(f"(a) {VIT} DP 2 bucket 8 against one engine", got,
+                    vit_single.predict_staged(canvas[:8], sizes[:8]))
+
+    # (b) the tensor-parallel head
+    tp_mesh = make_mesh((1, 2), ("data", "model"), devices=mesh_devices(torch, 2))
+    tp = InferenceEngine(RESNET, mesh=tp_mesh, **resnet_kw)
+    parts = [tuple(w.shape) for _, w, _ in tp._mesh_model.groups[0].head]
+    log(f"  (b) {RESNET} on (data 1, model 2): head slices {parts}")
+    if parts != [(500, 2048), (500, 2048)]:
+        fail("the TP head is not split 500/500 over the model axis")
+    tp.predict_staged(canvas[:8], sizes[:8])
+    got, counts = _counted(torch, lambda: tp.predict_staged(canvas[:8], sizes[:8]))
+    add(counts)
+    _held_to_single(f"(b) {RESNET} TP 2 bucket 8 against one engine", got,
+                    single.predict_staged(canvas[:8], sizes[:8]))
+    small = dict(resnet_kw, num_classes=7)
+    tp7 = InferenceEngine(RESNET, mesh=tp_mesh, **small)
+    if tp7._mesh_model.head_sharded:
+        fail("a 7-class head on a model axis of 2 must be served replicated")
+    got, counts = _counted(torch, lambda: tp7.predict_staged(canvas[:8], sizes[:8]))
+    add(counts)
+    _held_to_single("(b) 7-class head served replicated on (1, 2), against one engine", got,
+                    InferenceEngine(RESNET, **small).predict_staged(canvas[:8], sizes[:8]))
+    del tp7
+    torch.cuda.empty_cache()
+
+    # (c) pipeline parallelism through the flash kernel
+    pp_mesh = make_mesh((2,), ("pp",), devices=mesh_devices(torch, 2))
+    reload_settings()
+    service = InferenceService.from_settings(
+        mesh=pp_mesh, model_name=VIT, num_classes=1000, precision="bf16", buckets=(32,),
+        canvas=MESH_CANVAS, pp_microbatches=PP_MICROBATCHES)
+    pp = service.engine
+    log(f"  (c) {VIT} on ('pp',) 2, {PP_MICROBATCHES} microbatches: stages of "
+        f"{[len(s) for s in pp._stages]} blocks, buckets {pp.buckets}, service device_decode "
+        f"{service.device_decode}")
+    if service.device_decode or [len(s) for s in pp._stages] != [6, 6]:
+        fail("the PP service must stage 6 blocks a stage and decode on the host")
+    pp.predict_staged(canvas, sizes)
+    got, counts = _counted(torch, lambda: pp.predict_staged(canvas, sizes))
+    log(f"  (c) PP step at bucket 32: launches {counts}")
+    if counts["flash_attention"] != VIT_DEPTH * PP_MICROBATCHES:
+        fail(f"PP step: flash_attention launched {counts['flash_attention']} times, not "
+             f"{VIT_DEPTH} x {PP_MICROBATCHES}")
+    add(counts)
+    _held_to_single(f"(c) {VIT} PP 2 x {PP_MICROBATCHES} bucket 32 against the unpipelined engine",
+                    got, vit_single.predict_staged(canvas, sizes))
+    for what, call in (("TTA", lambda: pp.predict_staged_tta(canvas[:1], sizes[:1])),
+                       ("explain", lambda: pp.explain_staged(canvas[:1], sizes[:1])),
+                       ("embed", lambda: pp.embed_staged(canvas[:1], sizes[:1]))):
+        try:
+            call()
+        except RuntimeError as exc:
+            if "pipeline parallelism" not in str(exc):
+                raise
+            log(f"  (c) {what} under PP refused: {exc}")
+        else:
+            fail(f"{what} under PP must raise")
+
+    # (f) times, in turns, beside the single-device step (before (d) frees the engines)
+    log(f"  (f) steps at bucket 32 by CUDA events, in turns, host copy included ({card}); "
+        "on one card this is the machinery's overhead (both positions share its SMs):")
+    step = lambda e: (lambda: e._dispatch(canvas, sizes))   # noqa: E731
+    in_turns(f"{RESNET} DP 2 (kernel) against one engine (plain)", step(dp), step(single),
+             iters=5, ahead=False)
+    in_turns(f"{RESNET} TP 2 (kernel) against one engine (plain)", step(tp), step(single),
+             iters=5, ahead=False)
+    in_turns(f"{VIT} PP 2 x {PP_MICROBATCHES} (kernel) against one engine (plain)", step(pp),
+             step(vit_single), iters=5, ahead=False)
+    del dp, tp, single, vit_dp, vit_single, pp, service
+    torch.cuda.empty_cache()
+
+    # (d) hedged replicas
+    settings = reload_settings(TPU_SERVING_REPLICAS="2", TPU_HEDGE_MS="60000",
+                               TPU_DEVICE_DECODE="false")
+    hedged = HedgedInferenceService.from_settings(
+        settings, devices=mesh_devices(torch, 2), model_name=RESNET, num_classes=1000,
+        buckets=(1, 8), **{k: resnet_kw[k] for k in ("precision", "canvas", "fused_chains")})
+    blobs = _images(JPEG_SIZES[:6], "JPEG", quality=90)
+
+    async def drive() -> dict:
+        from ics_tpu_torch.runtime.decode import ImagemInvalida
+
+        out = {}
+        await hedged.start(warm=True)
+        try:
+            for blob in blobs[:2]:                  # the replicas' first flushes
+                await hedged.classify_bytes(blob)
+            images = [r.engine._stats["images"] for r in hedged.replicas]
+            first = [await hedged.classify_bytes(b) for b in blobs[2:6]]
+            out["split"] = [r.engine._stats["images"] - n
+                            for r, n in zip(hedged.replicas, images)]
+            out["unhedged"] = hedged._stats["hedges_fired"]
+            out["repeat"] = [await hedged.classify_bytes(b) for b in blobs[2:6]]
+            out["first"] = first
+            reals = [r.classify_bytes for r in hedged.replicas]
+            real = reals[0]
+
+            async def slow(data):
+                await asyncio.sleep(HEDGE_SLEEP_S)
+                return await real(data)
+
+            hedged.hedge_s = 0.05
+            hedged._rr = 0
+            hedged.replicas[0].classify_bytes = slow
+            t0 = time.perf_counter()
+            res = await hedged.classify_bytes(blobs[0])
+            out["straggler"] = (time.perf_counter() - t0, res.get("hedged"),
+                                dict(hedged._stats))
+
+            async def boom(data):
+                raise RuntimeError("replica down")
+
+            hedged.hedge_s = 60.0
+            hedged._rr = 0
+            hedged.replicas[0].classify_bytes = boom
+            t0 = time.perf_counter()
+            res = await hedged.classify_bytes(blobs[1])
+            out["failed_one"] = (time.perf_counter() - t0, res.get("hedged"))
+            hedged.replicas[1].classify_bytes = boom
+            try:
+                await hedged.classify_bytes(blobs[1])
+                out["failed_both"] = None
+            except RuntimeError as exc:
+                out["failed_both"] = (str(exc), hedged._stats["hedge_failures"])
+            for r, method in zip(hedged.replicas, reals):
+                r.classify_bytes = method
+            failures = hedged._stats["hedge_failures"]
+            try:
+                await hedged.classify_bytes(b"this is not an image")
+                out["input_error"] = None
+            except ImagemInvalida:
+                out["input_error"] = (hedged._stats["input_errors"],
+                                      hedged._stats["hedge_failures"] - failures)
+            out["status"] = hedged.status()
+        finally:
+            await hedged.stop()
+        return out
+
+    d, counts = _counted(torch, lambda: asyncio.run(drive()))
+    add(counts)
+    log(f"  (d) hedged {RESNET} x 2 replicas: 4 requests split {d['split']}, hedges "
+        f"{d['unhedged']}; launches over the drive {counts}")
+    if d["split"] != [2, 2] or d["unhedged"] != 0:
+        fail("hedged replicas: 4 requests must split 2/2 with no hedge")
+    if [(r["top_classes"], r["scores"]) for r in d["repeat"]] != \
+            [(r["top_classes"], r["scores"]) for r in d["first"]]:
+        fail("hedged replicas: the same requests answered differently on a second run")
+    dt, hedged_flag, stats = d["straggler"]
+    log(f"  (d) a replica {HEDGE_SLEEP_S} s late: answered in {dt:.3f} s, hedged {hedged_flag}, "
+        f"fired {stats['hedges_fired']}, won {stats['hedges_won']}")
+    if not (dt < 1.9 and hedged_flag is True and stats["hedges_won"] == 1):
+        fail("the straggling replica was not hedged")
+    dt, hedged_flag = d["failed_one"]
+    log(f"  (d) a failing replica: answered in {dt:.3f} s, hedged {hedged_flag}; both failing: "
+        f"{d['failed_both']}; undecodable bytes: input_errors, new hedge_failures "
+        f"{d['input_error']}")
+    if not (hedged_flag is True and dt < 1.9):
+        fail("a failing replica must be hedged at once")
+    if d["failed_both"] is None or d["failed_both"][0] != "replica down":
+        fail("two failing replicas must raise")
+    if d["input_error"] != (1, 0):
+        fail("undecodable bytes must raise ImagemInvalida and count as input_errors")
+    st = d["status"]
+    if st["images"] != sum(r["images"] for r in st["replicas"]) or st["serving_replicas"] != 2:
+        fail("the hedged status must sum images over the replicas")
+    log(f"  (d) status: images {st['images']} = {[r['images'] for r in st['replicas']]}, "
+        f"hedging {st['hedging']}")
+    del hedged
+    torch.cuda.empty_cache()
+
+    # (e) the refusals by the machine's own device count
+    if cards == 1:
+        for setting, call in (
+                ("TPU_MESH_SHAPE", lambda: mesh_from_settings(Settings(TPU_MESH_SHAPE="2"))),
+                ("TPU_PP_STAGES", lambda: mesh_from_settings(Settings(TPU_PP_STAGES="2"))),
+                ("TPU_SERVING_REPLICAS", lambda: HedgedInferenceService.from_settings(
+                    Settings(TPU_SERVING_REPLICAS="2")))):
+            try:
+                call()
+            except RuntimeError as exc:
+                log(f"  (e) {setting}=2 on one card: {exc}")
+                if str(exc) != ONE_CARD_REFUSALS[setting]:
+                    fail(f"{setting}=2 on one card: not the reference's refusal")
+            else:
+                fail(f"{setting}=2 on one card must be refused")
+        if mesh_from_settings(Settings()) is not None:
+            fail("TPU_MESH_SHAPE=auto on one card must give no mesh")
+        log("  (e) TPU_MESH_SHAPE=auto on one card: no mesh")
+    else:
+        log(f"  (e) {cards} cards: the one-card refusals do not apply")
+    reload_settings()
+    log(f"  [11] launches on its main paths {launches}; took {time.perf_counter() - t11:.1f} s "
+        f"on {card}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -4071,6 +4439,11 @@ def main() -> None:
         key = "window_attention_qkv_bwd" if name == "window_attention_bwd" else name
         if key in launches:
             launches[key] += count
+
+    log(f"[11] multi-device serving on the card ({card}): the mesh (data parallelism and the "
+        "tensor-parallel head), GPipe pipeline stages through the flash kernel, hedged replicas:")
+    for name, count in check_multi_device(torch, card).items():
+        launches[name] += count
 
     sources = {
         "flash_attention": ("ics_tpu_torch/ops/csrc/flash_attention.cu",

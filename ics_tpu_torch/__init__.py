@@ -14,8 +14,10 @@ device are ports.
 - ``models``   — ViT, ResNet, ConvNeXt, MobileNetV3, EfficientNet, Swin and the
                  registry of ported models
 - ``weights``  — JAX parameter and state trees (as numpy) into state dicts
+- ``parallel`` — the device mesh (data parallelism, the tensor-parallel head)
+                 and GPipe pipeline stages, driven from one process
 - ``runtime``  — inference engine and service (pixel and device-decode lanes),
-                 batcher, host decode, coefficient staging
+                 batcher, host decode, coefficient staging, hedged replicas
 - ``api``      — the routers; ``main`` — app and entry point
 - ``core``, ``web``, ``db``, ``crud``, ``schemas``, ``services``, ``utils``,
   ``native``, ``sync.nextcloud_client`` — host tiers, copied
@@ -34,21 +36,24 @@ __version__ = "0.1.0"
 def get_device(name: Optional[Union[str, torch.device]] = None) -> torch.device:
     """The device the port computes on.
 
-    With no argument: the CUDA device, or ``RuntimeError`` when none is
-    visible. There is no CPU fallback; a CPU run happens only where the
-    caller names ``"cpu"``, as the tests do.
+    With no argument: the current CUDA device, or ``RuntimeError`` when none
+    is visible. There is no CPU fallback; a CPU run happens only where the
+    caller names ``"cpu"``, as the tests do. A CUDA device always comes back
+    with its index (``"cuda"`` resolves to the current one), so what an
+    engine or a tensor is placed on does not change with whatever device a
+    thread has made current since.
     """
-    if name is None:
-        if not torch.cuda.is_available():
+    dev = torch.device("cuda" if name is None else name)
+    if dev.type != "cuda":
+        return dev
+    if not torch.cuda.is_available():
+        if name is None:
             raise RuntimeError(
                 "no CUDA device is visible; ics_tpu_torch computes on a GPU "
                 "(pass device='cpu' explicitly for a CPU run)"
             )
-        return torch.device("cuda")
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but no CUDA device is visible")
-    return dev
+    return dev if dev.index is not None else torch.device("cuda", torch.cuda.current_device())
 
 
 def disable_tf32() -> None:

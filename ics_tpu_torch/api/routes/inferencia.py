@@ -3,7 +3,8 @@
 - ``GET /inferencia/modelos`` — ported models (any authenticated user)
 - ``GET /inferencia/status`` — engine, batcher, latency and kernel-launch
   counts (admin); ``?modelo=`` reads a model the pool has built
-- ``POST /inferencia/warmup`` — run every batch bucket once (admin)
+- ``POST /inferencia/warmup`` — run every batch bucket once on every
+  replica (admin)
 - ``POST /inferencia/classificar`` — multipart image(s) -> top-k classes
   and scores (authenticated); ``?modelo=`` picks another ported model
 - ``POST /inferencia/kernels/zerar`` — set the kernel-launch counts to 0
@@ -74,11 +75,15 @@ async def status_inferencia(request: Request):
 async def warmup(request: Request):
     require_admin(request)
     service = _engine(request)
-    await asyncio.get_running_loop().run_in_executor(None, service.engine.warmup)
+    loop = asyncio.get_running_loop()
+    # under hedged serving every replica has an engine of its own
+    parts = getattr(service, "replicas", [service])
+    for part in parts:
+        await loop.run_in_executor(None, part.engine.warmup)
     return JSONResponse({
         "message": "warmup concluído",
         "buckets": list(service.engine.buckets),
-        "replicas": 1,  # hedged replicas are not ported: one engine serves
+        "replicas": len(parts),
     })
 
 

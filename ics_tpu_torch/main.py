@@ -13,7 +13,10 @@ fine-tune job manager, ``train.job``) trains on the engine's device and
 checkpoints under ``TPU_WEIGHTS_DIR``, its bytes from NextCloud where
 ``NEXTCLOUD_BASE_URL`` is set; the ``/treinamento`` routes and
 ``POST /inferencia/indexar`` read it; ``GET /monitor/painel`` (admin) is the
-operator's dashboard. An engine that fails to build fails startup, and so
+operator's dashboard. With ``TPU_SERVING_REPLICAS`` above 1 the service is
+hedged over that many replicas (``runtime.hedging``), and the pool builds
+every other model the same way; ``/monitor/metrics`` then carries the
+``tpu_hedges_*`` gauges. An engine that fails to build fails startup, and so
 does an entropy decoder that cannot be built while ``TPU_DEVICE_DECODE`` is
 on; a service already placed in ``app.state.engine`` is used as it is.
 Shutdown: the sync scheduler, then the on-sync tasks still pending (a short
@@ -77,7 +80,15 @@ async def lifespan(app: App):
             )
 
             warn_unserved_settings()
-            service = InferenceService.from_settings()
+            if settings.TPU_SERVING_REPLICAS > 1:
+                # replica-level serving with request hedging: the cards are
+                # partitioned into independent engines; a straggler is
+                # duplicated onto the next replica, the first result wins
+                from ics_tpu_torch.runtime.hedging import HedgedInferenceService
+
+                service = HedgedInferenceService.from_settings()
+            else:
+                service = InferenceService.from_settings()
             await service.start(warm=settings.TPU_WARMUP_ON_STARTUP)
             pool = InferenceServicePool(
                 default_model=settings.TPU_DEFAULT_MODEL,
@@ -90,6 +101,15 @@ async def lifespan(app: App):
                 buckets=settings.get_batch_buckets(),
                 canvas=settings.TPU_CANVAS,
                 fused_chains=settings.TPU_FUSED_CHAINS,
+                # under PP, pool engines take the configured microbatch count
+                pp_microbatches=settings.TPU_PP_MICROBATCHES,
+                mesh=service.engine.mesh,  # pool models share the mesh
+                # hedged boot: the models the pool builds get one engine a
+                # replica device group too, so they are hedged as well
+                replica_meshes=[
+                    r.engine.mesh for r in getattr(service, "replicas", [])
+                ] or None,
+                hedge_ms=settings.TPU_HEDGE_MS,
             )
             pool.add(settings.TPU_DEFAULT_MODEL, service)
             app.state.engine = service
@@ -387,6 +407,13 @@ def create_app(db: Database | None = None) -> App:
             if lat:
                 registry.gauge("classify_p50_ms", "classify p50").set(lat["p50_ms"])
                 registry.gauge("classify_p99_ms", "classify p99").set(lat["p99_ms"])
+            hedging = stats.get("hedging")
+            if hedging:  # replica serving (TPU_SERVING_REPLICAS >= 2)
+                for key in ("hedges_fired", "hedges_won", "hedge_failures"):
+                    registry.gauge(f"tpu_{key}", f"request hedging: {key}").set(
+                        hedging.get(key, 0))
+                registry.gauge("tpu_serving_replicas", "independent engine replicas").set(
+                    stats.get("serving_replicas", 1))
         return PlainTextResponse(registry.expose())
 
     @app.post("/monitor/latency-budget")

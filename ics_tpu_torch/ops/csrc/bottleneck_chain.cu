@@ -61,6 +61,7 @@
 
 #include "hopper.cuh"
 #include "mma_frag.cuh"
+#include "device_guard.cuh"
 
 namespace {
 
@@ -629,9 +630,8 @@ int ics_bottleneck_block(const void* x, void* out, const void* w1t, const float*
                          const float* b2, const void* w3t, const float* s3,
                          const float* b3, int batch, int H, int W, int C, int Cm,
                          int tile_rows, int stages, void* stream, int device) {
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  const ics::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0 || H <= 0 || W <= 0) return 0;
   if (x == out || batch > 65535 || tile_rows < 1 || tile_rows > H || C % Cm != 0) {

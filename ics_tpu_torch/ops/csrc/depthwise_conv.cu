@@ -66,6 +66,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include "device_guard.cuh"
 
 namespace {
 
@@ -666,9 +667,8 @@ extern "C" {
 int ics_depthwise_conv(int dtype, int variant, const void* x, const void* taps,
                        const void* bias, void* y, int B, int H, int W, int C, int k, int ch,
                        int cols, int cb, int tw, int rh, void* stream, int device) {
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  const ics::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (k <= 0 || k % 2 == 0) return static_cast<int>(cudaErrorInvalidValue);

@@ -28,6 +28,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include "device_guard.cuh"
 
 namespace {
 
@@ -141,9 +142,8 @@ const char* ics_cuda_error_string(int code) {
 int ics_depthwise_conv_dw(int dtype, const void* x, const void* dy, void* part, void* part_bias,
                           void* dtaps, void* dbias, int B, int H, int W, int C, int k, int rh,
                           void* stream, int device) {
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  const ics::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (k < 3 || k > 11 || k % 2 == 0 || rh <= 0) return static_cast<int>(cudaErrorInvalidValue);

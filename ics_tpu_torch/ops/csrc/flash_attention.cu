@@ -63,6 +63,7 @@
 
 #include "hopper.cuh"
 #include "mma_frag.cuh"
+#include "device_guard.cuh"
 
 namespace {
 
@@ -906,7 +907,8 @@ int ics_flash_attention(int dtype, const void* q, const void* k, const void* v, 
                         int batch, int heads, int seq, int head_dim, int kv_len,
                         const long long* strides, int bf16_exp, int mma_sync, void* stream,
                         int device) {
-  cudaError_t err = cudaSetDevice(device);
+  const ics::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (bf16_exp != 0 && dtype != 0) return static_cast<int>(cudaErrorInvalidValue);

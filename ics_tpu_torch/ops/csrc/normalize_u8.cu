@@ -20,6 +20,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include "device_guard.cuh"
 
 namespace {
 
@@ -137,7 +138,8 @@ extern "C" {
 int ics_normalize_u8(int dtype, const void* x, void* out, int B, int H, int W,
                      long long image_stride, long long row_stride, const float* scale,
                      const float* bias, void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
+  const ics::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || H <= 0 || W <= 0) return 0;

@@ -68,6 +68,7 @@
 
 #include "hopper.cuh"
 #include "mma_frag.cuh"
+#include "device_guard.cuh"
 
 namespace {
 
@@ -636,9 +637,8 @@ int ics_window_attention(int dtype, const void* q, const void* k, const void* v,
                          const void* table, long long t_row, long long t_head, int t_rows,
                          const void* index, const void* mask, int n_mask, float scale,
                          int head_group, void* stream, int device) {
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  const ics::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (batch <= 0 || heads <= 0) return 0;

@@ -55,6 +55,7 @@
 #include <stdint.h>
 
 #include <type_traits>
+#include "device_guard.cuh"
 
 namespace {
 
@@ -361,9 +362,8 @@ int ics_window_attention_bwd(int dtype, const void* q, const void* k, const void
                              const void* table, long long t_row, long long t_head,
                              const void* index, const void* mask, int n_mask, float scale,
                              void* dbias_part, int groups, void* stream, int device) {
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  const ics::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (batch <= 0 || heads <= 0) return 0;
@@ -434,9 +434,8 @@ int ics_window_attention_bwd(int dtype, const void* q, const void* k, const void
 int ics_window_attention_dtable(const void* part, int groups, int heads, int ww, void* dbias,
                                 const void* order, const void* offsets, int rows, void* out,
                                 void* stream, int device) {
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  const ics::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (groups <= 0 || heads <= 0 || ww <= 0 || ww > kMaxTokens || rows <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);

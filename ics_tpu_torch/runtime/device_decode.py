@@ -189,18 +189,24 @@ def decode_batch_to_canvas(staged: dict, dtype=torch.float32, mode: str = "420")
 
 
 def make_fused_decode_infer_step(model, spec, dtype=torch.bfloat16, top_k: int = 5,
-                                 mode: str = "420", multi_label: bool = False):
+                                 mode: str = "420", multi_label: bool = False, mesh=None):
     """Returns step: coefficient batch (tensors on the model's device) ->
     (top_idx, top_scores).
 
     ``model`` is a folded model (``apply_folded``) in ``dtype``. Everything
     after the entropy decode runs on the device: the decode in fp32, the
     resize/crop/normalize in fp32 cast once to ``dtype``, the forward, and
-    softmax (sigmoid when multi-label) with top-k."""
+    softmax (sigmoid when multi-label) with top-k.
+
+    With ``mesh`` (the engine's ``parallel.mesh.MeshModel``, which holds
+    ``model``'s copies), the step takes the staged arrays on the host
+    instead: their rows are split over the mesh's data groups, each group
+    runs the step on its own copy (the head split over ``model`` where it
+    is), and the top-k is gathered on the first position's device."""
     from ics_tpu_torch.ops.preproc import preprocess_batch
 
     @torch.inference_mode()
-    def step(y, yq, cb, cq, cr, rq, sizes):
+    def step(y, yq, cb, cq, cr, rq, sizes, model=model):
         staged = {"y": y, "yq": yq, "cb": cb, "cq": cq, "cr": cr, "rq": rq, "sizes": sizes}
         canvas = decode_batch_to_canvas(staged, dtype=torch.float32, mode=mode)
         x = preprocess_batch(canvas, sizes, out_size=spec.image_size,
@@ -210,4 +216,6 @@ def make_fused_decode_infer_step(model, spec, dtype=torch.bfloat16, top_k: int =
         top_scores, top_idx = torch.topk(probs, top_k, dim=-1)
         return top_idx, top_scores
 
-    return step
+    if mesh is None:
+        return step
+    return lambda *arrays: mesh.map(lambda group, *t: step(*t, model=group), *arrays)

@@ -55,12 +55,23 @@ The engine is driven from several threads at once (the batchers' flushes,
 the embed calls, the lanes' background warm-up): its step records and the
 steps it makes on first use are kept under a lock.
 
-Not ported yet: the mesh and pipeline-parallel lanes.
+On a mesh (``mesh``, ``parallel.mesh``): a ``("data"[, "model"])`` mesh of
+more than one position serves the pixel, coefficient and embed steps data
+parallel (``parallel.mesh.MeshModel``: the batch split over the ``data``
+positions, the head split by classes over ``model`` where the class count
+divides), every bucket rounded up to a multiple of the ``data`` axis; the
+TTA and explain steps run the whole batch on the first position, as the
+reference runs them in one unsharded program. A one-position mesh pins the
+engine to its device. A ``("pp",)`` mesh serves a ViT-family model through
+the GPipe pipeline (``parallel.pipeline``) with ``pp_microbatches``
+microbatches, every bucket rounded up to whole microbatches; the
+coefficient, TTA, explain and embed steps then raise ``RuntimeError``, as
+the reference's do. The kernels' launch counts (``ops.LAUNCHES``) are the
+process's: a data-parallel step launches each kernel once a position.
 """
 
 from __future__ import annotations
 
-import copy
 import logging
 import threading
 import time
@@ -74,6 +85,8 @@ from ics_tpu_torch.models.registry import ModelSpec, get_model
 from ics_tpu_torch.ops import launch_counts
 from ics_tpu_torch.ops.normalize import normalize_u8
 from ics_tpu_torch.ops.preproc import _triangle_weights, preprocess_batch
+from ics_tpu_torch.parallel.mesh import MeshModel, headless
+from ics_tpu_torch.parallel.pipeline import pipeline_vit_forward, stage_block_params
 from ics_tpu_torch.runtime.device_decode import (
     STAGED_KEYS,
     _chroma_canvas,
@@ -117,6 +130,8 @@ class InferenceEngine:
         multi_label: bool = False,
         device=None,
         fused_chains: bool = False,
+        mesh=None,
+        pp_microbatches: int = 4,
     ):
         if precision not in _DTYPES:
             raise ValueError(f"precision must be one of {sorted(_DTYPES)}; got {precision!r}")
@@ -127,15 +142,52 @@ class InferenceEngine:
         self.dtype = _DTYPES[precision]
         # multi-label models score every class with its own sigmoid
         self.multi_label = bool(multi_label)
+        axes = getattr(mesh, "axis_names", ())
+        if "data" in axes:
+            # sharded serving: every bucket must divide over the data axis
+            data_size = int(mesh.shape["data"])
+            buckets = {max(((b + data_size - 1) // data_size) * data_size, data_size)
+                       for b in buckets}
+        model = self.spec.build(num_classes=num_classes)
+        # pipeline-parallel serving (TPU_PP_STAGES -> ('pp',) mesh): the
+        # transformer trunk is split across the pp positions and microbatches
+        # flow stage to stage. ViT family only: the schedule needs a
+        # homogeneous trunk of blocks.
+        self.pp_microbatches = 0
+        if "pp" in axes:
+            stages = int(mesh.shape["pp"])
+            blocks = getattr(model, "blocks", None)
+            if not (blocks and hasattr(model, "patch_embed") and hasattr(model, "ln")):
+                raise ValueError(
+                    f"TPU_PP_STAGES: modelo {model_name!r} não tem tronco "
+                    "transformer homogêneo (família ViT) — pipeline "
+                    "parallelism não se aplica"
+                )
+            depth = len(blocks)
+            if depth % stages:
+                raise ValueError(
+                    f"TPU_PP_STAGES={stages} não divide a profundidade "
+                    f"{depth} de {model_name!r}"
+                )
+            m = max(1, int(pp_microbatches))
+            self.pp_microbatches = m
+            # every bucket must split into whole microbatches
+            buckets = {max(((b + m - 1) // m) * m, m) for b in buckets}
         self.buckets = tuple(sorted(set(buckets)))
         self.canvas = canvas
+        self.mesh = mesh
+        if mesh is not None:
+            # a mesh-pinned engine lives on its first position's device
+            first = get_device(mesh.devices.flat[0])
+            if device is not None and get_device(device) != first:
+                raise ValueError(f"device {device} is not the mesh's first device {first}")
+            device = first
         self.device = get_device(device)
         if self.device.type == "cuda":
             disable_tf32()
         # weights are drawn on the CPU from the seed, so one seed gives the
         # same model on every device, then cast (every fp32 tensor, as the
         # JAX engine casts every fp32 leaf) and moved
-        model = self.spec.build(num_classes=num_classes)
         if state_dict is None:
             model.init_weights(torch.Generator().manual_seed(seed))
         else:
@@ -150,7 +202,16 @@ class InferenceEngine:
         folded = model.fold(fused_chains=True) if fused_chains else model.fold()
         # serving needs no parameter gradient: the explain step differentiates
         # with respect to the input alone
-        self.model = folded.to(device=self.device, dtype=self.dtype).eval().requires_grad_(False)
+        self._mesh_model: Optional[MeshModel] = None
+        self._stages = None
+        if mesh is not None and not self.pp_microbatches and mesh.size > 1:
+            self._mesh_model = MeshModel(mesh, folded, self.dtype)
+            self.model = self._mesh_model.groups[0].model
+        else:
+            self.model = folded.to(device=self.device, dtype=self.dtype).eval().requires_grad_(False)
+        if self.pp_microbatches:
+            # the trunk's blocks placed on their stages' devices once, here
+            self._stages = stage_block_params(list(self.model.blocks), mesh)
         self.fused_chains = fused_chains
         self._compiled_shapes: set = set()
         self._coeff_steps: dict = {}
@@ -205,11 +266,34 @@ class InferenceEngine:
     def _probs(self, logits: torch.Tensor) -> torch.Tensor:
         return torch.sigmoid(logits) if self.multi_label else torch.softmax(logits, dim=-1)
 
+    def _top(self, logits: torch.Tensor):
+        scores, idx = torch.topk(self._probs(logits.float()), self._top_k(), dim=-1)
+        return idx, scores
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits of a preprocessed batch on the engine's device: the
+        pipeline under PP, else the folded model (the first position's copy)."""
+        if self._stages is not None:
+            return pipeline_vit_forward(self.model, x, self.mesh, self.pp_microbatches,
+                                        use_flash=True, stages=self._stages)
+        return self.model.apply_folded(x)
+
     @torch.inference_mode()
     def _step(self, canvas: torch.Tensor, sizes: torch.Tensor, fixed_size: bool = False):
-        logits = self.model.apply_folded(self._preprocess(canvas, sizes, fixed_size)).float()
-        scores, idx = torch.topk(self._probs(logits), self._top_k(), dim=-1)
-        return idx, scores
+        """The classify step of a batch already on the engine's device, on
+        the engine's device alone (pipelined under PP)."""
+        return self._top(self._forward(self._preprocess(canvas, sizes, fixed_size)))
+
+    @torch.inference_mode()
+    def _dispatch(self, canvas: np.ndarray, sizes: np.ndarray, fixed_size: bool = False):
+        """Enqueue the classify step of a padded host batch: over the mesh's
+        data groups where there is a mesh, else on the engine's device.
+        Returns (idx, scores) on the engine's device without waiting."""
+        if self._mesh_model is None:
+            return self._step(*self._to_device(canvas, sizes), fixed_size=fixed_size)
+        return self._mesh_model.map(
+            lambda group, c, s: self._top(group.apply_folded(self._preprocess(c, s, fixed_size))),
+            canvas, sizes)
 
     def bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -233,13 +317,10 @@ class InferenceEngine:
         for b in buckets or self.buckets:
             canvas = np.zeros((b, self.canvas, self.canvas, 3), np.uint8)
             sizes = np.full((b, 2), PAD_SIZE, np.int32)
-            staged = self._to_device(canvas, sizes)
-            idx, _ = self._step(*staged)
-            idx.cpu()
+            self._dispatch(canvas, sizes)[0].cpu()
             self._record_step((b, self.canvas), 0.0, b, record=False)
             if self.spec.resize_short == self.spec.image_size <= self.canvas:
-                idx, _ = self._step(*staged, fixed_size=True)
-                idx.cpu()
+                self._dispatch(canvas, sizes, fixed_size=True)[0].cpu()
                 self._record_step((b, self.canvas, "fixed"), 0.0, b, record=False)
             logger.info("warmed %s step for bucket %d", self.model_name, b)
 
@@ -258,7 +339,7 @@ class InferenceEngine:
         fixed_size = self._fixed_size(canvas, sizes)
         canvas, sizes, bucket = self._pad(canvas, sizes)
         t0 = time.perf_counter()
-        idx, scores = self._step(*self._to_device(canvas, sizes), fixed_size=fixed_size)
+        idx, scores = self._dispatch(canvas, sizes, fixed_size)
         shape_key = (bucket, canvas.shape[1]) + (("fixed",) if fixed_size else ())
 
         def resolve() -> tuple[np.ndarray, np.ndarray]:
@@ -272,6 +353,17 @@ class InferenceEngine:
     def predict_staged(self, canvas: np.ndarray, sizes: np.ndarray):
         """canvas uint8 [N<=bucket, C, C, 3] -> (top_idx, top_scores) [N, K]."""
         return self.predict_staged_async(canvas, sizes)()
+
+    def _require_no_pp(self, what: str) -> None:
+        """The TTA, explain and embed steps run the whole trunk on one
+        device: under pipeline parallelism the model by premise does not fit
+        one stage, so they refuse instead (as the coefficient step does)."""
+        if self.pp_microbatches:
+            raise RuntimeError(
+                f"{what} indisponível com pipeline parallelism "
+                "(TPU_PP_STAGES) — o passo roda o tronco inteiro "
+                "não-pipelinado em um device"
+            )
 
     # -- test-time augmentation ----------------------------------------------
     @torch.inference_mode()
@@ -290,6 +382,7 @@ class InferenceEngine:
         """Flip-averaged twin of ``predict_staged`` (twice the device work for
         steadier scores; asked for per request): canvas uint8 [N<=bucket, C,
         C, 3] -> (top_idx, top_scores) [N, K]."""
+        self._require_no_pp("TTA")
         n = canvas.shape[0]
         fixed_size = self._fixed_size(canvas, sizes)
         canvas, sizes, bucket = self._pad(canvas, sizes)
@@ -355,6 +448,7 @@ class InferenceEngine:
         in [0, 1]. ``smooth_samples`` quantizes up into
         ``EXPLAIN_SMOOTH_BUCKETS``; above 1 it is SmoothGrad over that many
         copies with noise drawn from ``seed``."""
+        self._require_no_pp("explicar (saliência)")
         n = self.quantize_smooth(smooth_samples)
         canvas, sizes = canvas[:1], sizes[:1]
         fixed_size = self._fixed_size(canvas, sizes)
@@ -368,13 +462,20 @@ class InferenceEngine:
     # -- the JPEG-coefficient (device decode) lanes ---------------------------
     def _get_coeff_step(self, mode: str = "420"):
         """The fused decode step of one sampling mode (coefficients in, top-k
-        out), made on first use."""
+        out), made on first use; over the mesh's data groups where there is
+        a mesh. Under PP it raises: the lanes would run the trunk unpipelined,
+        so the service decodes on the host instead."""
+        if self.pp_microbatches:
+            raise RuntimeError(
+                "decode-on-TPU indisponível com pipeline parallelism "
+                "(TPU_PP_STAGES) — o serviço usa decode no host"
+            )
         with self._lock:
             step = self._coeff_steps.get(mode)
             if step is None:
                 step = make_fused_decode_infer_step(
                     self.model, self.spec, dtype=self.dtype, top_k=self._top_k(),
-                    mode=mode, multi_label=self.multi_label,
+                    mode=mode, multi_label=self.multi_label, mesh=self._mesh_model,
                 )
                 self._coeff_steps[mode] = step
             return step
@@ -395,8 +496,11 @@ class InferenceEngine:
             staged["sizes"][n:] = 64
         step = self._get_coeff_step(mode)
         t0 = time.perf_counter()
-        dev = to_device(staged, self.device)
-        idx, scores = step(*(dev[k] for k in STAGED_KEYS))
+        if self._mesh_model is None:
+            dev = to_device(staged, self.device)
+            idx, scores = step(*(dev[k] for k in STAGED_KEYS))
+        else:
+            idx, scores = step(*(staged[k] for k in STAGED_KEYS))
         shape_key = ("coeff", mode, staged["y"].shape[1], bucket)
 
         def resolve() -> tuple[np.ndarray, np.ndarray]:
@@ -439,35 +543,38 @@ class InferenceEngine:
         return int(self.model.head.weight.shape[1])
 
     def _get_embed_model(self) -> torch.nn.Module:
-        """The folded model with ``head`` replaced by the identity: a shallow
-        copy that shares every parameter, buffer and module but the head.
-        Every model of the zoo ends its ``apply_folded`` with
-        ``self.head(feats)``, so the copy returns the penultimate features."""
+        """The folded model with ``head`` replaced by the identity
+        (``parallel.mesh.headless``), made on first use."""
         with self._lock:
             if self._embed_model is None:
-                model = copy.copy(self.model)
-                model._modules = dict(self.model._modules)
-                model.head = torch.nn.Identity()
-                self._embed_model = model
+                self._embed_model = headless(self.model)
             return self._embed_model
 
     @torch.inference_mode()
-    def _embed_step(self, canvas: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
+    def _embed_step(self, trunk: torch.nn.Module, canvas: torch.Tensor,
+                    sizes: torch.Tensor) -> torch.Tensor:
         x = preprocess_batch(
             canvas, sizes, out_size=self.spec.image_size,
             resize_short=self.spec.resize_short, dtype=self.dtype,
         )
-        feats = self._get_embed_model().apply_folded(x).float()
+        feats = trunk.apply_folded(x).float()
         norm = torch.linalg.vector_norm(feats, dim=-1, keepdim=True)
         return feats / torch.clamp(norm, min=1e-8)
 
     def embed_staged(self, canvas: np.ndarray, sizes: np.ndarray) -> np.ndarray:
         """canvas uint8 [N<=bucket, C, C, 3] -> L2-normalized features
-        [N, D] float32 (cosine similarity = plain dot product)."""
+        [N, D] float32 (cosine similarity = plain dot product); data
+        parallel over the mesh where there is one."""
+        self._require_no_pp("embeddings")
         n = canvas.shape[0]
         canvas, sizes, bucket = self._pad(canvas, sizes)
         t0 = time.perf_counter()
-        feats = self._embed_step(*self._to_device(canvas, sizes)).cpu().numpy()[:n]
+        if self._mesh_model is None:
+            feats = self._embed_step(self._get_embed_model(), *self._to_device(canvas, sizes))
+        else:
+            (feats,) = self._mesh_model.map(
+                lambda group, c, s: (self._embed_step(group.trunk, c, s),), canvas, sizes)
+        feats = feats.cpu().numpy()[:n]
         self._record_step(("embed", bucket, canvas.shape[1]),
                           (time.perf_counter() - t0) * 1000, n)
         return feats
@@ -483,7 +590,10 @@ class InferenceEngine:
             "buckets": list(self.buckets),
             "backend": self.device.type,
             "device_name": torch.cuda.get_device_name(self.device) if cuda else "cpu",
-            "devices": torch.cuda.device_count() if cuda else 1,
+            # a mesh-pinned engine (a hedged replica's too) reports its
+            # mesh's size, not the host's device count
+            "devices": (self.mesh.size if self.mesh is not None
+                        else torch.cuda.device_count() if cuda else 1),
             "fused_chains": self.fused_chains,
             "kernel_launches": launch_counts(),
             **stats,

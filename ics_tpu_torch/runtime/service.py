@@ -28,8 +28,12 @@ weights from the port's checkpoints (``get_trained``), the calibrated
 temperature folded into the head. Promoting a version evicts the older ones
 of the ambiente; they stop once their work in flight has drained.
 
-Not ported: hedged replicas (``TPU_SERVING_REPLICAS``). On one GPU a
-replica is a stream or a process of its own, which needs its own design.
+The engine's mesh comes from ``TPU_MESH_SHAPE`` / ``TPU_MESH_AXES`` /
+``TPU_PP_STAGES`` (``parallel.mesh.mesh_from_settings``), which refuses a
+shape the visible cards cannot hold; under pipeline parallelism the
+device-decode lanes are off (they would run the trunk unpipelined). With
+``replica_meshes`` the pool builds every model as a hedged service, one
+engine a replica mesh (``runtime.hedging``).
 """
 
 from __future__ import annotations
@@ -69,22 +73,15 @@ def warn_unserved_settings() -> None:
     """Say once, at warning level, each setting that the port takes and does
     not serve yet, so that a deployment that relies on one is not left to
     find out from its traffic."""
-    if settings.TPU_SERVING_REPLICAS > 1:
-        _warn_once("serving_replicas",
-                   f"TPU_SERVING_REPLICAS={settings.TPU_SERVING_REPLICAS}, but hedged "
-                   "replicas are not ported yet: one engine serves, without hedging")
-    if settings.get_mesh_shape() is not None:
-        _warn_once("mesh_shape",
-                   f"TPU_MESH_SHAPE={settings.TPU_MESH_SHAPE!r}, but the device mesh is "
-                   "not ported yet: the engine runs on one GPU")
-    if settings.TPU_PP_STAGES >= 2:
-        _warn_once("pp_stages",
-                   f"TPU_PP_STAGES={settings.TPU_PP_STAGES}, but pipeline parallelism is "
-                   "not ported yet: the whole model runs on one GPU")
+    if settings.TPU_COORDINATOR_ADDRESS.strip():
+        _warn_once("coordinator_address",
+                   f"TPU_COORDINATOR_ADDRESS={settings.TPU_COORDINATOR_ADDRESS!r}, but the "
+                   "multi-host initialisation is not ported yet (ROADMAP.md item 9b): this "
+                   "process serves on its own cards only")
     if settings.TPU_TRAIN_DEVICES.strip():
         _warn_once("train_devices",
                    f"TPU_TRAIN_DEVICES={settings.TPU_TRAIN_DEVICES!r}, but training on a "
-                   "device group of its own is not ported yet (ROADMAP.md item 9): the "
+                   "device group of its own is not ported yet (ROADMAP.md item 9b): the "
                    "fine-tuner runs on one GPU")
 
 
@@ -168,23 +165,47 @@ class InferenceService:
         return lane
 
     @classmethod
-    def from_settings(cls) -> "InferenceService":
-        """The serving engine and service the ``TPU_*`` settings describe."""
+    def from_settings(cls, **engine_overrides) -> "InferenceService":
+        """The serving engine and service the ``TPU_*`` settings describe, on
+        the mesh of ``mesh_from_settings`` (or the ``mesh`` override: a
+        hedged replica's pinned mesh). ``engine_overrides`` shrink the
+        engine for tests without going round the settings' mesh."""
+        from ics_tpu_torch.parallel.mesh import mesh_from_settings
+
         warn_unserved_settings()
-        engine = InferenceEngine(
+        if "mesh" in engine_overrides:
+            mesh = engine_overrides.pop("mesh")
+        else:
+            mesh = mesh_from_settings(settings)
+        if mesh is not None:
+            logger.info("serving mesh: %s", mesh.shape)
+        engine_kwargs = dict(
             model_name=settings.TPU_DEFAULT_MODEL,
             num_classes=settings.TPU_NUM_CLASSES,
             precision=settings.TPU_PRECISION,
             buckets=settings.get_batch_buckets(),
             canvas=settings.TPU_CANVAS,
             fused_chains=settings.TPU_FUSED_CHAINS,
+            mesh=mesh,
+            pp_microbatches=settings.TPU_PP_MICROBATCHES,
         )
+        engine_kwargs.update(engine_overrides)
+        engine = InferenceEngine(**engine_kwargs)
+        device_decode = settings.TPU_DEVICE_DECODE
+        if engine.pp_microbatches and device_decode:
+            # the device-decode lanes run the trunk unpipelined: a model big
+            # enough to need PP cannot serve that way, so PP decodes on the host
+            logger.info(
+                "pipeline parallelism ativo: decode-on-TPU desabilitado "
+                "(lanes de decode usariam o tronco não-pipelinado)"
+            )
+            device_decode = False
         return cls(
             engine,
             deadline_us=settings.TPU_BATCH_DEADLINE_US,
             max_deadline_us=settings.TPU_BATCH_MAX_DEADLINE_US,
             pipelined=settings.TPU_PIPELINED_FLUSH,
-            device_decode=settings.TPU_DEVICE_DECODE,
+            device_decode=device_decode,
         )
 
     # -- device-error resilience: one retry, then the error propagates -------
@@ -460,9 +481,11 @@ async def _drain_and_stop(service: InferenceService, grace_s: float = 30.0,
     (the pool's shutdown) cuts the wait short."""
     loop = asyncio.get_running_loop()
     deadline = loop.time() + grace_s
-    batchers = [service.batcher, *service.coeff_batchers.values()]
+    # a hedged service is a bundle of per-replica plain services
+    parts = getattr(service, "replicas", [service])
+    batchers = [b for p in parts for b in (p.batcher, *p.coeff_batchers.values())]
     while loop.time() < deadline and not (hurry and hurry.is_set()):
-        busy = service._inflight > 0 or service._incoming.value > 0 or any(
+        busy = any(p._inflight > 0 or p._incoming.value > 0 for p in parts) or any(
             not t.done() for b in batchers for t in b._resolve_tasks)
         if not busy:
             break
@@ -474,17 +497,23 @@ async def _drain_and_stop(service: InferenceService, grace_s: float = 30.0,
 class InferenceServicePool:
     """Per-model services created on first use; the default model serves
     ``/inferencia/classificar`` without ``?modelo=``, and trained versions
-    serve ``classificar-tpu`` and ``explicar`` (``get_trained``)."""
+    serve ``classificar-tpu`` and ``explicar`` (``get_trained``). With
+    ``replica_meshes`` (hedged serving) every model the pool builds is
+    hedged over one engine a replica mesh, as the default model is; else
+    its engines share ``engine_kwargs``' ``mesh``."""
 
     def __init__(self, default_model: str, deadline_us: int = 2000,
                  max_deadline_us: int = 50_000, pipelined: bool = True,
-                 device_decode: bool = True, **engine_kwargs):
+                 device_decode: bool = True, replica_meshes=None,
+                 hedge_ms: float = 250.0, **engine_kwargs):
         self.default_model = default_model
         self.device_decode = device_decode
         self.deadline_us = deadline_us
         self.max_deadline_us = max_deadline_us
         self.pipelined = pipelined
         self.engine_kwargs = engine_kwargs
+        self.replica_meshes = list(replica_meshes) if replica_meshes else None
+        self.hedge_ms = hedge_ms
         self._services: dict[str, InferenceService] = {}
         # one lock per key: a cold build of one model must not hold up another
         self._locks: dict[str, asyncio.Lock] = {}
@@ -503,12 +532,27 @@ class InferenceServicePool:
         return self._services.get(model_name)
 
     def _build_service(self, make_engine) -> InferenceService:
-        """A service around ``make_engine(engine_kwargs)``, the pool's settings."""
-        return InferenceService(
-            make_engine(dict(self.engine_kwargs)), deadline_us=self.deadline_us,
-            max_deadline_us=self.max_deadline_us, pipelined=self.pipelined,
-            device_decode=self.device_decode,
-        )
+        """A service around ``make_engine(engine_kwargs)`` with the pool's
+        settings; with replica meshes, one such service a replica mesh under
+        a ``HedgedInferenceService``. Under PP the device-decode lanes are
+        off, as ``InferenceService.from_settings`` has them."""
+
+        def one(mesh) -> InferenceService:
+            kwargs = dict(self.engine_kwargs)
+            kwargs["mesh"] = mesh
+            engine = make_engine(kwargs)
+            return InferenceService(
+                engine, deadline_us=self.deadline_us,
+                max_deadline_us=self.max_deadline_us, pipelined=self.pipelined,
+                device_decode=self.device_decode and not engine.pp_microbatches,
+            )
+
+        if self.replica_meshes and len(self.replica_meshes) >= 2:
+            from ics_tpu_torch.runtime.hedging import HedgedInferenceService
+
+            return HedgedInferenceService([one(m) for m in self.replica_meshes],
+                                          hedge_ms=self.hedge_ms)
+        return one(self.engine_kwargs.get("mesh"))
 
     async def _register(self, key: str, service: InferenceService) -> InferenceService:
         """Insert a service that was built and started, unless the pool

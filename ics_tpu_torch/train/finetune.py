@@ -15,7 +15,7 @@ chains have no backward, as the TPU kernels they replace have none: the
 ``FineTuner`` turns them off by name (``training_kernels``), as the
 reference trains ViT on its plain attention and ResNet unfolded. The sharded
 variants of the reference (a device mesh, sequence parallelism) are not
-ported (ROADMAP.md item 9).
+ported (ROADMAP.md item 9b).
 
 The numpy parts (metrics, calibration) are the reference's, unchanged in
 behaviour. ``fold_temperature`` works on the port's state dicts.
@@ -455,7 +455,7 @@ class FineTuner:
                  ema_decay: float = 0.0, grad_accum: int = 1, llrd: float = 0.0):
         if mesh is not None:
             raise ValueError("FineTuner: training on a device mesh (data or sequence "
-                             "parallelism) is not ported; see ROADMAP.md item 9")
+                             "parallelism) is not ported; see ROADMAP.md item 9b")
         self.model = model
         # per-block rematerialisation: the backward recomputes a block's
         # internals instead of keeping them. None leaves model.remat as it is

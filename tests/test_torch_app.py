@@ -132,6 +132,54 @@ async def test_routes_of_the_port(served):
     assert r.status_code == 200 and "/inferencia/classificar" in r.json()["paths"]
 
 
+@pytest.mark.anyio
+async def test_routes_of_a_hedged_service(tmp_path):
+    """The twin of the warmup check above with a hedged service of two CPU
+    replicas in the app: ``/inferencia/warmup`` warms both and answers 2, as
+    the reference's route does; ``/monitor/status`` carries ``hedging``,
+    which the dashboard's "Hedging / réplicas" table reads; the metrics carry
+    the hedging gauges."""
+    from ics_tpu_torch.main import create_app
+    from ics_tpu_torch.parallel.mesh import make_mesh
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+    from ics_tpu_torch.runtime.hedging import HedgedInferenceService
+    from ics_tpu_torch.runtime.service import InferenceService, InferenceServicePool
+
+    meshes = [make_mesh((1,), ("data",), devices=["cpu"]) for _ in range(2)]
+    kwargs = dict(num_classes=10, precision="fp32", buckets=(1, 4), canvas=64)
+    service = HedgedInferenceService([
+        InferenceService(InferenceEngine("vit_tiny", mesh=m, **kwargs),
+                         deadline_us=20_000, device_decode=False) for m in meshes])
+    await service.start()
+    app = create_app(db=Database(f"sqlite:///{tmp_path}/hedged_app.db"))
+    app.state.engine = service
+    app.state.engine_pool = InferenceServicePool("vit_tiny", device_decode=False,
+                                                 replica_meshes=meshes, **kwargs)
+    app.state.engine_pool.add("vit_tiny", service)
+    await app.startup()
+    client = httpx.AsyncClient(transport=httpx.ASGITransport(app=app), base_url="http://test")
+    try:
+        h = await _admin(client)
+        r = await client.post("/inferencia/warmup", headers=h)
+        assert r.status_code == 200 and r.json()["replicas"] == 2
+        assert r.json()["buckets"] == [1, 4]
+        for part in service.replicas:
+            assert {(1, 64), (4, 64)} <= part.engine._compiled_shapes
+        files = [("files", (f"img{i}.jpg", _jpeg(i), "image/jpeg")) for i in range(2)]
+        r = await client.post("/inferencia/classificar", files=files, headers=h)
+        assert r.status_code == 200 and r.json()["total"] == 2
+        tpu = (await client.get("/monitor/status", headers=h)).json()["tpu"]
+        assert tpu["serving_replicas"] == 2 and tpu["images"] == 2
+        assert tpu["hedging"] == {"hedges_fired": 0, "hedges_won": 0,
+                                  "hedge_failures": 0, "input_errors": 0}
+        metrics = (await client.get("/monitor/metrics")).text
+        assert "tpu_hedges_fired 0" in metrics and "tpu_serving_replicas 2" in metrics
+    finally:
+        await client.aclose()
+        await app.shutdown()
+        await service.stop()
+
+
 @pytest.fixture()
 def public_dev_models():
     """One dev-size model per new family, registered at 64 px as public
@@ -363,18 +411,21 @@ async def test_modelo_that_cannot_be_built_answers_422(served, monkeypatch, erro
 
 
 _UNSERVED = {
-    "TPU_SERVING_REPLICAS": ("2", "TPU_SERVING_REPLICAS"),
-    "TPU_MESH_SHAPE": ("2,1", "TPU_MESH_SHAPE"),
-    "TPU_PP_STAGES": ("2", "TPU_PP_STAGES"),
     "TPU_TRAIN_DEVICES": ("1,2", "TPU_TRAIN_DEVICES"),
+    "TPU_COORDINATOR_ADDRESS": ("10.0.0.1:8476", "TPU_COORDINATOR_ADDRESS"),
 }
 # served since the sync engine, classify-on-sync and the embed step were
 # ported (NEXTCLOUD_BASE_URL with TPU_CLASSIFY_ON_SYNC at its default, on),
-# and restart segments on worker threads: taken with no notice
+# restart segments on worker threads, and the device mesh, the pipeline and
+# hedged replicas: taken with no notice (too few cards is refused where the
+# engine is built, with the reference's messages)
 _SERVED = {
     "TPU_EMBED_ON_SYNC": "true",
     "NEXTCLOUD_BASE_URL": "https://cloud.example.com",
     "TPU_DECODE_THREADS": "4",
+    "TPU_SERVING_REPLICAS": "2",
+    "TPU_MESH_SHAPE": "2,1",
+    "TPU_PP_STAGES": "2",
 }
 
 
@@ -431,7 +482,7 @@ async def test_lifespan_says_unserved_settings_before_the_engine_is_built(
 
     monkeypatch.setattr(service_mod, "_warned", set())
     reload_settings(TPU_ENABLE_INFERENCE="true", TPU_DEFAULT_MODEL="no_such_model",
-                    TPU_SERVING_REPLICAS="3", TPU_DEVICE_DECODE="false")
+                    TPU_TRAIN_DEVICES="0:1", TPU_DEVICE_DECODE="false")
     try:
         app = create_app(db=Database(f"sqlite:///{tmp_path}/warn.db"))
         with caplog.at_level(logging.WARNING, logger=service_mod.__name__):
@@ -439,7 +490,7 @@ async def test_lifespan_says_unserved_settings_before_the_engine_is_built(
                 await app.startup()
     finally:
         reload_settings()
-    assert any("TPU_SERVING_REPLICAS=3" in r.getMessage() for r in caplog.records)
+    assert any("TPU_TRAIN_DEVICES='0:1'" in r.getMessage() for r in caplog.records)
 
 
 # ---- the serving extras against the reference's app on the same database -----------------

@@ -1362,3 +1362,124 @@ def test_a_job_trains_on_the_card_beside_serving(cuda_device, tmp_path):
                               canvas=64, device=cuda_device, state_dict=state)
     idx, scores = trained.predict_staged(canvas, sizes)
     assert np.isfinite(scores).all() and set(np.asarray(idx).ravel()) <= {0, 1}
+
+
+# ---- multi-device serving: meshes of cuda positions ------------------------------------
+# On a one-card machine every position below names cuda:0, each on a stream of
+# its own; the chunks, the hand-offs and the gathers run as on distinct cards.
+
+def _launch_every_kernel(device):
+    """One call of each kernel entry on ``device``, on small shapes."""
+    g = torch.Generator().manual_seed(0)
+    rand = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    q = rand(1, 2, 64, 64).bfloat16().to(device)
+    attention.flash_attention(q, q, q)
+    normalize.normalize_u8(torch.randint(0, 256, (1, 16, 16, 3), dtype=torch.uint8,
+                                         generator=g).to(device))
+    bottleneck.bottleneck_chain(rand(1, 8, 8, 256).bfloat16().to(device),
+                                make_chain(1, 256, 64, 0, device))
+    x, w = rand(1, 8, 8, 16).to(device), rand(3, 3, 16).to(device)
+    depthwise.depthwise_conv(x, w)
+    depthwise.depthwise_conv_dw(x, x, 3)
+    xg = x.clone().requires_grad_()
+    torch.autograd.grad(depthwise.depthwise_conv(xg, w).sum(), xg)       # depthwise_conv_dx
+    window_attention.window_attention(*_window_inputs(2, 2, 16, 16, 0, torch.float32, device))
+    qkv, dout, table, index, mask = _window_call(device, 2, 16, 2, 16, 4, 2, torch.float32)
+    window_attention.window_attention_qkv_bwd(qkv, dout, table, index, mask, 4, 2, 0.25,
+                                              with_table=True)
+
+
+@pytest.mark.cuda
+def test_no_kernel_changes_the_callers_current_device(cuda_device):
+    """Every kernel's C entry launches on its tensors' device and gives the
+    caller's current device back. On a one-card machine the current device
+    is 0 before and after whatever the entries do, so the fault this holds
+    against (a launch on cuda:1 leaving cuda:1 current) shows only where
+    there are two cards or more."""
+    from ics_tpu_torch import get_device
+
+    before = {name: c.value for name, c in LAUNCHES.items()}
+    for index in range(torch.cuda.device_count()):
+        torch.cuda.set_device(0)
+        _launch_every_kernel(torch.device("cuda", index))
+        torch.cuda.synchronize(index)
+        assert torch.cuda.current_device() == 0
+        assert get_device() == torch.device("cuda", 0) == get_device("cuda")
+    launched = {name for name, c in LAUNCHES.items() if c.value > before[name]}
+    assert launched >= {"flash_attention", "normalize_u8", "bottleneck_chain", "depthwise_conv",
+                        "depthwise_conv_dw", "depthwise_conv_dx", "window_attention",
+                        "window_attention_bwd", "window_attention_dtable"}
+
+
+def _cuda_mesh(shape, axes):
+    from ics_tpu_torch.parallel.mesh import make_mesh
+
+    n = int(np.prod(shape))
+    count = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(n)] if count >= n else ["cuda:0"] * n
+    return make_mesh(shape, axes, devices=devices)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,axes", [((2,), ("data",)), ((1, 2), ("data", "model")),
+                                        ((2, 2), ("data", "model"))])
+def test_mesh_engine_on_the_card_matches_the_single_engine(cuda_device, shape, axes):
+    """fp32 with TF32 off: the chunks' GEMMs and convolutions may take other
+    plans than the whole batch's (another summation order only), so the top-5
+    is equal and the scores agree within atol 1e-5, rtol 1e-4; the same mesh
+    run twice gives the same bits."""
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+
+    kw = dict(num_classes=1000, precision="fp32", buckets=(8,), canvas=256, seed=0)
+    single = InferenceEngine("resnet50", device=cuda_device, **kw)
+    mesh = InferenceEngine("resnet50", mesh=_cuda_mesh(shape, axes), **kw)
+    assert mesh.device.index is not None and mesh.status()["devices"] == int(np.prod(shape))
+    canvas = np.random.default_rng(0).integers(0, 256, (7, 256, 256, 3), np.uint8)
+    sizes = np.full((7, 2), 240, np.int32)
+    want = single.predict_staged(canvas, sizes)
+    got = mesh.predict_staged(canvas, sizes)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], atol=1e-5, rtol=1e-4)
+    again = mesh.predict_staged(canvas, sizes)
+    assert all(np.array_equal(a, b) for a, b in zip(again, got))
+    feats = mesh.embed_staged(canvas, sizes)
+    np.testing.assert_allclose(feats, single.embed_staged(canvas, sizes), atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_dp_step_runs_the_chain_kernel_once_a_position(cuda_device):
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+
+    kw = dict(num_classes=1000, precision="bf16", buckets=(8,), canvas=256, seed=0,
+              fused_chains=True)
+    engine = InferenceEngine("resnet50", mesh=_cuda_mesh((2,), ("data",)), **kw)
+    canvas = np.random.default_rng(1).integers(0, 256, (8, 256, 256, 3), np.uint8)
+    sizes = np.full((8, 2), 256, np.int32)
+    engine.predict_staged(canvas, sizes)
+    before = LAUNCHES["bottleneck_chain"].value
+    idx, _ = engine.predict_staged(canvas, sizes)
+    assert LAUNCHES["bottleneck_chain"].value == before + 5 * 2
+    single_idx, _ = InferenceEngine("resnet50", device=cuda_device, **kw).predict_staged(
+        canvas, sizes)
+    np.testing.assert_array_equal(idx[:, 0], single_idx[:, 0])
+
+
+@pytest.mark.cuda
+def test_pipeline_on_the_card_runs_the_flash_kernel_in_every_stage(cuda_device):
+    """vit_tiny (8 blocks, head_dim 16) over 2 stages and 4 microbatches, fp32:
+    one flash launch a block and microbatch; the answers of the unpipelined
+    engine within atol 1e-5, rtol 1e-4."""
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+
+    kw = dict(num_classes=10, precision="fp32", buckets=(8,), canvas=64, seed=2)
+    pp = InferenceEngine("vit_tiny", mesh=_cuda_mesh((2,), ("pp",)), pp_microbatches=4, **kw)
+    single = InferenceEngine("vit_tiny", device=cuda_device, **kw)
+    canvas = np.random.default_rng(2).integers(0, 256, (8, 64, 64, 3), np.uint8)
+    sizes = np.full((8, 2), 60, np.int32)
+    pp.predict_staged(canvas, sizes)
+    before = LAUNCHES["flash_attention"].value
+    got = pp.predict_staged(canvas, sizes)
+    assert LAUNCHES["flash_attention"].value == before + 8 * 4
+    want = single.predict_staged(canvas, sizes)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], atol=1e-5, rtol=1e-4)
