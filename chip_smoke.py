@@ -159,7 +159,10 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    off and on, with the peak memory and a profile of one step. (e) The two
    new kernels against their plain versions at every call of a bucket-32
    ConvNeXt-T and Swin-T step (and the taps at EfficientNet-B4's and
-   MobileNetV3-Small's calls), timed beside their bounds and yardsticks.
+   MobileNetV3-Small's calls), timed beside their bounds and yardsticks, each
+   call with its kernel/library factor; the taps gradient also timed at
+   EfficientNet-B4's 28 and MobileNetV3-Small's 7 k 3/5 calls beside
+   ``conv2d_weight`` (in the log; the kernels line keeps ConvNeXt-T's).
 10. The job surface on the card: one ``python -m ics_tpu_torch.main``
    (ResNet-50, fused chains, bf16, the pixel lane) with the job manager's
    bytes read from the fake NextCloud as a program over TCP
@@ -2451,7 +2454,7 @@ def check_ingestion(torch) -> int:
 
 # phase 8: the serving extras
 BWD_FP32_TOL = 1e-4   # largest |error| over max|ref|: fp32 sums in another order
-BWD_BF16_TOL = 2e-2   # the plain version rounds dP, dq and dk to bf16 where the kernel does not
+BWD_BF16_TOL = 2e-2   # the plain version rounds dP, dq and dk to bf16, the kernel dS and P
 EXPLAIN_FP32_TOL = 1e-3
 EXPLAIN_BF16_COSINE = 0.99
 SMOOTH = 16           # the SmoothGrad batch the backward passes are timed at
@@ -2625,6 +2628,10 @@ def time_backward(torch, window_attention, depthwise) -> dict:
                            ("bound_ms", case["bound_ms"])):
             total[key] += count * value
         by.add(case["bound_by"])
+    log(f"  window_attention_qkv_bwd, {SWIN}'s 12 calls at n = {SMOOTH}: kernel "
+        f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, SDPA's backward "
+        f"{total['library_ms']:.4f} ms, kernel/SDPA {total['ms'] / total['library_ms']:.2f}, "
+        f"bound {total['bound_ms']:.4f} ms")
     out["window_attention_qkv_bwd"] = {
         **total, "bound_by": "operations" if "operations" in by else "bytes"}
 
@@ -3478,13 +3485,19 @@ def check_param_grads(torch, depthwise, window_attention) -> tuple:
                      BF16_FLOPS)
         log(f"    conv2d_weight(groups=C) channels_last (yardstick only, taps alone) {lib:.4f} "
             f"ms; bound {case['bound_ms']:.4f} ms by {case['bound_by']}; x{count} a step; "
-            f"{depthwise.dw_grad_rows(*shape[:2], c)} rows a block")
+            f"kernel/conv2d_weight {ms / lib:.2f}; (tile_w, rows, runs) "
+            f"{_dw_plan(torch, depthwise, shape, k)}")
         for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib),
                            ("bound_ms", case["bound_ms"])):
             total[key] += count * value
         by.add(case["bound_by"])
+    log(f"  depthwise_conv_dw, {CONVNEXT}'s 18 calls at batch {FT_BATCH}: kernel "
+        f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, conv2d_weight "
+        f"{total['library_ms']:.4f} ms, kernel/conv2d_weight "
+        f"{total['ms'] / total['library_ms']:.2f}, bound {total['bound_ms']:.4f} ms")
     times = {"depthwise_conv_dw": {**total,
-                                   "bound_by": "operations" if "operations" in by else "bytes"}}
+                                   "bound_by": "operations" if "operations" in by else "bytes"},
+             "depthwise_conv_dw_k35": time_depthwise_dw_k35(torch, depthwise)}
 
     total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     by = set()
@@ -3522,18 +3535,78 @@ def check_param_grads(torch, depthwise, window_attention) -> tuple:
         n_bytes = 7 * qkv[..., 0, :, :].numel() * 2 + call["table"].numel() * 4 * 2 \
             + ww * ww * 2 + (0 if call["mask"] is None else call["mask"].numel() * 4)
         case = bound(n_bytes, 12.0 * ww * ww * hd * items, BF16_FLOPS)
+        groups = window_attention._plan_backward(
+            qkv.dtype, hd, window, call["table"].shape[0], items // heads, heads, call["mask"],
+            torch.cuda.current_device())
         log(f"    the table's gradient adds {ms - without:.4f} ms to the backward; SDPA backward "
             f"with a mask that requires grad, a CUDA graph (yardstick only) {lib:.4f} ms; bound "
-            f"{case['bound_ms']:.4f} ms by {case['bound_by']}; x{count} a step; "
-            f"{window_attention.table_groups(items // heads, heads)} groups a head")
+            f"{case['bound_ms']:.4f} ms by {case['bound_by']}; x{count} a step; kernel/SDPA "
+            f"{ms / lib:.2f}; {groups} blocks a head")
         for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib),
                            ("bound_ms", case["bound_ms"])):
             total[key] += count * value
         by.add(case["bound_by"])
+    log(f"  window_attention_qkv_bwd with the table, {SWIN}'s 12 calls at batch {FT_BATCH}: "
+        f"kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, SDPA's backward "
+        f"{total['library_ms']:.4f} ms, kernel/SDPA {total['ms'] / total['library_ms']:.2f}, "
+        f"bound {total['bound_ms']:.4f} ms")
     times["window_attention_dtable"] = {
         **total, "bound_by": "operations" if "operations" in by else "bytes"}
     torch.cuda.empty_cache()
     return worst, times
+
+
+def _dw_plan(torch, depthwise, shape, k) -> tuple:
+    """(tile_w, rows, runs) the taps gradient's planner gives a bf16 call on this card."""
+    resident = depthwise._dw_resident(0, k, depthwise.dw_grad_tile(shape[2]),
+                                      torch.cuda.current_device())
+    return depthwise.dw_grad_plan(*shape, resident)
+
+
+def time_depthwise_dw_k35(torch, depthwise) -> dict:
+    """Phase 9e: the taps and bias gradient at the k 3 and k 5 calls of a
+    bucket-32 step, EfficientNet-B4's 28 and MobileNetV3-Small's 7, bf16, in
+    turns with the plain version, beside ``torch.nn.grad.conv2d_weight`` with
+    ``groups=C`` on channels_last and the bound (x and dy read, dtaps and dbias
+    written once, or 2 k^2 operations a value at the bf16 peak, as the k 7
+    row). Not an entry of the kernels line (the same kernel as
+    ``depthwise_conv_dw``): its row is in the log."""
+    from ics_tpu_torch.tools.bench_depthwise import depthwise_calls
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "launches": 0}
+    by = set()
+    for model in (EFFICIENTNET, MOBILENET):
+        step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "launches": 0}
+        for (shape, k, _), count in sorted(depthwise_calls(model, FT_BATCH).items()):
+            c = shape[-1]
+            g = torch.Generator().manual_seed(k + c)
+            x, dy = (torch.randn(shape, generator=g).to(torch.bfloat16).to(DEVICE)
+                     for _ in range(2))
+            ms, plain_ms = in_turns(f"depthwise_conv_dw {list(shape)} k={k} bf16 ({model})",
+                                    lambda: depthwise.depthwise_conv_dw(x, dy, k),
+                                    lambda: depthwise.depthwise_dw_reference(x, dy, k), iters=10)
+            x_nchw, dy_nchw = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)   # channels_last
+            lib = library_ms(lambda: torch.nn.grad.conv2d_weight(
+                x_nchw, (c, 1, k, k), dy_nchw, padding=k // 2, groups=c), iters=10)
+            case = bound(2 * x.numel() * 2 + (k * k + 1) * c * 4, 2.0 * k * k * x.numel(),
+                         BF16_FLOPS)
+            log(f"    conv2d_weight(groups=C) (yardstick only) {lib:.4f} ms; bound "
+                f"{case['bound_ms']:.4f} ms by {case['bound_by']}; x{count} a step; "
+                f"kernel/conv2d_weight {ms / lib:.2f}; (tile_w, rows, runs) "
+                f"{_dw_plan(torch, depthwise, shape, k)}")
+            for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib),
+                               ("bound_ms", case["bound_ms"])):
+                step[key] += count * value
+            step["launches"] += count
+            by.add(case["bound_by"])
+        log(f"  depthwise_conv_dw k 3/5, {model}: {step['launches']} launches a step at batch "
+            f"{FT_BATCH}: kernel {step['ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, "
+            f"conv2d_weight {step['library_ms']:.4f} ms, kernel/conv2d_weight "
+            f"{step['ms'] / step['library_ms']:.2f}, bound {step['bound_ms']:.4f} ms")
+        for key in total:
+            total[key] += step[key]
+    log(f"  depthwise_conv_dw k 3/5, both models: {json.dumps(total)}")
+    return {**total, "bound_by": "operations" if "operations" in by else "bytes"}
 
 
 def check_finetune(torch, depthwise, window_attention, card: str) -> tuple:

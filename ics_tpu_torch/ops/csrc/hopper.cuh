@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the port's kernels, in PTX: mbarriers, TMA
-// loads, the wgmma descriptors and instructions, ldmatrix, cp.async, and the
-// host's way to cuTensorMapEncodeTiled.
+// loads, the wgmma descriptors and instructions, ldmatrix, cp.async, and on the
+// host the way to cuTensorMapEncodeTiled and the occupancy of a kernel.
 
 #pragma once
 
@@ -8,6 +8,10 @@
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 namespace ics {
 
@@ -167,6 +171,16 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool 
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of the committed cp.async groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // one box of a 2-d or 3-d tensor map into shared memory, as tma_load_4d
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1) {
@@ -227,6 +241,26 @@ inline EncodeTiled encode_tiled() {
                   : nullptr;
   }();
   return fn;
+}
+
+// Blocks of a kernel that fit the card at once at a block size and a shared-memory size:
+// asked once, then kept; 0 if the runtime cannot say.
+inline int resident_blocks(const void* kernel, int threads, int smem, int device) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int, int>, int> known;
+  const auto key = std::make_tuple(kernel, threads, smem, device);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto found = known.find(key);
+  if (found != known.end()) return found->second;
+  int per_sm = 0;
+  int sms = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) {
+    return 0;
+  }
+  known.emplace(key, per_sm * sms);
+  return per_sm * sms;
 }
 
 }  // namespace ics

@@ -62,25 +62,16 @@
 // (window, head), one thread a query row, with the same address map.
 
 #include <cmath>
-#include <map>
-#include <mutex>
-#include <tuple>
 
-#include "hopper.cuh"
-#include "mma_frag.cuh"
+#include "window_tile.cuh"
 #include "device_guard.cuh"
 
 namespace {
 
 using namespace ics;
+using namespace ics::window;
 using bf16 = __nv_bfloat16;
 
-constexpr int kMaxTokens = 64;   // tokens a window may have
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;          // bf16 of padding per row of q, k, v
-constexpr float kNegInf = -1e30f;
-constexpr int kMaxSmem = 232448;  // what a block may ask for on sm_90
 constexpr int kMaxDevices = 64;
 
 // Where the tokens of a window lie, and what an item is.
@@ -109,87 +100,6 @@ struct Params {
   int ld_idx;                 // row stride of the index, elements
   int index_bytes, stage_bytes, table_off, mask_off;
 };
-
-struct Window {
-  int b, wy, wx, mask_w;
-};
-
-__device__ __forceinline__ Window window_of(const Params& p, int n) {
-  Window w;
-  w.b = n / p.nw_img;
-  const int local = n - w.b * p.nw_img;
-  w.wy = local / p.nwx;
-  w.wx = local - w.wy * p.nwx;
-  w.mask_w = n % p.n_mask;
-  return w;
-}
-
-// offset (elements, before the head) of token (i, j) of a window, by the given strides
-__device__ __forceinline__ long long token_offset(const Params& p, const Window& w, int i, int j,
-                                                  long long sb, long long sy, long long sx) {
-  int y = w.wy * p.wh + i + p.shift;
-  int x = w.wx * p.wwid + j + p.shift;
-  y -= y >= p.gy ? p.gy : 0;
-  x -= x >= p.gx ? p.gx : 0;
-  return w.b * sb + y * sy + x * sx;
-}
-
-__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
-}
-
-// the first `bytes` (0 to 16) of a 16-byte piece, the rest zeros
-__device__ __forceinline__ void cp_async_16_part(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// e / l correctly rounded, as the plain version divides, from r = 1 / l
-// correctly rounded (one division a row): q = e r, then q + (e - q l) r with
-// the remainder exact in a fused multiply-add (Markstein). The compiler's
-// division would take its slow path on every e = 0, a key past ww or cut by
-// the mask.
-__device__ __forceinline__ float divide(float e, float r, float l) {
-  const float q = __fmul_rn(e, r);
-  return __fmaf_rn(__fmaf_rn(-q, l, e), r, q);
-}
-
-// e^(s - m) as ex2.approx(s log2(e) - m log2(e)): __expf's instruction, with
-// the subtraction folded into one multiply-add
-__device__ __forceinline__ float exp_minus(float s, float m_log2e) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(__fmaf_rn(s, 1.4426950408889634f, -m_log2e)));
-  return y;
-}
-
-// rows of q, k and v a head takes in a stage: the keys of KT tiles of 8,
-// rounded up to whole k16 steps of P.V
-template <int KT>
-__host__ __device__ constexpr int stage_rows() {
-  return (KT * 8 + 15) / 16 * 16;
-}
-
-// rows of a window a thread stages: row tid / (D / 8) + k * kThreads / (D / 8)
-template <int D>
-__host__ __device__ constexpr int row_passes() {
-  return (kMaxTokens * (D / 8) + kThreads - 1) / kThreads;
-}
-
-// where a window's mask starts in its stage: the [ww, ww] block is staged as
-// the 16-byte pieces that hold it, so it starts `delta` floats into the first
-__device__ __forceinline__ int mask_delta(const Params& p, int mask_w) {
-  return (mask_w * p.ww * p.ww) & 3;
-}
 
 // Starts the copies of one item into a stage: q, k and v rows of its heads,
 // their table columns, its window's mask. Nothing waits here. `ti`, `tj`:
@@ -231,17 +141,7 @@ __device__ __forceinline__ void load_item(const Params& p, int item, uint32_t st
       cp_async_4(table_dst + (hh * p.t_rows + j) * 4, col + j * p.t_row);
     }
   }
-  if (p.mask != nullptr) {
-    // the 16-byte pieces that hold the window's block (the mask is 16-byte aligned)
-    const long long first = static_cast<long long>(w.mask_w) * p.ww * p.ww;  // floats
-    const float* start = p.mask + (first & ~3LL);
-    const int floats = mask_delta(p, w.mask_w) + p.ww * p.ww;
-    const uint32_t mask_dst = stage_base + p.mask_off;
-    for (int i = tid; i * 4 < floats; i += kThreads) {
-      const int left = floats - i * 4;
-      cp_async_16_part(mask_dst + i * 16, start + i * 4, left < 4 ? left * 4 : 16);
-    }
-  }
+  if (p.mask != nullptr) load_mask(p.mask, p.ww, w.mask_w, stage_base + p.mask_off, tid);
 }
 
 // One item from its stage: each warp takes 16 query rows of one head at a time.
@@ -264,7 +164,7 @@ __device__ __forceinline__ void compute_item(const Params& p, int item, uint8_t*
   const short* index_s = reinterpret_cast<const short*>(smem_raw);
   const bool masked = p.mask != nullptr;
   const float* mask_s = reinterpret_cast<const float*>(stage + p.mask_off) +
-                        (masked ? mask_delta(p, n % p.n_mask) : 0);
+                        (masked ? mask_delta(ww, n % p.n_mask) : 0);
   const int ld = p.ld_idx;
 
   for (int task = warp; task < p.head_group * row_tiles; task += kWarps) {
@@ -277,120 +177,32 @@ __device__ __forceinline__ void compute_item(const Params& p, int item, uint8_t*
 
     // Q, scaled in fp32 and rounded as the caller's q * scale
     uint32_t qf[D / 16][4];
+    load_rows_a<D>(qf, q_s, rt, lane);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int r = rt * 16 + (lane & 15);
-      const int col = kk * 16 + (lane >> 4) * 8;
-      ldmatrix_x4(qf[kk], q_s + (r * LD + col) * 2);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qf[kk][i]));
-        qf[kk][i] = pack_f32(__fmul_rn(f.x, p.scale), __fmul_rn(f.y, p.scale));
-      }
-    }
+    for (int kk = 0; kk < D / 16; ++kk) scale_bf16(qf[kk], p.scale);
 
-    // S = Q K^T, 16 rows x 8 KT keys; one ldmatrix.x4 brings the B fragments
-    // of two 8-key tiles for one k16 step
+    // S = Q K^T, 16 rows x 8 KT keys, then the softmax's numerators and row sums
     float s[KT][4];
 #pragma unroll
     for (int nt = 0; nt < KT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int np = 0; np < PT; ++np) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t kb[4];
-        const int r = (2 * np + (lane >> 4)) * 8 + (lane & 7);
-        const int col = kk * 16 + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(kb, k_s + (r * LD + col) * 2);
-        mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
-        if (2 * np + 1 < KT) mma_bf16(s[(2 * np + 1) % KT], qf[kk], kb[2], kb[3]);
-      }
-    }
+    product_abt<D, KT>(s, qf, k_s, lane);
+    float l[2], rl[2];
+    softmax_exp<KT>(s, rt, lane, ww, index_s, ld, tb, mask_s, masked, l, rl);
 
-    // + bias, then + mask, on real (row, key) pairs; keys past ww at -inf;
-    // row max
-    float m[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = rt * 16 + g + half * 8;
-      const int rr = r < ww ? r : ww - 1;   // a row past ww reads a real one, then drops it
-      const short* idx_row = index_s + rr * ld;
-      const float* mask_row = mask_s + rr * ww;
-#pragma unroll
-      for (int nt = 0; nt < KT; ++nt) {
-        const int key = nt * 8 + t * 2;
-        const uint32_t ip = *reinterpret_cast<const uint32_t*>(idx_row + key);
-        float v0 = s[nt][half * 2] + tb[ip & 0xffffu];
-        float v1 = s[nt][half * 2 + 1] + tb[ip >> 16];
-        if (masked) {
-          v0 += mask_row[key];
-          v1 += mask_row[key + 1];
-        }
-        v0 = r < ww ? (key < ww ? v0 : kNegInf) : 0.f;       // a row past ww: finite, dropped
-        v1 = r < ww ? (key + 1 < ww ? v1 : kNegInf) : 0.f;
-        s[nt][half * 2] = v0;
-        s[nt][half * 2 + 1] = v1;
-        m[half] = fmaxf(m[half], fmaxf(v0, v1));
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
-      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
-    }
-
-    // exp and row sum; p = 0 on keys past ww
-    const float ml[2] = {m[0] * 1.4426950408889634f, m[1] * 1.4426950408889634f};
-    float l[2] = {0.f, 0.f};
+    // P = exp / sum, rounded to bf16 as the A fragments of P.V
 #pragma unroll
     for (int nt = 0; nt < KT; ++nt) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bool ok = nt * 8 + t * 2 + j < ww;
-        s[nt][j] = ok ? exp_minus(s[nt][j], ml[0]) : 0.f;
-        s[nt][2 + j] = ok ? exp_minus(s[nt][2 + j], ml[1]) : 0.f;
-        l[0] += s[nt][j];
-        l[1] += s[nt][2 + j];
-      }
+      for (int j = 0; j < 4; ++j) s[nt][j] = divide(s[nt][j], rl[j >> 1], l[j >> 1]);
     }
-    float rl[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-      rl[i] = 1.f / l[i];
-    }
-
-    // P = exp / sum, rounded to bf16: the S accumulators of two neighbouring
-    // key tiles are exactly the A fragment of one k16 step (an odd KT's last
-    // step takes zeros for its second tile)
     uint32_t pf[PT][4];
-#pragma unroll
-    for (int nt = 0; nt < 2 * PT; ++nt) {
-      const int st = nt < KT ? nt : 0;
-      pf[nt / 2][(nt & 1) * 2] = nt < KT ? pack_f32(divide(s[st][0], rl[0], l[0]),
-                                                    divide(s[st][1], rl[0], l[0])) : 0u;
-      pf[nt / 2][(nt & 1) * 2 + 1] = nt < KT ? pack_f32(divide(s[st][2], rl[1], l[1]),
-                                                        divide(s[st][3], rl[1], l[1])) : 0u;
-    }
+    pack_a<KT>(pf, s);
 
-    // O = P V; one ldmatrix.x4.trans brings the B fragments of two 8-wide
-    // blocks of D for one k16 step of keys
+    // O = P V
     float o[D / 8][4];
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < PT; ++kc) {
-#pragma unroll
-      for (int dt = 0; dt < D / 8; dt += 2) {
-        uint32_t vb[4];
-        const int r = kc * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
-        const int col = (dt + (lane >> 4)) * 8;
-        ldmatrix_x4_trans(vb, v_s + (r * LD + col) * 2);
-        mma_bf16(o[dt], pf[kc], vb[0], vb[1]);
-        mma_bf16(o[dt + 1], pf[kc], vb[2], vb[3]);
-      }
-    }
+    product_ab<D, PT>(o, pf, v_s, lane);
 
     // the 16 output rows through this warp's own Q rows, then 16-byte stores
     bf16* out_s = reinterpret_cast<bf16*>(stage + (hh * 3) * ROWS * LD * 2) + rt * 16 * LD;
@@ -555,25 +367,6 @@ window_f32_kernel(const Params p) {
 
 // ---- host side ------------------------------------------------------------------------------
 
-// Blocks of a kernel that fit the card at a shared-memory size: asked once, then kept.
-int resident_blocks(const void* kernel, int smem, int device) {
-  static std::mutex mu;
-  static std::map<std::tuple<const void*, int, int>, int> known;
-  const auto key = std::make_tuple(kernel, smem, device);
-  std::lock_guard<std::mutex> lock(mu);
-  const auto found = known.find(key);
-  if (found != known.end()) return found->second;
-  int per_sm = 0;
-  int sms = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) !=
-          cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) {
-    return 0;
-  }
-  known.emplace(key, per_sm * sms);
-  return per_sm * sms;
-}
-
 template <int D, int KT>
 cudaError_t launch_bf16(const Params& p, cudaStream_t stream, int device) {
   auto kernel = window_bf16_kernel<D, KT>;
@@ -588,7 +381,8 @@ cudaError_t launch_bf16(const Params& p, cudaStream_t stream, int device) {
     if (err != cudaSuccess) return err;
     configured[device] = true;
   }
-  const int resident = resident_blocks(reinterpret_cast<const void*>(kernel), smem, device);
+  const int resident =
+      resident_blocks(reinterpret_cast<const void*>(kernel), kThreads, smem, device);
   if (resident <= 0) return cudaErrorInvalidConfiguration;
   // as many blocks as fit, each with the same number of items give or take one
   int blocks = p.n_items < resident ? p.n_items : resident;
@@ -599,12 +393,12 @@ cudaError_t launch_bf16(const Params& p, cudaStream_t stream, int device) {
 }
 
 template <int D>
-cudaError_t launch(int dtype, int key_tiles, const Params& p, cudaStream_t stream, int device) {
+cudaError_t launch(int dtype, int kt, const Params& p, cudaStream_t stream, int device) {
   if (dtype == 1) {
     window_f32_kernel<D><<<p.n_items, kMaxTokens, 0, stream>>>(p);
     return cudaGetLastError();
   }
-  switch (key_tiles) {
+  switch (kt) {
     case 2: return launch_bf16<D, 2>(p, stream, device);
     case 4: return launch_bf16<D, 4>(p, stream, device);
     case 7: return launch_bf16<D, 7>(p, stream, device);
@@ -612,8 +406,6 @@ cudaError_t launch(int dtype, int key_tiles, const Params& p, cudaStream_t strea
     default: return cudaErrorInvalidValue;
   }
 }
-
-int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 }  // namespace
 
@@ -687,19 +479,18 @@ int ics_window_attention(int dtype, const void* q, const void* k, const void* v,
   // key tiles of 8 the bf16 kernel is built for; index rows: the tiles' keys
   // as an odd multiple of 8, so that the eight rows a quad's pair loads touch
   // lie on distinct banks
-  const int key_tiles = ww <= 16 ? 2 : ww <= 32 ? 4 : ww <= 56 ? 7 : 8;
-  p.ld_idx = key_tiles * 8 % 16 == 0 ? key_tiles * 8 + 8 : key_tiles * 8;
+  const int kt = key_tiles(ww);
+  p.ld_idx = kt * 8 % 16 == 0 ? kt * 8 + 8 : kt * 8;
   p.index_bytes = round_up(ww * p.ld_idx * 2, 16);
-  p.table_off = p.head_group * 3 * round_up(key_tiles * 8, 16) * (head_dim + kPad) * 2;
+  p.table_off = p.head_group * 3 * round_up(kt * 8, 16) * (head_dim + kPad) * 2;
   p.mask_off = p.table_off + round_up(p.head_group * t_rows * 4, 16);
   // the mask's pieces (3 floats at most before the block), and room behind
   // them for the last row's keys past ww, read and dropped
-  p.stage_bytes =
-      p.mask_off + (mask != nullptr ? round_up((3 + (ww - 1) * ww + key_tiles * 8) * 4, 16) : 0);
+  p.stage_bytes = p.mask_off + (mask != nullptr ? mask_stage_bytes(ww) : 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 16: return static_cast<int>(launch<16>(dtype, key_tiles, p, s, device));
-    case 32: return static_cast<int>(launch<32>(dtype, key_tiles, p, s, device));
+    case 16: return static_cast<int>(launch<16>(dtype, kt, p, s, device));
+    case 32: return static_cast<int>(launch<32>(dtype, kt, p, s, device));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -25,8 +25,9 @@ autograd would record a call on the card, the entries run under
 ``depthwise_conv_dx``). The gradients of the taps and the bias come from a
 kernel of their own, ``csrc/depthwise_conv_dw.cu`` (``depthwise_conv_dw``,
 counted as ``depthwise_conv_dw``): fp32 sums over the batch and the image,
-taken in a fixed order. On the CPU the plain version is differentiated as it
-is.
+taken in a fixed order, from tiles of x and dy staged in shared memory; its
+grid is planned here from the card's occupancy (``dw_grad_plan``). On the
+CPU the plain version is differentiated as it is.
 """
 
 from __future__ import annotations
@@ -88,9 +89,12 @@ _launches = LAUNCHES["depthwise_conv"]
 _dx_launches = LAUNCHES["depthwise_conv_dx"]
 _dw_launches = LAUNCHES["depthwise_conv_dw"]
 _lib = None
-# the parameter-gradient kernel: blocks of 32 channels by one strip of rows of
-# one image; H is cut into strips until the grid has about this many blocks
-DW_TARGET_BLOCKS = 1024
+# the parameter-gradient kernel: a block is a slice of 32 channels by k tap rows
+# over one tile of at most DW_TILE_COLS columns and a run of rows of the batch;
+# a channel slice writes at most DW_MAX_RUNS partial rows (``dw_grad_plan``)
+DW_CHANNELS = 32
+DW_TILE_COLS = 64
+DW_MAX_RUNS = 512
 DW_KERNEL_SIZES = (3, 5, 7, 9, 11)
 
 
@@ -310,18 +314,47 @@ def _dw_kernel():
     fn = lib.ics_depthwise_conv_dw
     if fn.argtypes is None:
         c_int, ptr = ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [c_int] + [ptr] * 6 + [c_int] * 6 + [ptr, c_int]
+        fn.argtypes = [c_int] + [ptr] * 5 + [c_int] * 8 + [ptr, c_int]
         fn.restype = c_int
+        resident = lib.ics_depthwise_conv_dw_resident
+        resident.argtypes = [c_int] * 4
+        resident.restype = c_int
         lib.ics_cuda_error_string.argtypes = [c_int]
         lib.ics_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def dw_grad_rows(b: int, h: int, c: int) -> int:
-    """Rows of one image a block of the parameter-gradient kernel sums: H cut
-    into strips until the grid has about ``DW_TARGET_BLOCKS`` blocks."""
-    strips = max(1, min(h, _ceil_div(DW_TARGET_BLOCKS, _ceil_div(c, 32) * b)))
-    return _ceil_div(h, strips)
+@functools.lru_cache(maxsize=None)
+def _dw_resident(dtype_code: int, k: int, tile_w: int, device: int) -> int:
+    """Blocks of the parameter-gradient kernel that fit the card at once (the
+    source's occupancy query, asked once a shape)."""
+    lib = _dw_kernel()
+    got = lib.ics_depthwise_conv_dw_resident(dtype_code, k, tile_w, device)
+    if got <= 0:
+        msg = lib.ics_cuda_error_string(-got).decode()
+        raise RuntimeError(f"depthwise_conv_dw: no occupancy at k={k}, tile {tile_w}: {msg}")
+    return got
+
+
+def dw_grad_tile(w: int) -> int:
+    """Columns a tile of the parameter-gradient kernel: W cut into the fewest
+    tiles of at most ``DW_TILE_COLS``, of equal width but the last."""
+    return _ceil_div(w, _ceil_div(w, DW_TILE_COLS))
+
+
+def dw_grad_plan(b: int, h: int, w: int, c: int, resident: int) -> tuple[int, int, int]:
+    """(tile_w, rows, runs) of a [b, h, w, c] call of the parameter-gradient
+    kernel: W in tiles of ``tile_w`` columns, the b * h rows in ``runs`` runs of
+    ``rows`` rows (the last may be shorter), a block for each (channel slice,
+    tile, run). As many blocks as fit the card at once (``resident``), at most
+    ``DW_MAX_RUNS`` partial rows a channel slice (tiles times runs), at least one
+    run a tile and no more runs than rows."""
+    tile_w = dw_grad_tile(w)
+    tiles = _ceil_div(w, tile_w)
+    per_tile = resident // (_ceil_div(c, DW_CHANNELS) * tiles)
+    runs = max(1, min(per_tile, DW_MAX_RUNS // tiles, b * h))
+    rows = _ceil_div(b * h, runs)
+    return tile_w, rows, _ceil_div(b * h, rows)
 
 
 def _launch_dw(x: torch.Tensor, dy: torch.Tensor, k: int,
@@ -331,17 +364,19 @@ def _launch_dw(x: torch.Tensor, dy: torch.Tensor, k: int,
     and dy contiguous [B, H, W, C] of one dtype -> (dtaps [k * k, C], dbias
     [C] or None), fp32."""
     bsz, h, wd, c = x.shape
-    rh = dw_grad_rows(bsz, h, c)
-    strips = bsz * _ceil_div(h, rh)
-    part = torch.empty(strips * (k * k + 1) * c, dtype=torch.float32, device=x.device)
+    stream, device = stream_and_device(x)
+    code = _DTYPE_CODES[x.dtype]
+    tile_w, rows, runs = dw_grad_plan(bsz, h, wd, c,
+                                      _dw_resident(code, k, dw_grad_tile(wd), device))
+    slots = _ceil_div(wd, tile_w) * runs
+    part = torch.empty(slots * (k * k + 1) * c, dtype=torch.float32, device=x.device)
     dtaps = torch.empty(k * k, c, dtype=torch.float32, device=x.device)
     dbias = torch.empty(c, dtype=torch.float32, device=x.device) if with_bias else None
     lib = _dw_kernel()
     rc = lib.ics_depthwise_conv_dw(
-        _DTYPE_CODES[x.dtype], x.data_ptr(), dy.data_ptr(), part.data_ptr(),
-        part.data_ptr() + strips * k * k * c * 4, dtaps.data_ptr(),
-        None if dbias is None else dbias.data_ptr(), bsz, h, wd, c, k, rh,
-        *stream_and_device(x),
+        code, x.data_ptr(), dy.data_ptr(), part.data_ptr(), dtaps.data_ptr(),
+        None if dbias is None else dbias.data_ptr(), bsz, h, wd, c, k, tile_w, rows, runs,
+        stream, device,
     )
     if rc != 0:
         msg = lib.ics_cuda_error_string(rc).decode()
@@ -520,9 +555,8 @@ def depthwise_conv_dw(x: torch.Tensor, dy: torch.Tensor, k: int,
     if not (x.is_contiguous() and dy.is_contiguous()) or x.numel() >= 2**31:
         raise ValueError(f"depthwise_conv_dw wants contiguous x and dy with fewer than 2^31 "
                          f"elements; got {tuple(x.shape)}")
-    b, h, _, c = x.shape
-    if b * _ceil_div(h, dw_grad_rows(b, h, c)) > 65535:
-        raise ValueError(f"depthwise_conv_dw: batch {b} is too large")
+    if _ceil_div(x.shape[3], DW_CHANNELS) > 65535:
+        raise ValueError(f"depthwise_conv_dw: {x.shape[3]} channels are too many")
     return _launch_dw(x, dy, k, with_bias)
 
 

@@ -30,13 +30,16 @@ Gradients: where autograd would record a call of ``window_attention_qkv`` on
 the card, it runs under ``_WindowAttentionQKV``, whose backward is the kernel
 of ``csrc/window_attention_bwd.cu`` (``window_attention_qkv_bwd``, counted as
 ``window_attention_bwd``): the gradient with respect to qkv, S and P
-recomputed in the kernel, one rounding of dqkv. Where the table requires
-grad, the same launch also sums dS over the windows a block takes, and a
-second entry of the source (``window_attention_dtable``) reduces those sums
-and gathers them back through the index into the table's gradient, fp32, in
-a fixed order. The mask takes no gradient. The 4-D entry has no backward and
-raises ``KernelHasNoGradient``. On the CPU the plain versions are
-differentiated as they are.
+recomputed in the kernel as the forward computes them, one rounding of dqkv
+(bf16 on the tensor cores, fp32 SIMT). Its grid is heads x G blocks, each
+walking windows of one head; G comes from the card's occupancy
+(``backward_groups``). Where the table requires grad, the same launch also
+sums dS over each block's windows, and a second entry of the source
+(``window_attention_dtable``) reduces those sums and gathers them back
+through the index into the table's gradient, fp32, in a fixed order. The
+mask takes no gradient. The 4-D entry has no backward and raises
+``KernelHasNoGradient``. On the CPU the plain versions are differentiated as
+they are.
 """
 
 from __future__ import annotations
@@ -65,9 +68,6 @@ _identity_index: dict = {}
 # (order, offsets) of an index tensor for the table's gradient, kept while the
 # tensor lives (Swin's are buffers): a dozen small launches a call otherwise
 _index_runs: dict = {}
-# a head's windows are cut into this many groups or fewer (a block each, which
-# sums dS over its windows) when the table's gradient is asked for
-TABLE_TARGET_BLOCKS = 1056
 
 
 def _kernel():
@@ -94,9 +94,12 @@ def _bwd_kernel():
     fn = lib.ics_window_attention_bwd
     if fn.argtypes is None:
         c_int, c_ll, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-        fn.argtypes = ([c_int] + [ptr] * 7 + [c_ll] * 12 + [c_int] * 8 + [ptr, c_ll, c_ll]
+        fn.argtypes = ([c_int] + [ptr] * 7 + [c_ll] * 12 + [c_int] * 8 + [ptr, c_ll, c_ll, c_int]
                        + [ptr, ptr, c_int, ctypes.c_float, ptr, c_int, ptr, c_int])
         fn.restype = ctypes.c_int
+        resident = lib.ics_window_attention_bwd_resident
+        resident.argtypes = [c_int] * 7
+        resident.restype = c_int
         table = lib.ics_window_attention_dtable
         table.argtypes = [ptr, c_int, c_int, c_int, ptr, ptr, ptr, c_int, ptr, ptr, c_int]
         table.restype = ctypes.c_int
@@ -105,12 +108,48 @@ def _bwd_kernel():
     return lib
 
 
-def table_groups(windows: int, heads: int) -> int:
-    """Blocks a head of the backward launch when the table's gradient is asked
-    for: each sums dS over the windows it takes and writes one [ww, ww]
-    partial, so fewer groups write fewer partials; ``TABLE_TARGET_BLOCKS``
-    keeps the card full."""
-    return max(1, min(windows, TABLE_TARGET_BLOCKS // heads))
+@functools.lru_cache(maxsize=None)
+def _bwd_resident(dtype_code: int, hd: int, ww: int, table_rows: int, masked: bool,
+                  mask_fixed: bool, device: int) -> int:
+    """Blocks of the backward kernel that fit the card at once at this shape
+    (the source's occupancy query, asked once a shape)."""
+    lib = _bwd_kernel()
+    got = lib.ics_window_attention_bwd_resident(dtype_code, hd, ww, table_rows, int(masked),
+                                                int(mask_fixed), device)
+    if got <= 0:
+        msg = lib.ics_cuda_error_string(-got).decode()
+        raise RuntimeError(f"window_attention_bwd: no occupancy for ww={ww}, hd={hd}: {msg}")
+    return got
+
+
+def backward_groups(windows: int, heads: int, n_mask: int, resident_shared: int,
+                    resident_per_item: int) -> int:
+    """G, the blocks a head of the backward's grid of heads x G: block g of a
+    head walks windows g, g + G, ... of that head and, with the table's
+    gradient, writes one [ww, ww] partial sum of dS. As many blocks as fit the
+    card at once (one wave), at least one a head and at most one a window.
+    Window n takes mask n mod ``n_mask``, so where G is a multiple of
+    ``n_mask`` all of a block's windows share one mask, which the block then
+    stages once: G is such a multiple wherever that keeps at least as many
+    blocks as staging a mask with every item would fit.
+    ``resident_shared``: blocks that fit with the mask kept once (or none);
+    ``resident_per_item``: with a mask in each stage of the ring."""
+    per_item = max(1, min(windows, resident_per_item // heads))
+    shared = min(windows, resident_shared // heads)
+    if n_mask <= 1:
+        return max(1, shared)
+    shared = shared // n_mask * n_mask
+    return shared if shared >= per_item else per_item
+
+
+def _plan_backward(dtype: torch.dtype, hd: int, window: int, table_rows: int, windows: int,
+                   heads: int, mask: Optional[torch.Tensor], device: int) -> int:
+    """G of a backward launch from the card's occupancy (``backward_groups``)."""
+    code, ww = _DTYPE_CODES[dtype], window * window
+    masked = mask is not None
+    shared = _bwd_resident(code, hd, ww, table_rows, masked, True, device)
+    per_item = _bwd_resident(code, hd, ww, table_rows, masked, False, device) if masked else shared
+    return backward_groups(windows, heads, mask.shape[0] if masked else 1, shared, per_item)
 
 
 def _index_order(rel_index: torch.Tensor, rows: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -470,13 +509,16 @@ def _qkv_backward(qkv, dout, rel_table, rel_index, mask, window: int, shift: int
         raise ValueError(f"window_attention_qkv_bwd wants dout as {[b, grid, grid, h * hd]}; "
                          f"got {tuple(dout.shape)}")
     dout = dout.to(qkv.dtype).contiguous()
+    if dout.data_ptr() % 16:
+        dout = dout.clone()
     dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
     if dqkv.numel() == 0:
         return dqkv, torch.zeros_like(rel_table) if with_table else None
     ww = window * window
     windows = b * (grid // window) ** 2
-    groups = table_groups(windows, h)
-    part = (torch.empty(groups * h * ww * ww, dtype=torch.float32, device=qkv.device)
+    stream, device = stream_and_device(qkv)
+    groups = _plan_backward(qkv.dtype, hd, window, rel_table.shape[0], windows, h, mask, device)
+    part = (torch.empty(h * groups * ww * ww, dtype=torch.float32, device=qkv.device)
             if with_table else None)
     size = qkv.element_size()
     q_ptr, g_ptr = qkv.data_ptr(), dqkv.data_ptr()
@@ -489,9 +531,10 @@ def _qkv_backward(qkv, dout, rel_table, rel_index, mask, window: int, shift: int
         dout.stride(0), dout.stride(1), dout.stride(2), hd,
         dqkv.stride(0), dqkv.stride(1), dqkv.stride(2), dqkv.stride(4),
         b, grid, grid, window, window, shift, h, hd,
-        rel_table.data_ptr(), rel_table.stride(0), rel_table.stride(1), rel_index.data_ptr(),
-        None if mask is None else mask.data_ptr(), 1 if mask is None else mask.shape[0], scale,
-        None if part is None else part.data_ptr(), groups, *stream_and_device(qkv),
+        rel_table.data_ptr(), rel_table.stride(0), rel_table.stride(1), rel_table.shape[0],
+        rel_index.data_ptr(), None if mask is None else mask.data_ptr(),
+        1 if mask is None else mask.shape[0], scale,
+        None if part is None else part.data_ptr(), groups, stream, device,
     )
     if rc != 0:
         msg = lib.ics_cuda_error_string(rc).decode()
@@ -505,7 +548,7 @@ def _qkv_backward(qkv, dout, rel_table, rel_index, mask, window: int, shift: int
     dtable = torch.empty(rows, h, dtype=torch.float32, device=qkv.device)
     rc = lib.ics_window_attention_dtable(
         part.data_ptr(), groups, h, ww, dbias.data_ptr(), order.data_ptr(), offsets.data_ptr(),
-        rows, dtable.data_ptr(), *stream_and_device(qkv))
+        rows, dtable.data_ptr(), stream, device)
     if rc != 0:
         msg = lib.ics_cuda_error_string(rc).decode()
         raise RuntimeError(f"window_attention_dtable kernel launch failed: {msg} (cudaError {rc})")
@@ -532,7 +575,11 @@ def window_attention_qkv_bwd(qkv: torch.Tensor, dout: torch.Tensor, rel_table: t
     if dout.dtype != qkv.dtype:
         raise ValueError(f"window_attention_qkv_bwd wants dout of qkv's dtype {qkv.dtype}; "
                          f"got {dout.dtype}")
-    if qkv.stride(-1) != 1:
+    if qkv.dtype == torch.bfloat16:
+        check_qkv_layout(qkv)            # the bf16 kernel moves rows as 16-byte pieces
+        if mask is not None and mask.data_ptr() % 16:
+            raise ValueError("window_attention_qkv_bwd wants a 16-byte aligned mask")
+    elif qkv.stride(-1) != 1:
         raise ValueError("window_attention_qkv_bwd wants qkv's last dimension contiguous")
     dqkv, dtable = _qkv_backward(qkv, dout, rel_table, rel_index, mask, window, shift, scale,
                                  with_table)

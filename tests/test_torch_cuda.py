@@ -1004,7 +1004,7 @@ def test_launch_counts_stay_exact_under_two_threads(cuda_device):
 
 # ---- the backward passes (explain): bars of chip_smoke.py phase 8 -------------------------
 # largest |error| over max|ref|: fp32 1e-4 (fp32 sums in another order), bf16 2e-2 (the
-# plain version rounds dP, dq and dk to bf16 where the kernels round once)
+# plain version rounds dP, dq and dk to bf16, the kernel dS and P on the tensor cores)
 
 def _window_call(device, batch, grid, heads, hd, window, shift, dtype):
     from ics_tpu_torch.models.swin import _relative_position_index, _shift_attn_mask
@@ -1277,6 +1277,84 @@ def test_window_table_gradient_matches_the_plain_version_at_every_swin_t_call(
     out = window_attention.window_attention_qkv(qkv, t, index, mask, 7, shift, 32 ** -0.5)
     (got,) = torch.autograd.grad(out, t, dout)
     assert torch.equal(got, dtable)
+
+
+# ---- the redesigned backward kernels at their edges ----------------------------------------
+# The same bars: window backward fp32 1e-4 and bf16 2e-2, the taps gradient 1e-4 in both.
+
+def _qkv_view(qkv, extra: int):
+    """qkv as a strided view of a wider product with NaN in its spare columns
+    and in an image behind the batch: the kernels must read neither."""
+    b, grid, _, three, h, hd = qkv.shape
+    wide = torch.full((b + 1, grid, grid, three * h * hd + extra), float("nan"),
+                      dtype=qkv.dtype, device=qkv.device)
+    wide[:b, ..., :three * h * hd] = qkv.reshape(b, grid, grid, -1)
+    return wide[:b, ..., :three * h * hd].unflatten(-1, (three, h, hd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("batch,grid,heads,hd,window,shift,resident", [
+    (1, 8, 2, 16, 4, 2, None),      # ww 16, hd 16, batch 1
+    (3, 16, 3, 16, 4, 0, None),
+    (1, 16, 2, 32, 8, 4, None),     # ww 64, batch 1
+    (5, 24, 3, 32, 8, 0, None),
+    (1, 56, 3, 32, 7, 3, None),     # Swin-T's first stage at batch 1
+    (7, 14, 12, 32, 7, 3, 5 * 12),  # 28 windows of a head over 5 blocks
+    (2, 28, 6, 32, 7, 3, 1),        # one block a head walks every window
+])
+def test_window_backward_at_the_redesigns_edges(cuda_device, monkeypatch, dtype, tol, batch,
+                                               grid, heads, hd, window, shift, resident):
+    """The qkv and table gradients on a strided qkv view with NaN behind the
+    batch, each twice (the same bits); with ``resident`` forced, grids whose
+    blocks take uneven numbers of windows, or every window of a head: the qkv
+    gradient is the same bits on any grid."""
+    qkv, dout, table, index, mask = _window_call(cuda_device, batch, grid, heads, hd, window,
+                                                 shift, dtype)
+    view = _qkv_view(qkv, 16)
+    args = (view, dout, table, index, mask, window, shift, hd ** -0.5)
+    natural = window_attention.window_attention_qkv_bwd(*args)
+    if resident is not None:
+        monkeypatch.setattr(window_attention, "_bwd_resident", lambda *a: resident)
+    runs = [window_attention.window_attention_qkv_bwd(*args, with_table=True) for _ in range(2)]
+    ref_qkv, ref_table = window_attention.window_attention_qkv_bwd_reference(
+        qkv, dout, table, index, mask, window, shift, hd ** -0.5, with_table=True)
+    for got, again, ref in zip(runs[0], runs[1], (ref_qkv, ref_table)):
+        assert torch.isfinite(got).all() and torch.equal(got, again)
+        assert _rel(got, ref) <= tol
+    assert torch.equal(runs[0][0], natural)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,k,resident", [
+    ((2, 9, 11, 16), 3, None), ((3, 6, 5, 24), 5, None), ((1, 14, 14, 1632), 7, None),
+    ((2, 12, 4, 40), 9, None), ((1, 5, 3, 24), 11, None), ((1, 70, 130, 64), 3, None),
+    ((4, 2, 2, 15), 5, None), ((3, 9, 7, 48), 7, 1),
+])
+def test_taps_gradient_at_the_redesigns_edges(cuda_device, monkeypatch, dtype, shape, k,
+                                              resident):
+    """k 3 to 11, C of 16, 24, 1632 and 15 (no whole 16-byte pieces), W and H
+    under k, batch 1, W over a tile, NaN stored around x and dy; with
+    ``resident`` forced, one block a channel slice walks every row of every
+    image. Twice, the same bits."""
+    if resident is not None:
+        monkeypatch.setattr(depthwise, "_dw_resident", lambda *a: resident)
+    g = torch.Generator().manual_seed(k + shape[-1])
+    stores = []
+    for _ in range(2):
+        store = torch.full((shape[0] + 2, *shape[1:]), float("nan"), dtype=dtype,
+                           device=cuda_device)
+        store[1:-1] = torch.randn(shape, generator=g).to(dtype).to(cuda_device)
+        stores.append(store[1:-1])
+    x, dy = stores
+    before = LAUNCHES["depthwise_conv_dw"].value
+    runs = [depthwise.depthwise_conv_dw(x, dy, k) for _ in range(2)]
+    assert LAUNCHES["depthwise_conv_dw"].value == before + 2
+    ref_taps, ref_bias = depthwise.depthwise_dw_reference(x, dy, k)
+    for got, again, ref in zip(runs[0], runs[1], (ref_taps, ref_bias)):
+        assert torch.isfinite(got).all() and torch.equal(got, again)
+        assert _rel(got, ref) <= 1e-4, shape
 
 
 @pytest.mark.cuda

@@ -346,16 +346,21 @@ def test_taps_gradient_comes_back_in_the_weights_layout(layout):
                        grad.float(), dtaps)
 
 
-@pytest.mark.parametrize("b,h,c", [(32, 56, 96), (32, 7, 768), (1, 95, 192), (32, 14, 576),
-                                   (1, 1, 16), (8, 12, 1632)])
-def test_gradient_strips_fill_the_card_and_cover_every_row(b, h, c):
-    rh = depthwise.dw_grad_rows(b, h, c)
-    strips = -(-h // rh)
-    blocks = -(-c // 32) * b * strips
-    assert 1 <= rh <= h and (strips - 1) * rh < h <= strips * rh
-    # about the target: cutting H into whole strips of rh rows rounds it down
-    assert blocks >= min(depthwise.DW_TARGET_BLOCKS // 2, -(-c // 32) * b * h)
-    assert b * strips <= 65535
+@pytest.mark.parametrize("b,h,w,c,resident", [
+    (32, 56, 56, 96, 660), (32, 7, 7, 768, 660), (1, 95, 95, 192, 1188),
+    (32, 190, 190, 48, 1056), (1, 1, 1, 16, 1188), (8, 12, 12, 1632, 660), (1, 5, 2, 8, 1),
+])
+def test_taps_gradient_plan_fills_the_card_once_and_covers_every_row_and_column(b, h, w, c,
+                                                                               resident):
+    tile_w, rows, runs = depthwise.dw_grad_plan(b, h, w, c, resident)
+    tiles = -(-w // tile_w)
+    assert 1 <= tile_w <= depthwise.DW_TILE_COLS and (tiles - 1) * tile_w < w
+    assert tile_w == -(-w // tiles)                          # tiles of equal width but the last
+    assert rows >= 1 and (runs - 1) * rows < b * h <= runs * rows
+    slices = -(-c // depthwise.DW_CHANNELS)
+    budget = max(1, min(resident // (slices * tiles), depthwise.DW_MAX_RUNS // tiles))
+    assert runs <= budget                                    # one wave, few partial rows
+    assert rows == 1 or -(-b * h // (rows - 1)) > budget     # and no run longer than it must be
 
 
 def test_an_optimizer_step_makes_the_cached_taps_anew():

@@ -414,12 +414,27 @@ def test_index_runs_reached_from_threads_at_once_stay_each_indexs_own():
         assert wa._index_runs[id(index)][2] is order
 
 
-@pytest.mark.parametrize("windows,heads", [(2048, 3), (512, 6), (128, 12), (32, 24), (1, 2)])
-def test_table_groups_keep_partials_few_and_the_card_full(windows, heads):
-    groups = wa.table_groups(windows, heads)
-    assert 1 <= groups <= windows
-    assert groups * heads <= max(wa.TABLE_TARGET_BLOCKS, heads)
-    assert groups == windows or groups * heads >= wa.TABLE_TARGET_BLOCKS - heads
+@pytest.mark.parametrize("windows,heads,n_mask,shared,per_item", [
+    (2048, 3, 64, 396, 264),    # Swin-T's first stage at batch 32
+    (512, 6, 16, 396, 264),
+    (128, 12, 4, 396, 264),
+    (32, 24, 1, 396, 396),      # no mask: the last stage
+    (1, 2, 1, 396, 396),
+    (64, 3, 64, 2, 1),          # fewer blocks fit than heads: one a head
+    (1024, 3, 64, 150, 135),    # no multiple of the masks fits: a mask with every item
+])
+def test_backward_groups_fill_the_card_once_and_share_a_mask_where_they_can(
+        windows, heads, n_mask, shared, per_item):
+    groups = wa.backward_groups(windows, heads, n_mask, shared, per_item)
+    fewest = max(1, min(windows, per_item // heads))
+    assert fewest <= groups <= windows                     # every block has a window
+    assert groups * heads <= max(shared, per_item, heads)  # one wave
+    if groups % n_mask == 0:                               # each block's windows share one
+        assert all(len({(g + m * groups) % n_mask for m in range(-(-windows // groups))}) == 1
+                   for g in range(groups))
+        assert groups * heads <= max(shared, heads)
+    else:                                                  # a mask travels with each item
+        assert groups == fewest
 
 
 def test_qkv_backward_with_the_table_on_the_cpu_is_autograd_of_the_plain_version():
