@@ -221,6 +221,37 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    reference's messages, "auto" no mesh. The launch counts are set to 0
    before each mesh step and read after it; the process's counts add one a
    position, so a data mesh of 2 launches each kernel twice a step.
+12. The training mesh in this process (``train.finetune.DataParallel``,
+   ``parallel.mesh.train_mesh_from_settings``, ``parallel.ring_attention``,
+   ``maybe_initialize_distributed``), every position on ``cuda:0`` where
+   there are fewer cards, as in [11], which the log says. (a) ResNet-50
+   @224 (BatchNorm) on a ``("data",)`` mesh of 2, batch 32 of [9]'s staged
+   canvases, 3 SGD steps from seed 0: fp32 (TF32 off) against the unsharded
+   step on the same weights and batch (the step-1 loss at ``TM_LOSS_TOL``
+   and the BatchNorm running statistics at ``TM_STATS_TOL``, each step's
+   update and loss within twice what the unsharded step's move under
+   ``PARITY_NOISE`` of weight noise, at least ``PARITY_UPDATE_TOL``),
+   the two copies the same bits; bf16: the first loss within
+   ``TM_BF16_LOSS_TOL`` relative, the later ones within twice what weight
+   noise of ``TM_BF16_NOISE`` moves the unsharded run's; the DP and
+   unsharded bf16 steps by CUDA events in turns (on one card the
+   machinery's cost). (b) ConvNeXt-T and Swin-T @224, bf16,
+   batch 32, 3 AdamW steps on a data mesh of 2: kernel 4's forward, ``dx``
+   and ``dw`` 18 x 2 and kernel 6's forward, ``bwd`` and ``dtable`` 12 x 2
+   launches a step, counted from 0 over the steps; losses against the
+   unsharded step's; a second run within ``TM_REPEAT_TOL``; timed in turns.
+   (c) ``TPU_TRAIN_DEVICES``: ``'all'`` gives a mesh over every card, a
+   ResNet-50 job of 3 steps trains on it (the ``DataParallel`` the job
+   builds is read); ``'0:2'`` on one card fails the job with the
+   reference's message, and a batch of 3 on a training mesh of two
+   positions too. (d) ``ring_attention_padded`` at ViT-B/16's shapes @224
+   (197 tokens) and @384 (577) on ``("sp",)`` meshes of 2 and 4, fp32 and
+   bf16, output and gradients against ``attention_reference``; a ViT-B/16
+   @224 fp32 ``FineTuner`` on ``("sp",)`` 2, two SGD steps, against the
+   unsharded run. (e) ``maybe_initialize_distributed`` at a local address,
+   world size 1 (NCCL cannot run two ranks on one card), and an
+   ``all_reduce`` of a CUDA tensor. (b)'s launches join the ``kernels``
+   line.
 
 Prints ``{"kernels": [...]}`` on the line before the last and
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
@@ -4377,6 +4408,455 @@ def check_multi_device(torch, card: str) -> dict:
     return launches
 
 
+# ---- phase 12: the training mesh, the multi-process start, ring attention -------------------
+
+TM_STEPS = 3               # (a) and (b): SGD / AdamW steps from the same weights and batch
+# (a): ResNet-50's SGD rate. The random ResNet-50's gradient is shattered ([9b]): on an
+# H100 its update moved 4 % under 1e-6 of weight noise at the first step and 56-76 % at the
+# second and third, at a rate of 1e-3 as at [9a]'s peak of FT_LR (where the loss rose from
+# 3.29 to 4.78 in three steps on the one batch). At this rate the steps stay small, so
+# that what two runs' chaos adds to the losses stays under the bf16 bar
+TM_RESNET_LR = 1e-4
+# unsharded runs from noisy weights, seeds 1.. (two put the bf16 step-3 gap of an H100 run
+# at 0.90 of the bar they drew: more runs measure "the most that noise moves it" better)
+TM_NOISE_RUNS = 4
+TM_TURNS_ITERS = 2         # steps a turn when timing a DP step beside the single step
+# (a) fp32 (TF32 off), ResNet-50 on a data mesh of 2 against the unsharded step. At the
+# first step the weights are the same, so the forward is held tight: the loss at 1e-4
+# relative and the BatchNorm running statistics (the whole batch's, the check that a
+# per-position BatchNorm fails) at 1e-4 of their largest magnitude (the same fp32 sums in
+# another order, and cuDNN's plans at batch 16 against 32). After each step the update
+# (parameters minus their start, as one vector) in L2 and the loss are held to the larger
+# of PARITY_UPDATE_TOL (TM_LOSS_TOL relative for the loss) and twice the most that the
+# unsharded step moves them when its starting weights take PARITY_NOISE of noise
+TM_LOSS_TOL = 1e-4
+TM_STATS_TOL = 1e-4
+# bf16 losses of the DP step against the unsharded step's: the first step's (the same
+# weights) within this relative bar, as bf16 rounds activations at other places in two
+# chunks of 16 than in one of 32 (an ulp is 2^-8 relative) over the depth; the later
+# steps' within the larger of this times the first loss and twice the most that the
+# unsharded bf16 run's loss moves from weights with TM_BF16_NOISE of noise, a rounding's
+# worth at bf16 (on an H100 the random ResNet-50's bf16 DP and unsharded losses parted by
+# 4 % of the first loss at the second step, at a rate of 1e-4, where noise of 1e-6 moved
+# the unsharded run's by 1.3 %: a bf16 rounding is a larger push than that noise). (b)
+# holds every step's gap to this times the first loss: ConvNeXt-T and Swin-T have no
+# BatchNorm and no shattered gradient
+TM_BF16_LOSS_TOL = 2e-2
+TM_BF16_NOISE = 2.0 ** -9
+# a second DP run from the same weights and batch: cuDNN's weight-gradient algorithms may
+# add in another order from run to run, so parameters and losses are held at this relative
+# bar rather than bit for bit (the kernels of the port give the same bits twice, [3])
+TM_REPEAT_TOL = 1e-5
+RING_SHAPES = {224: (8, 12, 197, 64), 384: (4, 12, 577, 64)}   # ViT-B/16 [B, H, S, hd]
+RING_FP32_TOL = 1e-4       # of the largest output / gradient: fp32 sums in another order
+RING_BF16_TOL = 2e-2       # the plain version rounds q * scale and p to bf16, the ring does not
+SP_LOSS_TOL = 1e-4         # ViT-B/16 fp32 on ("sp",) 2: ring against plain attention
+
+
+def _train_db(directory: str, corpus: list) -> tuple:
+    """A seeded database of the port (``db.seed``: the user types, an admin)
+    with a specialist and ``corpus`` as one ambiente's labelled images
+    (``seed_finetune``); returns (the database, the ambiente's id, the bytes
+    by hash)."""
+    from ics_tpu_torch.core import timezone as tz
+    from ics_tpu_torch.db import models as m
+    from ics_tpu_torch.db import seed
+    from ics_tpu_torch.db.engine import Database
+
+    db = Database(f"sqlite:///{directory}/train_mesh.db")
+    db.create_all()
+    seed.seed_all(db)
+    now = tz.utcnow()
+    with db.session() as s:
+        esp = m.Usuario(nome_completo="esp", email="esp@example.com", senha_hash="h",
+                        data_criado=now, id_tipo=1)
+        s.add(esp)
+        s.flush()
+        con = m.UsuarioConvencional(cpf="2" * 11, id_usu=esp.id_usu)
+        s.add(con)
+        s.flush()
+        adm = s.fetchone("SELECT id_adm FROM usuarios_administradores LIMIT 1")
+        amb, _, blobs = seed_finetune(s, adm["id_adm"], con.id_con, corpus, folder="tm")
+        s.commit()
+        return db, str(amb.id_amb), blobs
+
+
+def _flat(torch, model):
+    return torch.cat([p.detach().float().flatten() for p in model.parameters()])
+
+
+def _dp_steps(torch, name: str, mesh, canvas, sizes, labels, dtype, noise_seed: int = 0,
+              noise: float = PARITY_NOISE):
+    """``TM_STEPS`` steps of ``name`` (``_ft_model``'s weights from seed 0; with
+    ``noise_seed``, each times 1 + noise * N(0, 1) drawn from it) on
+    the staged batch: the data-parallel step over ``mesh``, or the unsharded
+    step where ``mesh`` is None. Returns (the losses, the parameters and the
+    running statistics as flat vectors before and after each step, the
+    step)."""
+    from ics_tpu_torch.models.registry import get_model
+    from ics_tpu_torch.train.finetune import (
+        TrainOptimizer,
+        make_optimizer,
+        make_preproc_train_step,
+        make_sharded_preproc_train_step,
+        training_kernels,
+    )
+
+    spec = get_model(name)
+    model = _ft_model(torch, name)
+    if noise_seed:
+        gen = torch.Generator(device=DEVICE).manual_seed(noise_seed)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1.0 + noise * torch.randn(p.shape, device=DEVICE, generator=gen))
+    training_kernels(model)
+    config, llrd = _ft_optimizer(name)
+    if name == RESNET:
+        config = make_optimizer(lr=TM_RESNET_LR, momentum=0.9)
+    opt = TrainOptimizer(model, config, llrd=llrd)
+    size, short = spec.image_size, spec.resize_short
+    step = (make_preproc_train_step(model, opt, size, short, dtype) if mesh is None else
+            make_sharded_preproc_train_step(model, opt, mesh, size, short, dtype))
+
+    def stats():
+        return torch.cat([b.detach().float().flatten() for n, b in model.named_buffers()
+                          if n.endswith(("running_mean", "running_var"))] or
+                         [torch.zeros(1, device=DEVICE)])
+
+    losses, flats, buffers = [], [_flat(torch, model)], [stats()]
+    for _ in range(TM_STEPS):
+        losses.append(float(step(canvas, sizes, labels)["loss"]))
+        flats.append(_flat(torch, model))
+        buffers.append(stats())
+    return losses, flats, buffers, step
+
+
+def _copies_equal(torch, step) -> bool:
+    dp = step.data_parallel
+    master = dp.copies[0].state_dict()
+    return all(torch.equal(t, master[k]) for other in dp.copies[1:]
+               for k, t in other.state_dict().items())
+
+
+def check_train_mesh_bn(torch, canvas, sizes, labels, card: str) -> None:
+    """Phase 12a: ResNet-50 @224 (BatchNorm) on a ("data",) mesh of 2 against
+    the unsharded step, fp32 and bf16, and both steps timed in turns."""
+    from ics_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((2,), ("data",), devices=mesh_devices(torch, 2))
+    single, s_flats, s_stats, _ = _dp_steps(torch, RESNET, None, canvas, sizes, labels,
+                                            torch.float32)
+    noisy = [_dp_steps(torch, RESNET, None, canvas, sizes, labels, torch.float32, noise_seed=k)
+             for k in range(1, TM_NOISE_RUNS + 1)]
+    dp, d_flats, d_stats, step = _dp_steps(torch, RESNET, mesh, canvas, sizes, labels,
+                                           torch.float32)
+    if not _copies_equal(torch, step):
+        fail("ResNet-50 DP fp32: the two copies differ after the steps")
+    log(f"  (a) {RESNET} fp32 batch {FT_BATCH}, SGD {TM_RESNET_LR} momentum 0.9, {TM_STEPS} "
+        f"steps: losses DP {dp} against one device {single} (weights with {PARITY_NOISE:g} "
+        f"noise: {[n[0] for n in noisy]}); the two copies the same bits")
+    stats_gap = float((d_stats[1] - s_stats[1]).abs().max() / s_stats[1].abs().max())
+    log(f"    step 1, the same weights: loss gap {abs(dp[0] - single[0]) / abs(single[0]):.2e} "
+        f"relative (tol {TM_LOSS_TOL}); BatchNorm running statistics {stats_gap:.2e} of the "
+        f"largest (tol {TM_STATS_TOL})")
+    if not (abs(dp[0] - single[0]) <= TM_LOSS_TOL * abs(single[0])
+            and stats_gap <= TM_STATS_TOL):
+        fail("ResNet-50 DP fp32: the first step's loss or BatchNorm statistics depart from "
+             "the unsharded step's")
+    for i in range(1, TM_STEPS + 1):
+        update = s_flats[i] - s_flats[0]
+        gap = float((d_flats[i] - s_flats[i]).norm() / update.norm())
+        floor = max(float(((n[1][i] - n[1][0]) - update).norm() / update.norm()) for n in noisy)
+        loss_floor = max(abs(n[0][i - 1] - single[i - 1]) for n in noisy)
+        bar = max(PARITY_UPDATE_TOL, 2 * floor)
+        loss_bar = max(TM_LOSS_TOL * abs(single[i - 1]), 2 * loss_floor)
+        loss_gap = abs(dp[i - 1] - single[i - 1])
+        log(f"    step {i}: |update_dp - update| / |update| {gap:.2e} (bar {bar:.2e}: noise "
+            f"moves it up to {floor:.2e}); loss gap {loss_gap:.2e} (bar {loss_bar:.2e})")
+        if not (gap <= bar and loss_gap <= loss_bar):
+            fail(f"ResNet-50 DP fp32 step {i} departs from the unsharded step")
+    del single, noisy, step
+    single = _dp_steps(torch, RESNET, None, canvas, sizes, labels, torch.bfloat16)[0]
+    noisy = [_dp_steps(torch, RESNET, None, canvas, sizes, labels, torch.bfloat16,
+                       noise_seed=k, noise=TM_BF16_NOISE)[0]
+             for k in range(1, TM_NOISE_RUNS + 1)]
+    dp, _, _, step = _dp_steps(torch, RESNET, mesh, canvas, sizes, labels, torch.bfloat16)
+    first = abs(dp[0] - single[0]) / abs(single[0])
+    log(f"  (a) {RESNET} bf16: losses DP {dp} against one device {single} (weights with "
+        f"{TM_BF16_NOISE:g} noise: {noisy}); the first step's gap {first:.2e} relative (tol "
+        f"{TM_BF16_LOSS_TOL})")
+    ok = first <= TM_BF16_LOSS_TOL and _copies_equal(torch, step)
+    for i in range(1, TM_STEPS):
+        bar = max(TM_BF16_LOSS_TOL * abs(single[0]),
+                  2 * max(abs(n[i] - single[i]) for n in noisy))
+        log(f"    step {i + 1}: loss gap {abs(dp[i] - single[i]):.2e} (bar {bar:.2e})")
+        ok = ok and abs(dp[i] - single[i]) <= bar
+    if not ok:
+        fail("ResNet-50 DP bf16 departs from the unsharded step, or its copies differ")
+    _time_dp(torch, RESNET, mesh, canvas, sizes, labels, card)
+
+
+def _bf16_gap(losses, single) -> float:
+    """The largest gap between two bf16 loss trajectories, over the first loss."""
+    return max(abs(a - b) for a, b in zip(losses, single)) / abs(single[0])
+
+
+def _time_dp(torch, name: str, mesh, canvas, sizes, labels, card: str) -> None:
+    """The DP step and the unsharded step, bf16, by CUDA events in turns."""
+    dp = _dp_steps(torch, name, mesh, canvas, sizes, labels, torch.bfloat16)[-1]
+    single = _dp_steps(torch, name, None, canvas, sizes, labels, torch.bfloat16)[-1]
+    ms, plain_ms = in_turns(f"{name} bf16 batch {FT_BATCH}: DP 2 step (kernel) against one "
+                            f"device (plain), {card}",
+                            lambda: dp(canvas, sizes, labels), lambda: single(canvas, sizes, labels),
+                            iters=TM_TURNS_ITERS, ahead=False)
+    log(f"    {name}: the DP step {ms / plain_ms:.2f}x the unsharded step on one card (the "
+        "machinery's cost: two chunks share the card's SMs)")
+
+
+def check_train_mesh_kernels(torch, canvas, sizes, labels, card: str) -> dict:
+    """Phase 12b: ConvNeXt-T and Swin-T @224, bf16, batch 32, AdamW, on a
+    ("data",) mesh of 2: kernels 4 and 6 launch twice a step in both
+    directions, the losses agree with the unsharded step's, a second run
+    gives the same result; the steps timed in turns. Returns the launches."""
+    from ics_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ics_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((2,), ("data",), devices=mesh_devices(torch, 2))
+    launches: dict = {}
+    for name, (fwd, dx, dparam, blocks) in FT_KERNELS.items():
+        single = _dp_steps(torch, name, None, canvas, sizes, labels, torch.bfloat16)[0]
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            losses, flats, _, step = _dp_steps(torch, name, mesh, canvas, sizes, labels,
+                                               torch.bfloat16)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in launch_counts().items() if v}
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            want = {fwd: 2 * TM_STEPS * blocks, dx: 2 * TM_STEPS * blocks,
+                    dparam: 2 * TM_STEPS * blocks}
+            if counts != want:
+                fail(f"{name} DP steps launched {counts}, not {want} ({blocks} x 2 positions "
+                     f"x {TM_STEPS} steps)")
+            if not _copies_equal(torch, step):
+                fail(f"{name} DP: the two copies differ after the steps")
+            runs.append((losses, flats[-1]))
+            del step
+        (l1, p1), (l2, p2) = runs
+        worst = _bf16_gap(l1, single)
+        repeat = float((p1 - p2).abs().max() / p1.abs().max())
+        repeat_loss = max(abs(a - b) / abs(b) for a, b in zip(l1, l2))
+        log(f"  (b) {name} bf16 DP 2, {TM_STEPS} AdamW steps: launches a step "
+            f"{ {k: v // (2 * TM_STEPS) for k, v in want.items()} }; losses {l1} against one "
+            f"device {single} (largest gap {worst:.2e} of the first loss, tol "
+            f"{TM_BF16_LOSS_TOL}); a second run: losses {repeat_loss:.2e}, parameters "
+            f"{repeat:.2e} apart (tol {TM_REPEAT_TOL})")
+        if not worst <= TM_BF16_LOSS_TOL:
+            fail(f"{name} DP losses depart from the unsharded step's")
+        if not (repeat <= TM_REPEAT_TOL and repeat_loss <= TM_REPEAT_TOL):
+            fail(f"{name} DP: a second run from the same weights and batch differs")
+        _time_dp(torch, name, mesh, canvas, sizes, labels, card)
+        torch.cuda.empty_cache()
+    return launches
+
+
+def check_train_devices_job(torch, directory: str, corpus: list) -> None:
+    """Phase 12c: a ResNet-50 job through ``TPU_TRAIN_DEVICES``: 'all' on this
+    machine's cards, '0:2' refused on one card, a batch the mesh's positions
+    do not divide refused (two positions of cuda:0 stand in for two cards:
+    ``parallel.mesh.visible_devices`` is replaced for that job alone)."""
+    from ics_tpu_torch.core.config import Settings, reload_settings
+    from ics_tpu_torch.parallel import mesh as mesh_mod
+    from ics_tpu_torch.train import finetune as tft
+    from ics_tpu_torch.train.job import TrainingJobManager
+
+    cards = torch.cuda.device_count()
+    mesh = mesh_mod.train_mesh_from_settings(Settings(TPU_TRAIN_DEVICES="all"))
+    log(f"  (c) TPU_TRAIN_DEVICES='all' on {cards} card(s): {mesh}")
+    if mesh is None or mesh.size != cards:
+        fail("TPU_TRAIN_DEVICES='all' must give a mesh over every card")
+    db, amb_id, blobs = _train_db(directory, corpus)
+    manager = TrainingJobManager(db, Path(directory) / "weights",
+                                 fetch_bytes=lambda h, _path: blobs[h])
+    built = []
+    real_init = tft.DataParallel.__init__
+
+    def spy(self, model, train_mesh):
+        built.append((train_mesh.shape, [str(d) for d in train_mesh.devices.flat]))
+        real_init(self, model, train_mesh)
+
+    def run_job(**kw):
+        job = manager.start(amb_id, RESNET, max_steps=3, batch_size=FT_BATCH, canvas=FT_CANVAS,
+                            compute_dtype="bf16", ativar=False, **kw)
+        deadline = time.monotonic() + JOB_TIMEOUT_S
+        while job.status in ("pendente", "executando"):
+            if time.monotonic() > deadline:
+                fail(f"the TPU_TRAIN_DEVICES job did not end in {JOB_TIMEOUT_S} s")
+            time.sleep(0.1)
+        return job
+
+    tft.DataParallel.__init__ = spy
+    original_visible = mesh_mod.visible_devices
+    try:
+        reload_settings(TPU_TRAIN_DEVICES="all")
+        t = time.perf_counter()
+        job = run_job()
+        log(f"  (c) {RESNET} job, TPU_TRAIN_DEVICES='all', batch {FT_BATCH}, 3 steps: "
+            f"{job.status} in {time.perf_counter() - t:.1f} s, losses "
+            f"{[round(h['loss'], 4) for h in job.history]}, training mesh {built}")
+        if job.status != "concluido" or len(job.history) != 3 or \
+                built != [({"data": cards}, [f"cuda:{i}" for i in range(cards)])]:
+            fail(f"the TPU_TRAIN_DEVICES='all' job did not train on its mesh: {job.to_dict()}")
+        if cards == 1:
+            reload_settings(TPU_TRAIN_DEVICES="0:2")
+            job = run_job()
+            want = "TPU_TRAIN_DEVICES='0:2' is out of range for 1 visible device(s)"
+            log(f"  (c) TPU_TRAIN_DEVICES='0:2' on one card: {job.status}: {job.error}")
+            if job.status != "falhou" or job.error != want:
+                fail("TPU_TRAIN_DEVICES='0:2' on one card must be refused with the "
+                     "reference's message")
+        reload_settings(TPU_TRAIN_DEVICES="all")
+        mesh_mod.visible_devices = lambda: [torch.device("cuda", 0)] * 2
+        job = manager.start(amb_id, RESNET, max_steps=3, batch_size=3, canvas=FT_CANVAS,
+                            compute_dtype="bf16", ativar=False)
+        while job.status in ("pendente", "executando"):
+            time.sleep(0.05)
+        want = "batch_size=3 não divide pelos 2 devices de treino (TPU_TRAIN_DEVICES='all')"
+        log(f"  (c) batch 3 on a training mesh of 2 positions: {job.status}: {job.error}")
+        if job.status != "falhou" or job.error != want:
+            fail("a batch the training mesh does not divide must be refused with the "
+                 "reference's message")
+    finally:
+        tft.DataParallel.__init__ = real_init
+        mesh_mod.visible_devices = original_visible
+        reload_settings()
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def check_ring(torch) -> None:
+    """Phase 12d: ``ring_attention_padded`` at ViT-B/16's shapes (@224 and
+    @384) on ("sp",) meshes of 2 and 4, fp32 and bf16, output and gradients
+    against ``attention_reference``; then a ViT-B/16 @224 ``FineTuner`` on
+    ("sp",) 2 against the unsharded run."""
+    from ics_tpu_torch.models.vit import vit_b16
+    from ics_tpu_torch.ops.attention import attention_reference
+    from ics_tpu_torch.parallel.mesh import make_mesh
+    from ics_tpu_torch.parallel.ring_attention import ring_attention_padded
+    from ics_tpu_torch.train.finetune import FineTuner, make_optimizer
+
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    for px, shape in RING_SHAPES.items():
+        base = [torch.randn(shape, device=DEVICE, generator=gen) for _ in range(3)]
+        dout = torch.randn(shape, device=DEVICE, generator=gen)
+        for dtype, tol in ((torch.float32, RING_FP32_TOL), (torch.bfloat16, RING_BF16_TOL)):
+            def run(fn):
+                q, k, v = (t.to(dtype, copy=True).requires_grad_(True) for t in base)
+                out = fn(q, k, v)
+                out.backward(dout.to(dtype))
+                return [out.detach()] + [t.grad for t in (q, k, v)]
+
+            want = run(attention_reference)
+            for ring in (2, 4):
+                mesh = make_mesh((ring,), ("sp",), devices=mesh_devices(torch, ring))
+                got = run(lambda q, k, v: ring_attention_padded(q, k, v, mesh))
+                errs = [_rel(g, w) for g, w in zip(got, want)]
+                log(f"  (d) ring attention @{px} {list(shape)} {str(dtype)[6:]} on sp {ring}: "
+                    f"out, dq, dk, dv {', '.join(f'{e:.2e}' for e in errs)} of the largest "
+                    f"(tol {tol})")
+                if not all(e <= tol for e in errs):
+                    fail(f"ring attention @{px} {dtype} on sp {ring} departs from the reference")
+    canvas = torch.randint(0, 256, (8, 256, 256, 3), dtype=torch.uint8, device=DEVICE,
+                           generator=gen)
+    sizes = torch.full((8, 2), 256, dtype=torch.int32, device=DEVICE)
+    labels = torch.arange(8, device=DEVICE) % FT_CLASSES
+    runs = {}
+    for label, mesh in (("sp 2", make_mesh((2,), ("sp",), devices=mesh_devices(torch, 2))),
+                        ("one device", None)):
+        model = vit_b16(num_classes=FT_CLASSES, image_size=224).init_weights(
+            torch.Generator().manual_seed(0)).to(DEVICE)
+        tuner = FineTuner(model, make_optimizer(lr=FT_LR, momentum=0.9), image_size=224,
+                          resize_short=256, compute_dtype=torch.float32, mesh=mesh)
+        _, _, hist = tuner.run(iter([(canvas, sizes, labels)] * 2))
+        runs[label] = [h["loss"] for h in hist]
+        del model, tuner
+    gap = max(abs(a - b) / abs(b) for a, b in zip(runs["sp 2"], runs["one device"]))
+    log(f"  (d) ViT-B/16 @224 fp32 FineTuner, 2 SGD steps at batch 8: losses on sp 2 "
+        f"{runs['sp 2']} against one device {runs['one device']} (largest relative gap "
+        f"{gap:.2e}, tol {SP_LOSS_TOL})")
+    if not gap <= SP_LOSS_TOL:
+        fail("the SP fine-tune's losses depart from the unsharded run's")
+
+
+def check_nccl_start(torch) -> None:
+    """Phase 12e: ``maybe_initialize_distributed`` in this process, world size 1
+    (NCCL cannot run two ranks on one card), then an ``all_reduce`` of a CUDA
+    tensor over NCCL."""
+    import torch.distributed as dist
+
+    from ics_tpu_torch.core.config import Settings
+    from ics_tpu_torch.parallel import mesh as mesh_mod
+
+    s = Settings(TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}", TPU_NUM_PROCESSES=1,
+                 TPU_PROCESS_ID=0)
+    try:
+        started = mesh_mod.maybe_initialize_distributed(s)
+        again = mesh_mod.maybe_initialize_distributed(s)
+        t = torch.full((4,), 3.0, device=DEVICE)
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        backend = dist.get_backend(dist.group.WORLD)
+        log(f"  (e) maybe_initialize_distributed at {s.TPU_COORDINATOR_ADDRESS}, world size "
+            f"{dist.get_world_size()}: {started}, again {again}; backend {backend}; all_reduce "
+            f"of a CUDA tensor {t.tolist()}")
+        if not (started and again and dist.get_world_size() == 1 and t.tolist() == [3.0] * 4):
+            fail("the world-size-1 start and its all_reduce went wrong")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        mesh_mod._distributed_initialized = False
+
+
+def check_train_mesh(torch, card: str) -> dict:
+    """Phase 12: the training mesh, the multi-process start and ring
+    attention (see the module's docstring); returns the launches of the
+    kernels on its main path, (b)'s data-parallel steps."""
+    t12 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    log(f"  {cards} card(s) visible: " + (
+        "each mesh position takes a card of its own" if cards >= 4 else
+        "positions beyond the visible cards name cuda:0 again (a mesh of 2 puts both "
+        "positions on cuda:0, each on a stream of its own)"))
+    corpus = finetune_corpus()
+    with tempfile.TemporaryDirectory() as directory:
+        examples, _, fetch = finetune_examples(directory, corpus)
+        canvas, sizes = (torch.from_numpy(a).to(DEVICE) for a in _staged(examples, fetch))
+        labels = torch.tensor([ex["label"] for ex in examples], device=DEVICE)
+        t = time.perf_counter()
+        check_train_mesh_bn(torch, canvas, sizes, labels, card)
+        log(f"  (a) took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        launches = check_train_mesh_kernels(torch, canvas, sizes, labels, card)
+        log(f"  (b) took {time.perf_counter() - t:.1f} s")
+        del canvas, sizes, labels
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        check_train_devices_job(torch, directory, corpus)
+        log(f"  (c) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    check_ring(torch)
+    log(f"  (d) took {time.perf_counter() - t:.1f} s")
+    check_nccl_start(torch)
+    torch.cuda.empty_cache()
+    log(f"  [12] launches on its main path {launches}; took {time.perf_counter() - t12:.1f} s "
+        f"on {card}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -4517,6 +4997,13 @@ def main() -> None:
         "tensor-parallel head), GPipe pipeline stages through the flash kernel, hedged replicas:")
     for name, count in check_multi_device(torch, card).items():
         launches[name] += count
+
+    log(f"[12] the training mesh on the card ({card}): data-parallel steps (ResNet-50 with "
+        "BatchNorm, ConvNeXt-T and Swin-T through kernels 4 and 6), a TPU_TRAIN_DEVICES job, "
+        "ring attention and the SP fine-tune, the multi-process start:")
+    for name, count in check_train_mesh(torch, card).items():
+        key = "window_attention_qkv_bwd" if name == "window_attention_bwd" else name
+        launches[key] += count
 
     sources = {
         "flash_attention": ("ics_tpu_torch/ops/csrc/flash_attention.cu",

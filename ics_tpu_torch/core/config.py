@@ -158,9 +158,10 @@ class Settings(BaseModel):
     # runs dry, so sparse-traffic latency is unchanged.
     TPU_PIPELINED_FLUSH: bool = True
     TPU_WARMUP_ON_STARTUP: bool = True   # pre-compile batch buckets at boot
-    # persistent XLA compilation cache of the JAX package (the port runs
-    # eagerly and reads neither this nor the mesh settings; the names stay
-    # because one .env serves both packages). Empty string disables.
+    # persistent XLA compilation cache of the JAX package. The port runs
+    # eagerly and leaves this one setting unread; it reads every mesh,
+    # training and coordinator setting. The name stays because one .env
+    # serves both packages. Empty string disables.
     TPU_COMPILATION_CACHE_DIR: str = "/tmp/ics_tpu_xla_cache"
     TPU_DEVICE_DECODE: bool = True       # JPEG decode-on-TPU fast lane
     # restart-marker parallel entropy decode (native/jpeg_mt.cpp): >=2

@@ -73,13 +73,8 @@ async def lifespan(app: App):
         app.state.engine = None
         app.state.engine_pool = None
         if settings.TPU_ENABLE_INFERENCE:
-            from ics_tpu_torch.runtime.service import (
-                InferenceService,
-                InferenceServicePool,
-                warn_unserved_settings,
-            )
+            from ics_tpu_torch.runtime.service import InferenceService, InferenceServicePool
 
-            warn_unserved_settings()
             if settings.TPU_SERVING_REPLICAS > 1:
                 # replica-level serving with request hedging: the cards are
                 # partitioned into independent engines; a straggler is

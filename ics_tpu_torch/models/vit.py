@@ -1,11 +1,13 @@
-"""Vision Transformer (counterpart of ``ics_tpu/models/vit.py``), inference only.
+"""Vision Transformer (counterpart of ``ics_tpu/models/vit.py``).
 
 The patch embed is a strided convolution (cuDNN); attention goes through
 the hand-written flash kernel (``ics_tpu_torch.ops.attention``) on the
 serving path, which reads q, k and v out of the fused qkv product by their
 strides, and through its plain version with ``use_flash=False``.
 ViT-B/16 @384 has 577 tokens (24x24 patches + cls); the kernel masks the
-ragged last tile itself.
+ragged last tile itself. Training runs the plain version (the kernel has no
+backward), or ring attention over a sequence-parallel mesh
+(``MultiHeadAttention.ring``).
 """
 
 from __future__ import annotations
@@ -37,11 +39,21 @@ class MultiHeadAttention(nn.Module):
         self.head_dim = dim // num_heads
         self.qkv = Dense(dim, dim * 3, device=device)
         self.proj = Dense(dim, dim, device=device)
+        # the sequence-parallel seam (a FineTuner on an 'sp' mesh): set to
+        # (mesh, axis), the training path (use_flash off) rings the tokens
+        # over that axis (parallel.ring_attention) in place of plain attention
+        self.ring = None
 
     def forward(self, x: torch.Tensor, use_flash: bool = True) -> torch.Tensor:
         b, s, _ = x.shape
         qkv = self.qkv(x).reshape(b, s, 3, self.num_heads, self.head_dim)
-        if use_flash:
+        if self.ring is not None and not use_flash:
+            from ics_tpu_torch.parallel.ring_attention import ring_attention_padded
+
+            mesh, axis = self.ring
+            q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)     # [B, H, S, hd] views
+            out = ring_attention_padded(q, k, v, mesh, axis=axis).transpose(1, 2)
+        elif use_flash:
             # the kernel reads q, k and v out of the product by their strides
             # and writes [B, S, H, hd]: no copy on either side of it
             out = flash_attention_qkv(qkv)

@@ -199,7 +199,17 @@ class BatchNorm(nn.Module):
     over the last (channel) dimension of an NHWC tensor. ``momentum`` is
     PyTorch's: 0.1 here is the JAX package's 0.9. The forward normalises
     with the running statistics unless the module is in training mode;
-    serving folds it away (``fold_batchnorm``)."""
+    serving folds it away (``fold_batchnorm``).
+
+    In a data-parallel step (``statistics_over``) the batch statistics are
+    the whole batch's, as in the reference's one program over the mesh: the
+    mean from every position's sums, then the variance from every
+    position's sums of squared deviations from it (two passes, as
+    ``jnp.var``). The parts come through the group's ``gather``, so the
+    gradient reaches every position's rows. The backward's recomputation of
+    a rematerialised block meets no other position: it takes the parts the
+    forward gathered, with its own part recomputed, and so repeats the
+    forward's operations on the same values."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1, device=None):
@@ -210,6 +220,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(num_features, device=device))
         self.register_buffer("running_mean", torch.empty(num_features, device=device))
         self.register_buffer("running_var", torch.empty(num_features, device=device))
+        self._shared: Optional[_SharedStatistics] = None   # this step's, in a DP step
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         nn.init.ones_(self.weight)
@@ -220,8 +231,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             x32 = x.float().reshape(-1, x.shape[-1])
-            mean = x32.mean(dim=0)
-            var = x32.var(dim=0, unbiased=False)
+            mean, var = self._batch_statistics(x32)
             # the backward's recomputation of a rematerialised block sees the
             # same batch again: the statistics move once a step
             if not recomputing():
@@ -233,6 +243,73 @@ class BatchNorm(nn.Module):
         scale = self.weight.float() * torch.rsqrt(var + self.eps)
         bias = self.bias.float() - mean * scale
         return x * scale.to(x.dtype) + bias.to(x.dtype)
+
+    def _batch_statistics(self, x32: torch.Tensor) -> tuple:
+        """(mean, biased variance) per channel of the batch: of ``x32``'s rows,
+        or in a data-parallel step of every position's (the class's
+        docstring)."""
+        if not recomputing():
+            self._shared = _SharedStatistics.current()
+        shared = self._shared
+        if shared is None:
+            return x32.mean(dim=0), x32.var(dim=0, unbiased=False)
+        rows = x32.shape[0] * shared.group.size      # the chunks are equal
+        mean = shared.total(0, x32.sum(dim=0)) / rows
+        d = x32 - mean
+        return mean, shared.total(1, (d * d).sum(dim=0)) / rows
+
+
+_statistics = threading.local()
+
+
+@contextlib.contextmanager
+def statistics_over(group, index: int):
+    """In this thread, BatchNorm in training mode takes its batch statistics
+    over every position of ``group`` (``parallel.mesh.Rendezvous``), this
+    thread being position ``index``."""
+    before = getattr(_statistics, "at", None)
+    _statistics.at = (group, index)
+    try:
+        yield
+    finally:
+        _statistics.at = before
+
+
+class _SharedStatistics:
+    """One BatchNorm call's meeting with the other positions: ``total(k,
+    part)`` sums every position's ``part`` in position order. In the forward
+    the parts come from ``group.gather`` and are kept; the backward's
+    recomputation takes the kept parts with its own ``part`` in its place."""
+
+    def __init__(self, group, index: int):
+        self.group = group
+        self.index = index
+        self.kept: list = [None, None]
+
+    @classmethod
+    def current(cls) -> Optional["_SharedStatistics"]:
+        at = getattr(_statistics, "at", None)
+        return None if at is None else cls(*at)
+
+    def total(self, k: int, part: torch.Tensor) -> torch.Tensor:
+        if recomputing():
+            parts = list(self.kept[k])
+            parts[self.index] = part
+        else:
+            parts = self.group.gather(self.index, part)
+            self.kept[k] = [p.detach() for p in parts]
+        return torch.stack(parts).sum(dim=0)
+
+    def __deepcopy__(self, memo):
+        return None     # a step's meeting is no part of a copy of the model
+
+
+def release_statistics(model: nn.Module) -> None:
+    """Drop what a data-parallel step's BatchNorm layers kept for the
+    backward (call after it)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m._shared = None
 
 
 _remat = threading.local()

@@ -224,19 +224,29 @@ def draw_mix(cfg: AugmentConfig, generator: torch.Generator) -> MixPlan:
     return MixPlan(kind, lam, cy, cx)
 
 
-def mixup(images: torch.Tensor, targets: torch.Tensor, lam: float):
+def _rolled(images: torch.Tensor, targets: torch.Tensor, rolled: Optional[tuple]) -> tuple:
+    return rolled if rolled is not None else (images.roll(1, 0), targets.roll(1, 0))
+
+
+def mixup(images: torch.Tensor, targets: torch.Tensor, lam: float,
+          rolled: Optional[tuple] = None):
     """Blend each example with its batch neighbour (a roll by one) by ``lam``;
-    targets are probability rows [B, C]."""
+    targets are probability rows [B, C]. ``rolled``: the neighbours
+    (images, targets) where the batch is a chunk of a larger one
+    (``mix_batch``)."""
+    r_images, r_targets = _rolled(images, targets, rolled)
     mixed_images = (torch.tensor(lam, dtype=images.dtype) * images
-                    + torch.tensor(1.0 - lam, dtype=images.dtype) * images.roll(1, 0))
-    mixed_targets = lam * targets + (1.0 - lam) * targets.roll(1, 0)
+                    + torch.tensor(1.0 - lam, dtype=images.dtype) * r_images)
+    mixed_targets = lam * targets + (1.0 - lam) * r_targets
     return mixed_images, mixed_targets
 
 
-def cutmix(images: torch.Tensor, targets: torch.Tensor, lam: float, cy: float, cx: float):
+def cutmix(images: torch.Tensor, targets: torch.Tensor, lam: float, cy: float, cx: float,
+           rolled: Optional[tuple] = None):
     """Paste a box of area fraction ``1 - lam`` centred at (cy H, cx W) from
     the batch neighbour; the targets mix by the box's area after it is
-    clipped to the image."""
+    clipped to the image. ``rolled`` as ``mixup``'s."""
+    r_images, r_targets = _rolled(images, targets, rolled)
     _, h, w, _ = images.shape
     cut = math.sqrt(1.0 - lam)
     cut_h, cut_w = torch.tensor(cut * h), torch.tensor(cut * w)   # fp32, as the reference
@@ -248,15 +258,19 @@ def cutmix(images: torch.Tensor, targets: torch.Tensor, lam: float, cy: float, c
     box = (((rows >= y0) & (rows < y1))[:, None] & ((cols >= x0) & (cols < x1))[None, :]).float()
     lam_adj = 1.0 - float(box.mean())
     mask = box.to(device=images.device, dtype=images.dtype)[None, :, :, None]
-    mixed_images = images * (1.0 - mask) + images.roll(1, 0) * mask
-    mixed_targets = lam_adj * targets + (1.0 - lam_adj) * targets.roll(1, 0)
+    mixed_images = images * (1.0 - mask) + r_images * mask
+    mixed_targets = lam_adj * targets + (1.0 - lam_adj) * r_targets
     return mixed_images, mixed_targets
 
 
-def mix_batch(images: torch.Tensor, targets: torch.Tensor, plan: MixPlan):
-    """Apply a batch's ``MixPlan``."""
+def mix_batch(images: torch.Tensor, targets: torch.Tensor, plan: MixPlan,
+              rolled: Optional[tuple] = None):
+    """Apply a batch's ``MixPlan``. Where ``images`` and ``targets`` are a
+    chunk of rows of the batch (a data-parallel step), ``rolled`` holds the
+    batch's roll by one over the chunk's rows, (images, targets): its first
+    row is the previous chunk's last."""
     if plan.kind == "mixup":
-        return mixup(images, targets, plan.lam)
+        return mixup(images, targets, plan.lam, rolled)
     if plan.kind == "cutmix":
-        return cutmix(images, targets, plan.lam, plan.cy, plan.cx)
+        return cutmix(images, targets, plan.lam, plan.cy, plan.cx, rolled)
     return images, targets

@@ -13,9 +13,9 @@ that drives several devices. A ``Mesh`` is a numpy array of
 ``torch.device`` with axis names; a position of the mesh names a device, and
 two positions may name the same one (one card then plays several positions).
 Each position has a CUDA stream of its own (``Position``), kept per
-position, not per device. Collectives are device-to-device copies on the
-receiver's stream, ordered by an event (``send``); ``torch.distributed`` is
-not used here.
+position, not per device. Collectives within the process are
+device-to-device copies on the receiver's stream, ordered by an event
+(``send``); across processes they are ``torch.distributed``'s.
 
 ``MeshModel`` serves a folded model on a ``("data"[, "model"])`` mesh:
 
@@ -35,8 +35,22 @@ not used here.
   trunk on every position of a ``model`` group; both compute the same
   function.)
 
-Not served yet: the training mesh (``TPU_TRAIN_DEVICES``) and the multi-host
-initialisation (``TPU_COORDINATOR_ADDRESS``).
+Training (``train_mesh_from_settings``, ``TPU_TRAIN_DEVICES``) runs one
+model over the ``data`` positions of a mesh: each position holds a copy of
+the model and runs its chunk of the batch on a host thread of its own, under
+its stream, the threads taking turns (``Rendezvous.run``). The positions meet only in the forward,
+where BatchNorm in training mode takes its statistics over the whole batch
+(``Rendezvous.gather``, through ``nn.layers.statistics_over``); the
+backward is one autograd pass from the caller's thread over the sum of the
+positions' losses (``train.finetune``).
+
+``maybe_initialize_distributed`` (``TPU_COORDINATOR_ADDRESS``,
+``TPU_NUM_PROCESSES``, ``TPU_PROCESS_ID``) starts ``torch.distributed`` over
+TCP. JAX makes ``jax.devices()`` global once its processes are started, and
+a mesh then spans them; torch does not, and the port's meshes stay over this
+process's own cards (``visible_devices``): a deliberate divergence
+(``ROADMAP.md`` §3). Work across processes goes through ``torch.distributed``'s
+collectives.
 """
 
 from __future__ import annotations
@@ -44,6 +58,8 @@ from __future__ import annotations
 import contextlib
 import copy
 import logging
+import threading
+from concurrent.futures import ThreadPoolExecutor, wait
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
 
@@ -168,6 +184,30 @@ def make_mesh(shape: Optional[Sequence[int]] = None,
     return Mesh(arr[: int(np.prod(shape))].reshape(tuple(shape)), axes)
 
 
+_distributed_initialized = False
+
+
+def maybe_initialize_distributed(settings) -> bool:
+    """The multi-process start: ``torch.distributed.init_process_group`` over
+    TCP at ``TPU_COORDINATOR_ADDRESS`` ("host:port" of process 0), with
+    ``TPU_NUM_PROCESSES`` and this process's ``TPU_PROCESS_ID``, on PyTorch's
+    default pair of backends (gloo for CPU tensors, NCCL for CUDA ones).
+    A no-op without an address; idempotent across callers (serving and the
+    train CLI). Returns whether this process has been started. The meshes
+    stay over this process's own cards (the module's docstring)."""
+    global _distributed_initialized
+    if _distributed_initialized or not settings.TPU_COORDINATOR_ADDRESS:
+        return _distributed_initialized
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        dist.init_process_group(init_method=f"tcp://{settings.TPU_COORDINATOR_ADDRESS}",
+                                world_size=int(settings.TPU_NUM_PROCESSES),
+                                rank=int(settings.TPU_PROCESS_ID))
+    _distributed_initialized = True
+    return True
+
+
 def mesh_from_settings(settings, devices=None) -> Optional[Mesh]:
     """The serving mesh from TPU_MESH_SHAPE / TPU_MESH_AXES / TPU_PP_STAGES
     over ``devices`` (default: every visible card, each once).
@@ -180,6 +220,7 @@ def mesh_from_settings(settings, devices=None) -> Optional[Mesh]:
     - TPU_PP_STAGES >= 2: a ("pp",) mesh over the first TPU_PP_STAGES
       devices; with an explicit TPU_MESH_SHAPE it raises.
     """
+    maybe_initialize_distributed(settings)
     shape = settings.get_mesh_shape()
     devices = list(devices) if devices is not None else visible_devices()
     pp = int(getattr(settings, "TPU_PP_STAGES", 0) or 0)
@@ -209,6 +250,214 @@ def mesh_from_settings(settings, devices=None) -> Optional[Mesh]:
         )
     axes = settings.get_mesh_axes()[: len(shape)]
     return make_mesh(shape=shape, axes=axes, devices=devices)
+
+
+def train_mesh_from_settings(settings, devices=None) -> Optional[Mesh]:
+    """The training mesh from ``TPU_TRAIN_DEVICES``, over ``devices`` (default:
+    every visible card, each once):
+
+    - ``""`` (default): no mesh; training runs on the job's device;
+    - ``"all"``: a ``("data",)`` mesh over every device;
+    - ``"a:b"`` (a python slice of ``devices``, e.g. ``"6:8"``): a
+      ``("data",)`` mesh over that contiguous slice, so the cards outside it
+      never see training work. A one-device slice still builds a mesh: it
+      pins training to that card.
+
+    A bare number, a spec that is no slice, a slice out of range and an
+    empty selection raise, with the reference's messages. A slice that
+    shares devices with the serving mesh (``mesh_from_settings``) is warned
+    about: serving and training then contend there. Devices are compared by
+    their position in ``devices``, as the reference compares device ids (two
+    CPU positions have the same name)."""
+    spec = (settings.TPU_TRAIN_DEVICES or "").strip().lower()
+    if not spec:
+        return None
+    devices = list(devices) if devices is not None else visible_devices()
+    if spec == "all":
+        start, end = 0, len(devices)
+    else:
+        if ":" not in spec:
+            raise ValueError(
+                f"TPU_TRAIN_DEVICES={settings.TPU_TRAIN_DEVICES!r}: expected "
+                "'', 'all' or a 'start:end' slice (a bare number is "
+                "ambiguous — write '6:7' for device 6 only)"
+            )
+        try:
+            start_s, _, end_s = spec.partition(":")
+            start = int(start_s) if start_s else 0
+            end = int(end_s) if end_s else len(devices)
+        except ValueError:
+            raise ValueError(
+                f"TPU_TRAIN_DEVICES={settings.TPU_TRAIN_DEVICES!r}: expected "
+                "'', 'all' or a 'start:end' slice"
+            )
+        if start < 0 or end > len(devices) or start >= end:
+            # loud like mesh_from_settings: silently training on fewer
+            # cards than configured is an invisible capacity loss
+            raise RuntimeError(
+                f"TPU_TRAIN_DEVICES={settings.TPU_TRAIN_DEVICES!r} is out of "
+                f"range for {len(devices)} visible device(s)"
+            )
+    group = devices[start:end]
+    if not group:
+        raise RuntimeError(
+            f"TPU_TRAIN_DEVICES={settings.TPU_TRAIN_DEVICES!r} selects no "
+            f"device (have {len(devices)})"
+        )
+    mesh = make_mesh(shape=(len(group),), axes=("data",), devices=group)
+    # isolation holds only where serving does not also cover the slice; with
+    # TPU_MESH_SHAPE=auto serving spans every card
+    serving = None
+    if hasattr(settings, "get_mesh_shape"):
+        try:
+            serving = mesh_from_settings(settings, devices=devices)
+        except Exception:  # a mis-sized explicit shape raises on its own path
+            serving = None
+    if serving is not None:
+        # mesh_from_settings lays its mesh over the first positions of devices
+        overlap = set(range(serving.size)) & set(range(start, end))
+        if overlap:
+            logger.warning(
+                "TPU_TRAIN_DEVICES=%s overlaps the serving mesh on device(s) "
+                "%s — training WILL contend with serving there. For real "
+                "isolation shrink TPU_MESH_SHAPE so serving stays off the "
+                "training slice.",
+                settings.TPU_TRAIN_DEVICES, sorted(overlap),
+            )
+    return mesh
+
+
+def data_positions(mesh: Mesh) -> list:
+    """The first position of each ``data`` index (with a ``model`` axis, the
+    one at model index 0), in data order: where a data-parallel step runs
+    its chunks."""
+    axes = mesh.axis_names
+    if "data" not in axes:
+        raise ValueError(f"a data-parallel mesh has a 'data' axis; got {axes}")
+    pos = np.moveaxis(mesh.positions, axes.index("data"), 0)
+    return list(pos.reshape(pos.shape[0], -1)[:, 0])
+
+
+class Rendezvous:
+    """The positions of a data-parallel step, each run on a host thread of its
+    own (``run``), and where they meet in the forward (``gather``).
+
+    ``gather`` hands back every position's tensor, in position order, for
+    use on the caller's position: its own tensor as it is, the others' through
+    ``send`` (the same tensor on one device, a copy across devices), so the
+    result stays in the autograd graph. The backward then needs no meeting:
+    one ``backward()`` from the caller's thread routes each part's gradient
+    back to the position that made it. (A collective that blocked inside the
+    backward could deadlock: autograd runs every position of one card on
+    that card's single worker thread.)
+
+    One thread runs at a time: the threads take turns in position order, a
+    thread giving the turn to the next when it reaches a meeting or ends.
+    Each position's work still runs on its own stream, so the devices
+    overlap; what is serial is the host's enqueueing, which is serial under
+    the interpreter lock anyway. Two threads let run at once trade the lock
+    at every PyTorch call (each releases it): on an H100 each took 84.9 ms
+    to enqueue a ResNet-50 forward, against 56.4 ms for both in turns. The threads are made at the first ``run`` and kept: a fresh
+    thread's first CUDA work pays again for what PyTorch keeps per thread
+    (cuDNN's plans among it), 112.4 ms of host time for that forward against
+    24.7 ms in a kept thread (``tools.profile_dp_step``; ``PERF.md`` §6)."""
+
+    def __init__(self, positions: Sequence[Position]):
+        self.positions = list(positions)
+        self._turn = threading.Condition()
+        self._holder: Optional[int] = None     # the position whose thread may run
+        self._done: list = []
+        self._failed = False
+        self._meetings: list = []              # a counter a position
+        self._slots = [[None] * len(self.positions) for _ in range(2)]
+        self._pool: Optional[ThreadPoolExecutor] = None
+
+    @property
+    def size(self) -> int:
+        return len(self.positions)
+
+    def _wait_for_turn(self, index: int) -> None:
+        with self._turn:
+            while self._holder != index and not self._failed:
+                self._turn.wait()
+            if self._failed:
+                raise threading.BrokenBarrierError("another position failed")
+
+    def _pass_turn(self, index: int, done: bool = False) -> None:
+        with self._turn:
+            self._done[index] = done
+            for k in range(1, self.size + 1):
+                nxt = (index + k) % self.size
+                if not self._done[nxt]:
+                    self._holder = nxt
+                    break
+            else:
+                self._holder = None
+            self._turn.notify_all()
+
+    def gather(self, index: int, t: torch.Tensor) -> list:
+        """Every position's ``t`` (``index`` is the caller's position), on the
+        caller's device and ordered on its stream. Called by every position
+        the same number of times, in the same order."""
+        m = self._meetings[index]
+        self._meetings[index] = m + 1
+        # meeting m's parts, kept until every position has read them: a
+        # position is at most one meeting ahead of another
+        slots = self._slots[m % 2]
+        slots[index] = t
+        self._pass_turn(index)
+        self._wait_for_turn(index)       # the turn went round: every part is in
+        dst = self.positions[index]
+        return [t if j == index else send(s, self.positions[j], dst)
+                for j, s in enumerate(slots)]
+
+    def run(self, fn: Callable[[int], object]) -> list:
+        """``fn(i)`` for every position ``i``, each on a thread of its own with
+        the position's stream current and BatchNorm's statistics taken over
+        the group (``nn.layers.statistics_over``), in turns (the class's
+        docstring); the results in position order. Each position's stream
+        first waits for the caller's current streams, so it reads what the
+        caller enqueued before. An error in one position ends the others' at
+        their next meeting, and is raised here once every position has
+        ended."""
+        from ics_tpu_torch.nn.layers import statistics_over
+
+        first = self.positions[0].device
+        for pos in self.positions:
+            if pos.stream is not None:
+                pos.stream.wait_stream(torch.cuda.current_stream(pos.device))
+                if first != pos.device:
+                    pos.stream.wait_stream(torch.cuda.current_stream(first))
+        self._done = [False] * self.size
+        self._meetings = [0] * self.size
+        self._failed = False
+        self._holder = 0
+
+        def body(i: int):
+            try:
+                self._wait_for_turn(i)
+                with self.positions[i].active(), statistics_over(self, i):
+                    out = fn(i)
+            except BaseException:
+                with self._turn:
+                    self._failed = True      # no other position waits for this one
+                    self._turn.notify_all()
+                raise
+            self._pass_turn(i, done=True)
+            return out
+
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(max_workers=self.size,
+                                            thread_name_prefix="position")
+        futures = [self._pool.submit(body, i) for i in range(self.size)]
+        wait(futures)
+        errors = [f.exception() for f in futures]
+        if any(e is not None for e in errors):
+            # the position that failed first, not one that its failure woke
+            raise next((e for e in errors if e is not None
+                        and not isinstance(e, threading.BrokenBarrierError)),
+                       next(e for e in errors if e is not None))
+        return [f.result() for f in futures]
 
 
 # -- how a tensor is laid out over a mesh ------------------------------------------

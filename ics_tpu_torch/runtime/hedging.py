@@ -80,11 +80,18 @@ class HedgedInferenceService:
         into TPU_SERVING_REPLICAS groups and build one pinned
         InferenceService per group: a pure-DP mesh over each group, also
         for a one-device group (the mesh pins the replica to its device), or
-        a ("pp",) mesh under TPU_PP_STAGES."""
-        from ics_tpu_torch.parallel.mesh import make_mesh, visible_devices
+        a ("pp",) mesh under TPU_PP_STAGES. The multi-process start runs
+        first (``maybe_initialize_distributed``), as in the reference; the
+        groups stay over this process's cards."""
+        from ics_tpu_torch.parallel.mesh import (
+            make_mesh,
+            maybe_initialize_distributed,
+            visible_devices,
+        )
         from ics_tpu_torch.runtime.service import InferenceService
 
         settings = settings or global_settings
+        maybe_initialize_distributed(settings)
         devices = list(devices) if devices is not None else visible_devices()
         groups = partition_devices(devices, settings.TPU_SERVING_REPLICAS)
         pp = int(getattr(settings, "TPU_PP_STAGES", 0) or 0)

@@ -69,22 +69,6 @@ def _warn_once(key: str, message: str) -> None:
         logger.warning(message)
 
 
-def warn_unserved_settings() -> None:
-    """Say once, at warning level, each setting that the port takes and does
-    not serve yet, so that a deployment that relies on one is not left to
-    find out from its traffic."""
-    if settings.TPU_COORDINATOR_ADDRESS.strip():
-        _warn_once("coordinator_address",
-                   f"TPU_COORDINATOR_ADDRESS={settings.TPU_COORDINATOR_ADDRESS!r}, but the "
-                   "multi-host initialisation is not ported yet (ROADMAP.md item 9b): this "
-                   "process serves on its own cards only")
-    if settings.TPU_TRAIN_DEVICES.strip():
-        _warn_once("train_devices",
-                   f"TPU_TRAIN_DEVICES={settings.TPU_TRAIN_DEVICES!r}, but training on a "
-                   "device group of its own is not ported yet (ROADMAP.md item 9b): the "
-                   "fine-tuner runs on one GPU")
-
-
 class InferenceService:
     def __init__(self, engine: InferenceEngine, deadline_us: int = 2000,
                  max_deadline_us: int = 50_000, pipelined: bool = True,
@@ -172,7 +156,6 @@ class InferenceService:
         engine for tests without going round the settings' mesh."""
         from ics_tpu_torch.parallel.mesh import mesh_from_settings
 
-        warn_unserved_settings()
         if "mesh" in engine_overrides:
             mesh = engine_overrides.pop("mesh")
         else:

@@ -13,9 +13,27 @@ On the card the depthwise and window-attention kernels run forward and
 backward in training. The flash-attention kernel and the fused bottleneck
 chains have no backward, as the TPU kernels they replace have none: the
 ``FineTuner`` turns them off by name (``training_kernels``), as the
-reference trains ViT on its plain attention and ResNet unfolded. The sharded
-variants of the reference (a device mesh, sequence parallelism) are not
-ported (ROADMAP.md item 9b).
+reference trains ViT on its plain attention and ResNet unfolded.
+
+On a device mesh (``FineTuner(mesh=...)``, ``TPU_TRAIN_DEVICES``) the step is
+the reference's sharded step, the same function as the unsharded step over
+the whole batch, run the PyTorch way (``DataParallel``): the batch is split
+into equal row chunks over the ``data`` positions, each position runs its
+chunk through a copy of the model on its device, on a host thread and CUDA
+stream of its own (``parallel.mesh.Rendezvous``), and BatchNorm takes its
+statistics over the whole batch (``nn.layers.BatchNorm``). One backward over
+the sum of the positions' losses (each its chunk's mean over the number of
+positions) gives each copy its part of the gradient; the parts are summed
+into the first copy, the model itself, whose one optimizer steps, and the
+other copies take its parameters and statistics again. Augment draws its
+plan for the whole batch on the host, and mixup's roll by one crosses the
+chunks' edges through the positions' meeting. With a ``model`` axis the
+head is not split by classes as the reference's ``shard_head_for_tp``
+splits it: each ``data`` position trains the whole head, and the positions
+of the ``model`` axis beyond the first stay idle (a deliberate divergence,
+the same function; ``ROADMAP.md`` §3). A pure ``sp`` mesh is sequence
+parallelism: the ViT blocks' attention rings the tokens over its positions
+(``parallel.ring_attention``) and the batch stays whole.
 
 The numpy parts (metrics, calibration) are the reference's, unchanged in
 behaviour. ``fold_temperature`` works on the port's state dicts.
@@ -23,6 +41,7 @@ behaviour. ``fold_temperature`` works on the port's state dicts.
 
 from __future__ import annotations
 
+import copy
 import logging
 import math
 from typing import Any, Callable, NamedTuple, Optional, Union
@@ -326,6 +345,15 @@ def _accuracy(logits: torch.Tensor, labels: torch.Tensor, multi_label: bool) -> 
     return (logits.argmax(dim=-1) == labels).float().mean()
 
 
+def _objective(logits: torch.Tensor, labels: torch.Tensor, targets: Optional[torch.Tensor],
+               multi_label: bool) -> torch.Tensor:
+    if multi_label:
+        return sigmoid_bce_loss(logits, labels if targets is None else targets)
+    if targets is None:
+        return cross_entropy_loss(logits, labels)
+    return soft_cross_entropy_loss(logits, targets)
+
+
 def make_train_step(model: nn.Module, optimizer: TrainOptimizer,
                     compute_dtype: torch.dtype = torch.bfloat16, train_backbone: bool = True,
                     multi_label: bool = False):
@@ -340,13 +368,7 @@ def make_train_step(model: nn.Module, optimizer: TrainOptimizer,
     def step(images: torch.Tensor, labels: torch.Tensor, targets: Optional[torch.Tensor] = None):
         model.train(train_backbone)
         logits = model(images.to(compute_dtype))
-        goal = labels if targets is None else targets
-        if multi_label:
-            loss = sigmoid_bce_loss(logits, goal)
-        elif targets is None:
-            loss = cross_entropy_loss(logits, labels)
-        else:
-            loss = soft_cross_entropy_loss(logits, targets)
+        loss = _objective(logits, labels, targets, multi_label)
         loss.backward()
         optimizer.step()
         logits = logits.detach()
@@ -419,6 +441,164 @@ def make_augmented_train_step(model: nn.Module, optimizer: TrainOptimizer, augme
     return step
 
 
+class DataParallel:
+    """``model`` trained over the ``data`` positions of ``mesh``
+    (``parallel.mesh.data_positions``; the module's docstring): ``model``
+    itself, moved to the first position's device, and a copy of it on each
+    other position's device. ``step`` runs one data-parallel step; after it
+    every copy holds the model's parameters and statistics, bit for bit."""
+
+    def __init__(self, model: nn.Module, mesh):
+        from ics_tpu_torch.parallel.mesh import Rendezvous, data_positions
+
+        self.positions = data_positions(mesh)
+        model.to(self.positions[0].device)
+        self.copies = [model] + [copy.deepcopy(model).to(pos.device)
+                                 for pos in self.positions[1:]]
+        self.group = Rendezvous(self.positions)
+
+    def chunk(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """Position ``i``'s rows of ``t``: equal chunks in position order, as
+        ``batch_sharding`` lays a batch out; a batch they do not divide
+        raises."""
+        n = len(self.positions)
+        if t.shape[0] % n:
+            raise ValueError(f"dimension 0 of {tuple(t.shape)} does not split over data={n}")
+        size = t.shape[0] // n
+        return t.narrow(0, i * size, size)
+
+    def rows(self, i: int, tensors) -> list:
+        """Position ``i``'s chunk of each of ``tensors`` on its device (in its
+        thread: the copy is ordered on its stream)."""
+        dev = self.positions[i].device
+        return [self.chunk(torch.as_tensor(t), i).to(dev, non_blocking=True) for t in tensors]
+
+    def step(self, optimizer: TrainOptimizer, prepare: Callable, compute_dtype: torch.dtype,
+             train_backbone: bool, multi_label: bool) -> dict:
+        """One step: ``prepare(i, group) -> (images, labels, targets or None)``
+        makes position ``i``'s chunk on its device (in its thread, under its
+        stream); the forward, one backward, the gradients summed into the
+        model, ``optimizer.step()``, and the copies made equal to the model
+        again. Returns the step's metrics over the whole batch."""
+        from ics_tpu_torch.nn.layers import release_statistics
+        from ics_tpu_torch.parallel.mesh import Position, send
+
+        group = self.group
+        n = group.size
+
+        def run(i: int):
+            model = self.copies[i]
+            model.train(train_backbone)
+            images, labels, targets = prepare(i, group)
+            logits = model(images.to(compute_dtype))
+            loss = _objective(logits, labels, targets, multi_label) / n
+            return loss, _accuracy(logits.detach(), labels, multi_label) / n
+
+        parts = group.run(run)
+        home = Position.current(self.positions[0].device)
+        loss = torch.stack([send(l, pos, home) for (l, _), pos in zip(parts, self.positions)]).sum()
+        accuracy = torch.stack([send(a, pos, home)
+                                for (_, a), pos in zip(parts, self.positions)]).sum()
+        try:
+            loss.backward()
+        finally:
+            for model in self.copies:
+                release_statistics(model)
+        master = self.copies[0]
+        for other in self.copies[1:]:
+            for p, q in zip(master.parameters(), other.parameters()):
+                if q.grad is not None:
+                    g = q.grad.to(p.device)
+                    p.grad = g if p.grad is None else p.grad.add_(g)
+                    q.grad = None
+        optimizer.step()
+        with torch.no_grad():
+            for other in self.copies[1:]:
+                for p, q in zip(master.parameters(), other.parameters()):
+                    q.copy_(p)
+                for b, c in zip(master.buffers(), other.buffers()):
+                    c.copy_(b)
+        return {"loss": loss.detach(), "accuracy": accuracy}
+
+
+def make_sharded_preproc_train_step(model: nn.Module, optimizer: TrainOptimizer, mesh,
+                                    image_size: int = 224, resize_short: int = 256,
+                                    compute_dtype: torch.dtype = torch.bfloat16,
+                                    train_backbone: bool = True, multi_label: bool = False):
+    """``make_preproc_train_step`` over the ``data`` positions of ``mesh``
+    (``DataParallel``): the same ``step(canvas_u8, sizes, labels)``, each
+    position preprocessing its rows. ``step.data_parallel`` is the copies."""
+    from ics_tpu_torch.ops.preproc import preprocess_batch
+
+    dp = DataParallel(model, mesh)
+
+    def step(canvas_u8, sizes, labels):
+        def prepare(i, group):
+            canvas, sz, lab = dp.rows(i, (canvas_u8, sizes, labels))
+            images = preprocess_batch(canvas, sz, out_size=image_size,
+                                      resize_short=resize_short, dtype=compute_dtype)
+            return images, lab, None
+
+        return dp.step(optimizer, prepare, compute_dtype, train_backbone, multi_label)
+
+    step.data_parallel = dp
+    return step
+
+
+def make_sharded_augmented_train_step(model: nn.Module, optimizer: TrainOptimizer, mesh,
+                                      augment, image_size: int = 224,
+                                      compute_dtype: torch.dtype = torch.bfloat16,
+                                      train_backbone: bool = True, multi_label: bool = False):
+    """``make_augmented_train_step`` over the ``data`` positions of ``mesh``:
+    the same ``step(canvas_u8, sizes, labels, generator=None, plan=None,
+    mix=None)``. The plan and the mixing are drawn for the whole batch on
+    the host, as the unsharded step draws them, and each position takes its
+    rows of the plan; mixup's and CutMix's roll by one takes each chunk's
+    first neighbour from the previous position (``mix_batch``'s
+    ``rolled``), so every row is mixed with the row the unsharded step mixes
+    it with."""
+    from ics_tpu_torch.ops.augment import (
+        AugmentPlan,
+        apply_plan,
+        draw_mix,
+        draw_plan,
+        mix_batch,
+        smooth_labels,
+        smooth_multilabel,
+    )
+
+    dp = DataParallel(model, mesh)
+    num_classes = model.num_classes
+
+    def step(canvas_u8, sizes, labels, generator: Optional[torch.Generator] = None,
+             plan=None, mix=None):
+        if plan is None:
+            plan = draw_plan(torch.as_tensor(sizes), image_size, augment, generator)
+        if mix is None:
+            mix = draw_mix(augment, generator)
+
+        def prepare(i, group):
+            canvas, sz, lab = dp.rows(i, (canvas_u8, sizes, labels))
+            rows = AugmentPlan(*(dp.chunk(t, i) for t in plan))
+            images = apply_plan(canvas, sz, rows, image_size, augment, dtype=compute_dtype)
+            if multi_label:
+                targets = smooth_multilabel(lab.float(), augment.label_smoothing)
+            else:
+                targets = smooth_labels(lab, num_classes, augment.label_smoothing)
+            rolled = None
+            if mix.kind is not None:
+                prev = (i - 1) % group.size
+                rolled = tuple(torch.cat([group.gather(i, t[-1:])[prev], t[:-1]])
+                               for t in (images, targets))
+            images, targets = mix_batch(images, targets, mix, rolled)
+            return images, lab, targets
+
+        return dp.step(optimizer, prepare, compute_dtype, train_backbone, multi_label)
+
+    step.data_parallel = dp
+    return step
+
+
 def step_generator(seed: int, step: int) -> torch.Generator:
     """The augmentation's generator for step ``step`` (absolute) of a run
     seeded ``seed``: a resumed run draws the crops it would have drawn
@@ -453,9 +633,33 @@ class FineTuner:
                  mesh: Any = None, augment: Any = None, seed: int = 0,
                  linear_probe: bool = False, multi_label: bool = False,
                  ema_decay: float = 0.0, grad_accum: int = 1, llrd: float = 0.0):
-        if mesh is not None:
-            raise ValueError("FineTuner: training on a device mesh (data or sequence "
-                             "parallelism) is not ported; see ROADMAP.md item 9b")
+        # a mesh with an 'sp' axis is sequence parallelism: the ViT blocks'
+        # attention rings the tokens over it and the step runs unsharded, the
+        # batch whole. Pure-SP only, as the reference (DPxSP would gather the
+        # batch across 'data' in every block; compose DP with grad_accum)
+        if mesh is not None and "sp" in mesh.axis_names:
+            if set(mesh.axis_names) != {"sp"}:
+                raise ValueError(
+                    "mesh de treino com 'sp' deve ser puro-SP (eixos "
+                    f"{mesh.axis_names}) — DPxSP não é suportado"
+                )
+            blocks = getattr(model, "blocks", None)
+            if not blocks or not hasattr(blocks[0], "attn") \
+                    or not hasattr(blocks[0].attn, "ring"):
+                raise ValueError(
+                    "sequence parallelism requer um tronco transformer "
+                    "com atenção ring-capaz (família ViT)"
+                )
+            for blk in blocks:
+                blk.attn.ring = (mesh, "sp")
+            mesh = None
+        elif mesh is not None:
+            from ics_tpu_torch.parallel.mesh import data_positions
+
+            # the model lives on the first data position (data_positions
+            # refuses a mesh with no 'data' axis)
+            model.to(data_positions(mesh)[0].device)
+        self.mesh = mesh
         self.model = model
         # per-block rematerialisation: the backward recomputes a block's
         # internals instead of keeping them. None leaves model.remat as it is
@@ -491,6 +695,18 @@ class FineTuner:
                               grad_accum=self._grad_accum)
 
     def make_step(self, optimizer: TrainOptimizer):
+        """The step over this tuner's mesh (``DataParallel``; its copies are
+        made now, from the model's present state) or on the model's device."""
+        if self.mesh is not None:
+            if self._augment is not None:
+                return make_sharded_augmented_train_step(
+                    self.model, optimizer, self.mesh, self._augment, self._image_size,
+                    self._compute_dtype, train_backbone=not self._linear_probe,
+                    multi_label=self._multi_label)
+            return make_sharded_preproc_train_step(
+                self.model, optimizer, self.mesh, self._image_size, self._resize_short,
+                self._compute_dtype, train_backbone=not self._linear_probe,
+                multi_label=self._multi_label)
         if self._augment is not None:
             return make_augmented_train_step(
                 self.model, optimizer, self._augment, self._image_size, self._compute_dtype,

@@ -17,9 +17,11 @@ threads do: a stream of its own showed no gain past the host's spread for the
 classify requests served beside a running job (``PERF.md`` §6,
 ``tools/bench_job_serving.py``). The kernels' launch counts (``ops.LAUNCHES``) are
 the process's: a job's launches show in ``/inferencia/status`` beside the
-served ones. The training mesh of the reference (``TPU_TRAIN_DEVICES``) is not
-ported: ``runtime.service.warn_unserved_settings`` says so at startup, and a
-job trains on one device.
+served ones. With ``TPU_TRAIN_DEVICES`` a job trains data-parallel on the
+training mesh (``parallel.mesh.train_mesh_from_settings``; the positions of
+the mesh run on streams of their own, ``train.finetune.DataParallel``), the
+model living on the mesh's first card; a batch the mesh's device count does
+not divide is refused, with the reference's message.
 """
 
 from __future__ import annotations
@@ -811,6 +813,18 @@ class TrainingJobManager:
                     f"checkpoint de retomada não encontrado: {retomar_de} "
                     f"(modelo {job.model_name}, ambiente {job.id_amb})"
                 )
+            from ics_tpu_torch.core.config import settings
+            from ics_tpu_torch.parallel.mesh import train_mesh_from_settings
+
+            train_mesh = train_mesh_from_settings(settings)
+            if train_mesh is not None:
+                n_train_dev = int(train_mesh.devices.size)
+                if batch_size % n_train_dev:
+                    raise RuntimeError(
+                        f"batch_size={batch_size} não divide pelos "
+                        f"{n_train_dev} devices de treino "
+                        f"(TPU_TRAIN_DEVICES={settings.TPU_TRAIN_DEVICES!r})"
+                    )
             tuner = FineTuner(
                 model,
                 optimizer=make_optimizer(
@@ -835,6 +849,7 @@ class TrainingJobManager:
                 ema_decay=ema_decaimento,
                 grad_accum=acumular_gradientes,
                 llrd=llrd,
+                mesh=train_mesh,
             )
             train_examples, eval_examples = split_examples(
                 examples, eval_fraction=eval_fraction, seed=seed

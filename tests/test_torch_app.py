@@ -410,9 +410,12 @@ async def test_modelo_that_cannot_be_built_answers_422(served, monkeypatch, erro
     assert "resnet50" in r.text and str(error) in r.text
 
 
-_UNSERVED = {
-    "TPU_TRAIN_DEVICES": ("1,2", "TPU_TRAIN_DEVICES"),
-    "TPU_COORDINATOR_ADDRESS": ("10.0.0.1:8476", "TPU_COORDINATOR_ADDRESS"),
+# taken and served since the training mesh and the multi-process start were
+# ported: TPU_TRAIN_DEVICES by a job's training mesh, TPU_COORDINATOR_ADDRESS
+# by the serving builders, which start the processes first
+_FORMERLY_UNSERVED = {
+    "TPU_TRAIN_DEVICES": "1,2",
+    "TPU_COORDINATOR_ADDRESS": "127.0.0.1:8476",
 }
 # served since the sync engine, classify-on-sync and the embed step were
 # ported (NEXTCLOUD_BASE_URL with TPU_CLASSIFY_ON_SYNC at its default, on),
@@ -429,68 +432,91 @@ _SERVED = {
 }
 
 
-@pytest.mark.parametrize("setting", sorted(_UNSERVED | _SERVED))
-def test_settings_taken_but_not_served_are_said_once(monkeypatch, caplog, setting):
+class _EngineBuilt(Exception):
+    pass
+
+
+def _build_service_until_the_engine(monkeypatch, caplog, **settings_env):
+    """``InferenceService.from_settings()`` under ``settings_env`` up to the
+    engine's construction (which raises ``_EngineBuilt``), over two CPU
+    positions, with the multi-process start recorded instead of made.
+    Returns the init methods it was started with."""
     import logging
 
+    import torch
+
     from ics_tpu_torch.core.config import reload_settings
+    from ics_tpu_torch.parallel import mesh as mesh_mod
     from ics_tpu_torch.runtime import service as service_mod
 
-    value, word = _UNSERVED.get(setting, (_SERVED.get(setting), None))
+    starts = []
     monkeypatch.setattr(service_mod, "_warned", set())
-    reload_settings(**{"TPU_DEVICE_DECODE": "false", "NEXTCLOUD_BASE_URL": "",
-                       setting: value})
+    monkeypatch.setattr(mesh_mod, "_distributed_initialized", False)
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: False)
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda **kw: starts.append(kw["init_method"]))
+    monkeypatch.setattr(mesh_mod, "visible_devices", lambda: ["cpu"] * 2)
+
+    def engine(**kwargs):
+        raise _EngineBuilt
+
+    monkeypatch.setattr(service_mod, "InferenceEngine", engine)
+    reload_settings(**{"TPU_DEVICE_DECODE": "false", "NEXTCLOUD_BASE_URL": "", **settings_env})
     try:
-        assert setting != "NEXTCLOUD_BASE_URL" or service_mod.settings.TPU_CLASSIFY_ON_SYNC
-        with caplog.at_level(logging.INFO, logger=service_mod.__name__):
-            service_mod.warn_unserved_settings()
-            service_mod.warn_unserved_settings()
+        assert not hasattr(service_mod, "warn_unserved_settings")
+        with caplog.at_level(logging.INFO):
+            with pytest.raises(_EngineBuilt):
+                service_mod.InferenceService.from_settings()
     finally:
         reload_settings()
-    notices = [r for r in caplog.records if r.levelno == logging.WARNING]
-    if setting in _SERVED:
-        assert notices == []
-        return
-    assert len(notices) == 1 and word in notices[0].getMessage()
-    assert "not ported yet" in notices[0].getMessage()
+    return starts
+
+
+@pytest.mark.parametrize("setting", sorted(_FORMERLY_UNSERVED | _SERVED))
+def test_settings_taken_but_not_served_are_said_once(monkeypatch, caplog, setting):
+    """No setting the port takes is left unserved, so there is nothing to say:
+    the notice (``warn_unserved_settings``) is gone, and building the service
+    under any one of them logs nothing at warning level. The coordinator's
+    address starts the processes before the mesh is built (recorded here,
+    no connection made)."""
+    import logging
+
+    value = {**_FORMERLY_UNSERVED, **_SERVED}[setting]
+    starts = _build_service_until_the_engine(monkeypatch, caplog, **{setting: value})
+    assert [r for r in caplog.records if r.levelno >= logging.WARNING] == []
+    assert starts == (["tcp://127.0.0.1:8476"] if setting == "TPU_COORDINATOR_ADDRESS"
+                      else [])
 
 
 def test_default_settings_say_nothing_of_unserved_modules(monkeypatch, caplog):
     import logging
 
-    from ics_tpu_torch.core.config import reload_settings
-    from ics_tpu_torch.runtime import service as service_mod
-
-    monkeypatch.setattr(service_mod, "_warned", set())
-    reload_settings(TPU_DEVICE_DECODE="false", NEXTCLOUD_BASE_URL="")
-    try:
-        with caplog.at_level(logging.INFO, logger=service_mod.__name__):
-            service_mod.warn_unserved_settings()
-    finally:
-        reload_settings()
+    assert _build_service_until_the_engine(monkeypatch, caplog) == []
     assert [r for r in caplog.records if r.levelno >= logging.WARNING] == []
 
 
 @pytest.mark.anyio
 async def test_lifespan_says_unserved_settings_before_the_engine_is_built(
         tmp_path, monkeypatch, caplog):
+    """The lifespan reaches the engine's construction with
+    ``TPU_TRAIN_DEVICES`` set and says nothing of it: the setting is the
+    training mesh's, served by the job manager."""
     import logging
 
     from ics_tpu_torch.core.config import reload_settings
     from ics_tpu_torch.main import create_app
-    from ics_tpu_torch.runtime import service as service_mod
 
-    monkeypatch.setattr(service_mod, "_warned", set())
     reload_settings(TPU_ENABLE_INFERENCE="true", TPU_DEFAULT_MODEL="no_such_model",
                     TPU_TRAIN_DEVICES="0:1", TPU_DEVICE_DECODE="false")
     try:
         app = create_app(db=Database(f"sqlite:///{tmp_path}/warn.db"))
-        with caplog.at_level(logging.WARNING, logger=service_mod.__name__):
+        with caplog.at_level(logging.WARNING):
             with pytest.raises(KeyError, match="no_such_model"):
                 await app.startup()
     finally:
         reload_settings()
-    assert any("TPU_TRAIN_DEVICES='0:1'" in r.getMessage() for r in caplog.records)
+    assert not any("TPU_TRAIN_DEVICES" in r.getMessage() or "not ported" in r.getMessage()
+                   for r in caplog.records)
 
 
 # ---- the serving extras against the reference's app on the same database -----------------

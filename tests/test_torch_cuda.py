@@ -1561,3 +1561,105 @@ def test_pipeline_on_the_card_runs_the_flash_kernel_in_every_stage(cuda_device):
     want = single.predict_staged(canvas, sizes)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_allclose(got[1], want[1], atol=1e-5, rtol=1e-4)
+
+
+# -- the training mesh and ring attention on the card ------------------------------------
+
+# the kernels a block launches in a step of each family (forward, input and
+# parameter gradients) and its blocks
+_DP_FAMILIES = {
+    "resnet": ((), 0),
+    "convnext": (("depthwise_conv", "depthwise_conv_dx", "depthwise_conv_dw"), 5),
+    "swin": (("window_attention", "window_attention_bwd", "window_attention_dtable"), 3),
+}
+
+
+def _dp_family(name):
+    from ics_tpu_torch.models import convnext, resnet, swin
+
+    if name == "resnet":
+        return resnet.ResNet((1, 1, 1, 1), 6)
+    if name == "convnext":
+        return convnext.ConvNeXt(num_classes=6, depths=(1, 2, 1, 1), dims=(8, 16, 24, 32))
+    return swin.swin_micro(6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(_DP_FAMILIES))
+def test_dp_training_step_on_the_card_matches_the_single_step(cuda_device, family):
+    """Two positions of the card (``_cuda_mesh``), fp32 with TF32 off, batch 8,
+    SGD lr 0.01 (the CPU parity tests' recipe: a random ResNet's gradient is
+    shattered): losses, parameters and BatchNorm statistics of two steps
+    within atol 2e-4, rtol 1e-4 of the unsharded step's; the kernels of the
+    model launch once a block and position in each direction; the two copies
+    hold the same bits."""
+    from ics_tpu_torch import disable_tf32
+    from ics_tpu_torch.train import finetune as tft
+
+    disable_tf32()
+    kernels, blocks = _DP_FAMILIES[family]
+    size = 64 if family == "swin" else 32
+    rng = np.random.default_rng(3)
+    batches = [(torch.from_numpy(rng.integers(0, 256, (8, size + 16, size + 16, 3), np.uint8)),
+                torch.from_numpy(rng.integers(size, size + 17, (8, 2)).astype(np.int32)),
+                torch.from_numpy(rng.integers(0, 6, 8))) for _ in range(2)]
+    state = _dp_family(family).init_weights(torch.Generator().manual_seed(0)).state_dict()
+    runs = []
+    for mesh in (None, _cuda_mesh((2,), ("data",))):
+        model = _dp_family(family)
+        model.load_state_dict(state)
+        model.to(cuda_device)
+        opt = tft.TrainOptimizer(model, tft.make_optimizer(lr=0.01))
+        step = (tft.make_preproc_train_step(model, opt, size, size + 4, torch.float32)
+                if mesh is None else
+                tft.make_sharded_preproc_train_step(model, opt, mesh, size, size + 4,
+                                                    torch.float32))
+        before = {k: LAUNCHES[k].value for k in kernels}
+        losses = [float(step(*(t.to(cuda_device) for t in b))["loss"]) for b in batches]
+        torch.cuda.synchronize()
+        launched = {k: LAUNCHES[k].value - before[k] for k in kernels}
+        assert launched == {k: 2 * blocks * (1 if mesh is None else 2) for k in kernels}
+        if mesh is not None:
+            dp = step.data_parallel
+            for other in dp.copies[1:]:
+                for name, t in other.state_dict().items():
+                    assert torch.equal(t, dp.copies[0].state_dict()[name]), name
+        runs.append((losses, {k: v.cpu() for k, v in model.state_dict().items()}))
+    (l0, sd0), (l1, sd1) = runs
+    np.testing.assert_allclose(l1, l0, atol=2e-4, rtol=1e-4)
+    for name, t in sd0.items():
+        np.testing.assert_allclose(sd1[name].numpy(), t.numpy(), atol=2e-4, rtol=1e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("ring,shape", [(2, (2, 12, 197, 64)), (4, (1, 12, 577, 64)),
+                                        (3, (2, 2, 13, 16))])
+def test_ring_attention_on_the_card_matches_its_plain_reference(cuda_device, dtype, tol,
+                                                                ring, shape):
+    """``ring_attention_padded`` over ``ring`` positions of the card against
+    ``attention_reference``, output and gradients, the largest error at most
+    ``tol`` of the largest value (fp32: the same sums in another order, TF32
+    off; bf16: the plain version rounds q * scale and p to bf16, the ring
+    does not)."""
+    from ics_tpu_torch import disable_tf32
+    from ics_tpu_torch.ops.attention import attention_reference
+    from ics_tpu_torch.parallel.ring_attention import ring_attention_padded
+
+    disable_tf32()
+    gen = torch.Generator(device=cuda_device).manual_seed(ring)
+    base = [torch.randn(shape, device=cuda_device, generator=gen) for _ in range(4)]
+    mesh = _cuda_mesh((ring,), ("sp",))
+
+    def run(fn):
+        q, k, v = (t.to(dtype, copy=True).requires_grad_(True) for t in base[:3])
+        out = fn(q, k, v)
+        out.backward(base[3].to(dtype))
+        return [out.detach()] + [t.grad for t in (q, k, v)]
+
+    got = run(lambda q, k, v: ring_attention_padded(q, k, v, mesh))
+    for g, w in zip(got, run(attention_reference)):
+        assert g.dtype == dtype and g.device.type == "cuda"
+        err = float((g.float() - w.float()).abs().max() / w.float().abs().max())
+        assert err <= tol, err

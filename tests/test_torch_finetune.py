@@ -406,5 +406,9 @@ def test_kernels_without_a_backward_are_turned_off_by_name(caplog):
                if hasattr(m, "use_kernel"))
     notes = [r.getMessage() for r in caplog.records if r.name == tft.__name__]
     assert len(notes) == 3 and "flash_attention, bottleneck_chain off" in notes[0]
-    with pytest.raises(ValueError, match="item 9"):
-        tft.FineTuner(convnext, mesh=object())
+    # a mesh is taken since the training mesh was ported; one the step cannot
+    # split a batch over (no 'data' axis, no 'sp' axis) is refused
+    from ics_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="'data' axis"):
+        tft.FineTuner(convnext, mesh=make_mesh((2,), ("pp",), devices=["cpu"] * 2))
