@@ -252,6 +252,36 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    world size 1 (NCCL cannot run two ranks on one card), and an
    ``all_reduce`` of a CUDA tensor. (b)'s launches join the ``kernels``
    line.
+13. The head_dim-128 ViTs (``vit_b16_h6d128``: 6 heads of 128;
+   ``vit_l16_h8d128``: 8), random weights from seed 0. (a) The flash kernel
+   at [B, 6 | 8, 577, 128] at buckets 1, 8 and 32 through
+   ``flash_attention`` on strided views of the qkv product and
+   ``flash_attention_qkv``, NaN behind the batch, with keys masked behind
+   ``seq_len`` (NaN there), each case twice, phase 3's bars. (b) Both models
+   at full width as [5]: the bf16 forward through the kernel against the
+   fp32 plain forward, one flash launch a block. (c) A fourth ``python -m
+   ics_tpu_torch.main`` with ``TPU_DEFAULT_MODEL=vit_b16_h6d128``: JPEGs
+   (the device lanes) and four 384x384 PNGs (the fixed-size lane) to it and
+   to ``?modelo=vit_l16_h8d128``, the launch counts zeroed before and read
+   after each stretch: the flash kernel 12 and 24 times a batch, exactly,
+   ``normalize_u8`` once a PNG batch, no other kernel; the PNG answers
+   against this process's engine on the same weights and batch (top-5
+   equal, scores within ``SERVED_SCORE_TOL``). (d) GPipe stages at bucket 8
+   and 4 microbatches: ``vit_l16_h8d128`` in 4 and 8, ``vit_b16_h6d128`` in
+   2; the flash kernel once a block and microbatch; top-5 equal to the
+   unpipelined engine. (e) Three bf16 AdamW fine-tune steps of
+   ``vit_b16_h6d128`` @384 at batch 16, ``remat`` off and on: no flash
+   launch, the same first loss, the step by CUDA events, peak memory. (f)
+   The flash kernel through ``flash_attention_qkv`` at [32, 12, 577, 64],
+   [32, 6, 577, 128] (the same work) and [32, 8, 577, 128], in turns with
+   SDPA, beside the plain version, the bound and the host's time a launch;
+   each model's bucket-32 step by CUDA events and ``torch.profiler``
+   (``tools.profile_step.profile_steps``: device busy share, kernels a
+   step, time by group). (g) TTA, the embed step (768 and 1,024 wide) and
+   explain (``KernelHasNoGradient``) of each model, and each on a data mesh
+   of 2 (bf16) and the tensor-parallel head (1, 2) (fp32: see
+   ``check_d128_extras``) at bucket 8 against the single engine. (c), (d) and (g)'s flash launches make the ``kernels`` line's
+   ``flash_attention_d128`` entry, timed at [32, 8, 577, 128].
 
 Prints ``{"kernels": [...]}`` on the line before the last and
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
@@ -330,6 +360,32 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_lines(text: str) -> list:
+    """(kernel, line) for each register and spill line of ``ptxas -v``'s
+    output, the kernel named by ``c++filt`` where the host has it (its
+    template arguments kept, its parameter list cut), else as ptxas names it."""
+    import re
+    import shutil
+
+    found, kernel = [], "?"
+    for line in text.splitlines():
+        named = re.search(r"Function properties for (\S+)", line) or \
+            re.search(r"Compiling entry function '([^']+)'", line)
+        if named:
+            kernel = named.group(1)
+        elif "registers" in line or "spill" in line:
+            found.append((kernel, line.strip()))
+    names = sorted({k for k, _ in found})
+    plain = dict(zip(names, names))
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(names):
+            plain = {k: v.replace("(anonymous namespace)::", "").split("(")[0]
+                     .removeprefix("void ") for k, v in zip(names, out)}
+    return [(plain[k], line) for k, line in found]
 
 
 _AHEAD: dict = {}
@@ -1064,14 +1120,21 @@ def drive_bf16_exp_path(torch) -> int:
     return counts["flash_attention_bf16_exp"]
 
 
-def check_model(torch) -> None:
-    """Phase 5: full-width ViT-B/16, bf16 through the kernel, against fp32
-    through the plain version. The kernel path's largest logit deviation
-    must stay within twice the plain bf16 path's own."""
+def check_model(torch, name: str = VIT, state: Optional[dict] = None) -> None:
+    """Phase 5 (and [13b]): a full-width ViT, random weights from seed 0 (or
+    ``state``), bf16 through the kernel, against fp32 through the plain
+    version. The kernel path's largest logit deviation must stay within
+    twice the plain bf16 path's own, and the kernel must launch once a
+    block a forward."""
     from ics_tpu_torch.models.registry import get_model
+    from ics_tpu_torch.ops import launch_counts, reset_launch_counts
 
-    spec = get_model(VIT)
-    model = spec.build(num_classes=1000).init_weights(torch.Generator().manual_seed(0))
+    spec = get_model(name)
+    model = spec.build(num_classes=1000)
+    if state is None:
+        model.init_weights(torch.Generator().manual_seed(0))
+    else:
+        model.load_state_dict(state)
     f32 = model.to("cuda").eval()
     g = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randn((4, spec.image_size, spec.image_size, 3), generator=g, device="cuda")
@@ -1081,20 +1144,26 @@ def check_model(torch) -> None:
         bf16 = f32.to(torch.bfloat16)
         xb = x.to(torch.bfloat16)
         plain_bf16 = bf16(xb, use_flash=False).float()
+        torch.cuda.synchronize()
+        reset_launch_counts()
         kernel_bf16 = bf16(xb, use_flash=True).float()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        flash = launch_counts()["flash_attention"]
     fp32_gap = (f32_kernel - ref).abs().max().item()
     plain_gap = (plain_bf16 - ref).abs().max().item()
     kernel_gap = (kernel_bf16 - ref).abs().max().item()
     top1 = (kernel_bf16.argmax(-1) == ref.argmax(-1)).float().mean().item()
-    log(f"  {VIT} logits [4, 1000]: fp32 kernel vs fp32 plain max|d|={fp32_gap:.3e} "
+    log(f"  {name} logits [4, 1000]: fp32 kernel vs fp32 plain max|d|={fp32_gap:.3e} "
         f"(tol 1e-3); bf16 kernel {kernel_gap:.3e} vs bf16 plain {plain_gap:.3e} "
-        f"from fp32 (tol 2x); top-1 agreement {top1:.2f}")
+        f"from fp32 (tol 2x); top-1 agreement {top1:.2f}; flash launches a bf16 forward "
+        f"{flash} (blocks {len(model.blocks)})")
     if not bool(torch.isfinite(kernel_bf16).all()):
-        fail("non-finite logits from the kernel path")
+        fail(f"{name}: non-finite logits from the kernel path")
     if fp32_gap > 1e-3 or kernel_gap > 2 * plain_gap:
-        fail("full-width forward through the kernel disagrees with the plain version")
-    del f32, bf16
+        fail(f"{name}: full-width forward through the kernel disagrees with the plain version")
+    if flash != len(model.blocks):
+        fail(f"{name}: the bf16 forward launched flash_attention {flash} times, not once a block")
+    del f32, bf16, model
     torch.cuda.empty_cache()
 
 
@@ -1665,6 +1734,59 @@ def _check_result(res: dict, model: str) -> None:
         fail(f"bad scores: {scores}")
 
 
+def _http_helpers(c, h):
+    """``classify``, ``status`` and ``stretch`` of an httpx client ``c`` logged
+    in with headers ``h``, for the serving phases."""
+
+    async def classify(blobs, model, query, kind="jpg"):
+        files = [("files", (f"img{i}.{kind}", b, f"image/{kind}"))
+                 for i, b in enumerate(blobs)]
+        r = await c.post(f"/inferencia/classificar{query}", files=files, headers=h)
+        if r.status_code != 200:
+            fail(f"/inferencia/classificar{query} returned {r.status_code}: {r.text[:500]}")
+        results = r.json()["resultados"]
+        for res in results:
+            _check_result(res, model)
+        return results
+
+    async def status(model):
+        r = await c.get(f"/inferencia/status?modelo={model}", headers=h)
+        return r.json() if r.status_code == 200 else {"batches": 0, "images": 0}
+
+    async def stretch(name, model, query, requests, kind="jpg"):
+        """Zero the counts, send ``requests`` (lists of blobs) together,
+        then one image twice alone; read the counts. ``answers``: the
+        results of ``requests``, in order."""
+        before = await status(model)
+        (await c.post("/inferencia/kernels/zerar", headers=h)).raise_for_status()
+        t0 = time.perf_counter()
+        results = await asyncio.gather(
+            *(classify(blobs, model, query, kind) for blobs in requests))
+        again = [await classify(requests[-1][-1:], model, query, kind) for _ in range(2)]
+        wall_s = time.perf_counter() - t0
+        decodes = sorted({res["decode"] for batch in results + again for res in batch})
+        if again[0][0]["top_classes"] != again[1][0]["top_classes"] or \
+                again[0][0]["scores"] != again[1][0]["scores"]:
+            fail(f"{name}: the same image alone twice gave two different results")
+        after = await status(model)
+        return {
+            "model": model,
+            "images": sum(len(r) for r in results) + 2,
+            "batches": after["batches"] - before["batches"],
+            "launches": after["kernel_launches"],
+            "backend": after["backend"],
+            "fused_chains": after["fused_chains"],
+            "max_batch_seen": max([after["batcher"]["max_batch_seen"]] + [
+                lane["max_batch_seen"] for lane in after.get("coeff_lanes", {}).values()]),
+            "decodes": decodes,
+            "wall_s": wall_s,
+            "answers": [[(res["top_classes"], res["scores"]) for res in batch]
+                        for batch in results],
+        }
+
+    return classify, status, stretch
+
+
 async def drive_server(base: str, admin: tuple[str, str]) -> dict:
     """Phase 6 over HTTP: six stretches, the launch counts zeroed before
     and read after each. Returns each stretch's counts and stats."""
@@ -1677,50 +1799,7 @@ async def drive_server(base: str, admin: tuple[str, str]) -> dict:
         r.raise_for_status()
         c.cookies.clear()
         h = {"Authorization": f"Bearer {r.json()['access_token']}"}
-
-        async def classify(blobs, model, query, kind="jpg"):
-            files = [("files", (f"img{i}.{kind}", b, f"image/{kind}"))
-                     for i, b in enumerate(blobs)]
-            r = await c.post(f"/inferencia/classificar{query}", files=files, headers=h)
-            if r.status_code != 200:
-                fail(f"/inferencia/classificar{query} returned {r.status_code}: {r.text[:500]}")
-            results = r.json()["resultados"]
-            for res in results:
-                _check_result(res, model)
-            return results
-
-        async def status(model):
-            r = await c.get(f"/inferencia/status?modelo={model}", headers=h)
-            return r.json() if r.status_code == 200 else {"batches": 0, "images": 0}
-
-        async def stretch(name, model, query, requests):
-            """Zero the counts, send ``requests`` (lists of blobs) together,
-            then one image twice alone; read the counts."""
-            before = await status(model)
-            (await c.post("/inferencia/kernels/zerar", headers=h)).raise_for_status()
-            t0 = time.perf_counter()
-            kind = "png" if name == "vit_png" else "jpg"
-            results = await asyncio.gather(
-                *(classify(blobs, model, query, kind) for blobs in requests))
-            again = [await classify(requests[-1][-1:], model, query, kind) for _ in range(2)]
-            wall_s = time.perf_counter() - t0
-            decodes = sorted({res["decode"] for batch in results + again for res in batch})
-            if again[0][0]["top_classes"] != again[1][0]["top_classes"] or \
-                    again[0][0]["scores"] != again[1][0]["scores"]:
-                fail(f"{name}: the same image alone twice gave two different results")
-            after = await status(model)
-            return {
-                "model": model,
-                "images": sum(len(r) for r in results) + 2,
-                "batches": after["batches"] - before["batches"],
-                "launches": after["kernel_launches"],
-                "backend": after["backend"],
-                "fused_chains": after["fused_chains"],
-                "max_batch_seen": max([after["batcher"]["max_batch_seen"]] + [
-                    lane["max_batch_seen"] for lane in after.get("coeff_lanes", {}).values()]),
-                "decodes": decodes,
-                "wall_s": wall_s,
-            }
+        classify, status, stretch = _http_helpers(c, h)
 
         # 6 images in one request (the batcher forms a batch of them) beside
         # 3 single-image requests; then the same to ViT-B/16, which the pool
@@ -1730,7 +1809,7 @@ async def drive_server(base: str, admin: tuple[str, str]) -> dict:
         drive = {
             "resnet_jpeg": await stretch("resnet_jpeg", RESNET, "", mixed),
             "vit_jpeg": await stretch("vit_jpeg", VIT, f"?modelo={VIT}", mixed),
-            "vit_png": await stretch("vit_png", VIT, f"?modelo={VIT}", [pngs]),
+            "vit_png": await stretch("vit_png", VIT, f"?modelo={VIT}", [pngs], "png"),
         }
         for model in (CONVNEXT, SWIN, MOBILENET):
             drive[model] = await stretch(model, model, f"?modelo={model}", mixed)
@@ -1921,7 +2000,7 @@ def check_drive(drive: dict) -> dict:
     """Phase 6's verdict: every stretch ran on the card, through the kernels
     of its path and no other. Returns the launches per kernel."""
     for name, st in drive.items():
-        log(f"  {name}: {json.dumps(st)}")
+        log(f"  {name}: {json.dumps({k: v for k, v in st.items() if k != 'answers'})}")
         want = ["host"] if name in ("vit_png", *SERVED_FAMILIES) else None
         if name not in ("vit_png", "decode_lanes", *SERVED_FAMILIES) and \
                 not all(d.startswith("device:") for d in st["decodes"]):
@@ -4857,6 +4936,398 @@ def check_train_mesh(torch, card: str) -> dict:
     return launches
 
 
+# phase 13: the head_dim-128 ViTs
+D128 = {"vit_b16_h6d128": 6, "vit_l16_h8d128": 8}   # heads of 128 at dim 768 / 1024
+D128_DEPTH = {"vit_b16_h6d128": 12, "vit_l16_h8d128": 24}   # flash launches a batch
+D128_BUCKETS = (1, 8, 32)
+D128_TIMED = ((32, 12, 577, 64), (32, 6, 577, 128), (32, 8, 577, 128))   # equal work, then L
+D128_PP = (("vit_l16_h8d128", 4), ("vit_l16_h8d128", 8), ("vit_b16_h6d128", 2))  # (model, stages)
+D128_PP_BUCKET = 8
+D128_FT_MODEL = "vit_b16_h6d128"
+D128_FT_BATCH = 16
+D128_FT_STEPS = 3
+D128_LOSS_TOL = 1e-6       # remat replays the same forward: the first loss is the same sum
+
+
+def check_d128_attention(torch, attention) -> float:
+    """[13a]: kernel 1 at head_dim 128 against its plain version at the served
+    shapes: [B, H, 577, 128] for H 6 and 8 at buckets 1, 8 and 32, through
+    ``flash_attention`` on strided views of the qkv product and through
+    ``flash_attention_qkv`` (``attention_case``'s "qkv" layout: the image
+    behind the batch is NaN), and with ``seq_len`` masking keys (NaN behind
+    it); each case twice, phase 3's bars. Returns the largest error."""
+    bf16 = torch.bfloat16
+    cases = [((b, h, 577, 128), bf16, None, "qkv") for h in D128.values() for b in D128_BUCKETS]
+    cases += [((8, h, 577, 128), bf16, seq_len, "qkv") for h in D128.values()
+              for seq_len in (1, 300, 576)]
+    cases += [((1, h, 577, 128), torch.float32, 300, "qkv") for h in D128.values()]
+    return max(attention_case(torch, attention, *case) for case in cases)
+
+
+async def drive_d128(base: str, admin: tuple[str, str]) -> dict:
+    """[13c] over HTTP: JPEGs and 384x384 PNGs to the default model
+    (``vit_b16_h6d128``) and to ``?modelo=vit_l16_h8d128``, the launch counts
+    zeroed before and read after each stretch."""
+    import httpx
+
+    jpegs = _images(JPEG_SIZES, "JPEG", quality=90)
+    pngs = _images([(384, 384)] * 4, "PNG")
+    mixed = [jpegs[:6], *([b] for b in jpegs[6:9])]
+    async with httpx.AsyncClient(base_url=base, timeout=600) as c:
+        r = await c.post("/auth/login", data={"username": admin[0], "password": admin[1]})
+        r.raise_for_status()
+        c.cookies.clear()
+        h = {"Authorization": f"Bearer {r.json()['access_token']}"}
+        _, _, stretch = _http_helpers(c, h)
+        drive = {}
+        for model, query in (("vit_b16_h6d128", ""), ("vit_l16_h8d128", "?modelo=vit_l16_h8d128")):
+            drive[f"{model}_jpeg"] = await stretch(f"{model}_jpeg", model, query, mixed)
+            drive[f"{model}_png"] = await stretch(f"{model}_png", model, query, [pngs], "png")
+        return drive
+
+
+def check_d128_drive(torch, drive: dict, states: dict) -> int:
+    """[13c]'s verdict: every stretch on the card, the flash kernel once a block
+    a batch (12 and 24) and no other kernel but ``normalize_u8``, which runs
+    once a batch on the PNG stretches (the fixed-size lane) and never on the
+    JPEG ones (device-decode lanes); the PNG answers against this process's
+    engine on the same weights and batch. Returns the flash launches."""
+    import numpy as np
+
+    from ics_tpu_torch.runtime.decode import decode_image, stage_batch
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+
+    flash = 0
+    for name, st in drive.items():
+        log(f"  {name}: {json.dumps({k: v for k, v in st.items() if k != 'answers'})}")
+        model, png = st["model"], name.endswith("_png")
+        want = {"flash_attention": D128_DEPTH[model] * st["batches"],
+                "normalize_u8": st["batches"] if png else 0}
+        got = {k: v for k, v in st["launches"].items() if v}
+        if st["backend"] != "cuda" or st["batches"] < 1:
+            fail(f"{name}: backend {st['backend']!r}, {st['batches']} batches")
+        if got != {k: v for k, v in want.items() if v}:
+            fail(f"{name}: launches {got} for {st['batches']} batches; the path must launch "
+                 f"{want}")
+        if png and st["decodes"] != ["host"] or not png and not all(
+                d.startswith("device:") for d in st["decodes"]):
+            fail(f"{name}: answered through {st['decodes']}")
+        flash += got["flash_attention"]
+    pngs = _images([(384, 384)] * 4, "PNG")
+    canvas, sizes = stage_batch([decode_image(b) for b in pngs], canvas=512)
+    for model in D128:
+        engine = InferenceEngine(model, precision="bf16", buckets=SERVER_BUCKETS, canvas=512,
+                                 state_dict=states[model])
+        idx, scores = engine.predict_staged(canvas, sizes)
+        served = drive[f"{model}_png"]["answers"][0]
+        same = [list(t) for t, _ in served] == idx.tolist()
+        gap = float(np.abs(np.asarray([s for _, s in served]) - scores).max())
+        log(f"  {model}: the served PNG batch against this process's engine: top-5 "
+            f"{'equal' if same else 'DIFFERENT'}, scores max|d| {gap:.2e} (tol {SERVED_SCORE_TOL})")
+        if not same or gap > SERVED_SCORE_TOL:
+            fail(f"{model}: the served answers differ from this process's engine")
+        del engine
+        torch.cuda.empty_cache()
+    return flash
+
+
+def check_d128_pipeline(torch, states: dict) -> int:
+    """[13d]: GPipe stages through the flash kernel at bucket 8, 4
+    microbatches: ``vit_l16_h8d128`` in 4 and 8 stages, ``vit_b16_h6d128`` in
+    2; the flash kernel once a block and microbatch, top-5 equal to the
+    unpipelined engine on the same weights (scores within
+    ``MESH_SCORE_TOL``). Returns the flash launches."""
+    from ics_tpu_torch.parallel.mesh import make_mesh
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+
+    canvas, sizes = _mesh_corpus(D128_PP_BUCKET)
+    kw = dict(precision="bf16", buckets=(D128_PP_BUCKET,), canvas=MESH_CANVAS)
+    flash = 0
+    for model in D128:
+        single = InferenceEngine(model, state_dict=states[model], **kw)
+        want = single.predict_staged(canvas, sizes)
+        for stages in (n for m, n in D128_PP if m == model):
+            mesh = make_mesh((stages,), ("pp",), devices=mesh_devices(torch, stages))
+            pp = InferenceEngine(model, state_dict=states[model], mesh=mesh,
+                                 pp_microbatches=PP_MICROBATCHES, **kw)
+            per = D128_DEPTH[model] // stages
+            if [len(s) for s in pp._stages] != [per] * stages:
+                fail(f"{model} on {stages} stages: {[len(s) for s in pp._stages]} blocks a stage")
+            got, counts = _counted(torch, lambda: pp.predict_staged(canvas, sizes))
+            log(f"  {model} PP {stages} x {PP_MICROBATCHES} at bucket {D128_PP_BUCKET}: "
+                f"{per} blocks a stage, launches {counts}")
+            if counts != {"flash_attention": D128_DEPTH[model] * PP_MICROBATCHES,
+                          "bottleneck_chain": 0}:
+                fail(f"{model} PP {stages}: launches {counts}, not "
+                     f"{D128_DEPTH[model]} x {PP_MICROBATCHES} flash")
+            flash += counts["flash_attention"]
+            _held_to_single(f"{model} PP {stages} x {PP_MICROBATCHES} against one engine",
+                            got, want)
+            del pp
+            torch.cuda.empty_cache()
+        del single
+        torch.cuda.empty_cache()
+    return flash
+
+
+def check_d128_extras(torch, states: dict) -> int:
+    """[13g]: the other serving paths of each head_dim-128 ViT at full width
+    on ``MESH_CANVAS`` canvases: TTA (one forward on both flips) and the
+    embed step (768 and 1,024 wide, unit norm) each launch the flash kernel
+    once a block; explain raises ``KernelHasNoGradient``; a data mesh of 2
+    at bucket 8 launches it once a block a position and the tensor-parallel
+    head (1, 2) once a block, each with the single engine's top-5 (scores
+    within ``MESH_SCORE_TOL``). All in bf16 but the TP head, held in fp32:
+    its two 500-class products round otherwise than one 1000-class product,
+    and with random weights these ViTs' softmax is flat, so in bf16 classes
+    a few 1e-5 apart swap places in the top-5 (seen: 3.4e-5) and the order
+    says nothing of the split. Returns the flash launches."""
+    import numpy as np
+
+    from ics_tpu_torch.ops import KernelHasNoGradient
+    from ics_tpu_torch.parallel.mesh import make_mesh
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+
+    canvas, sizes = _mesh_corpus(D128_PP_BUCKET)
+    kw = dict(buckets=(1, D128_PP_BUCKET), canvas=MESH_CANVAS)
+    flash = 0
+    for model, heads in D128.items():
+        depth, width = D128_DEPTH[model], heads * 128
+        single = InferenceEngine(model, state_dict=states[model], precision="bf16", **kw)
+        (idx, scores), counts = _counted(torch, lambda: single.predict_staged_tta(canvas[:1],
+                                                                                 sizes[:1]))
+        tta_ok = idx.shape == (1, 5) and 0.0 < float(scores.sum()) <= 1.0 + 1e-3
+        emb, emb_counts = _counted(torch, lambda: single.embed_staged(canvas[:3], sizes[:3]))
+        norms = np.linalg.norm(emb, axis=-1)
+        log(f"  {model}: TTA top-5 {idx[0].tolist()} (launches {counts}); embed "
+            f"{list(emb.shape)}, norms {norms.round(5).tolist()} (launches {emb_counts})")
+        if not tta_ok or counts["flash_attention"] != depth or emb.shape != (3, width) or \
+                single.embed_dim != width or not np.allclose(norms, 1.0, atol=1e-3) or \
+                emb_counts["flash_attention"] != depth:
+            fail(f"{model}: TTA or embed at full width is wrong (see the line above)")
+        try:
+            single.explain_staged(canvas[:1], sizes[:1])
+        except KernelHasNoGradient as exc:
+            log(f"  {model}: explain refused: {exc}")
+        else:
+            fail(f"{model}: explain must raise KernelHasNoGradient")
+        del single
+        torch.cuda.empty_cache()
+        for label, shape, axes, per, precision in (
+                ("DP 2", (2,), ("data",), 2, "bf16"),
+                ("TP head (1, 2)", (1, 2), ("data", "model"), 1, "fp32")):
+            single = InferenceEngine(model, state_dict=states[model], precision=precision, **kw)
+            mesh = make_mesh(shape, axes, devices=mesh_devices(torch, int(np.prod(shape))))
+            eng = InferenceEngine(model, state_dict=states[model], mesh=mesh,
+                                  precision=precision, **kw)
+            eng.predict_staged(canvas, sizes)
+            got, counts = _counted(torch, lambda: eng.predict_staged(canvas, sizes))
+            log(f"  {model} {label} {precision} at bucket {D128_PP_BUCKET}: launches {counts}")
+            if counts != {"flash_attention": depth * per, "bottleneck_chain": 0}:
+                fail(f"{model} {label}: launches {counts}, not {depth} x {per} flash")
+            flash += counts["flash_attention"]
+            _held_to_single(f"{model} {label} {precision} against one engine", got,
+                            single.predict_staged(canvas, sizes))
+            del eng, single
+            torch.cuda.empty_cache()
+    return flash
+
+
+def check_d128_finetune(torch, card: str) -> None:
+    """[13e]: ``D128_FT_STEPS`` bf16 AdamW steps of ``D128_FT_MODEL`` at its
+    input size, batch ``D128_FT_BATCH`` from seeded 512 canvases (augment on), ``remat``
+    off and on, on the weights of ``_model_state``: the kernels set for
+    training by name (``training_kernels``: flash off), no flash launch over
+    the steps, every loss finite, the first loss the same with and without
+    ``remat`` (within ``D128_LOSS_TOL`` relative), the step by CUDA events
+    and the peak of allocated memory."""
+    from ics_tpu_torch.models.registry import get_model
+    from ics_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ics_tpu_torch.ops.augment import AugmentConfig
+    from ics_tpu_torch.train.finetune import (
+        TrainOptimizer,
+        make_augmented_train_step,
+        make_optimizer,
+        step_generator,
+        training_kernels,
+    )
+
+    name, size = D128_FT_MODEL, get_model(D128_FT_MODEL).image_size
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    canvas = torch.randint(0, 256, (D128_FT_BATCH, 512, 512, 3), generator=g, device=DEVICE,
+                           dtype=torch.uint8)
+    sizes = torch.randint(size, 513, (D128_FT_BATCH, 2), generator=g, device=DEVICE,
+                          dtype=torch.int32)
+    labels = torch.randint(0, FT_CLASSES, (D128_FT_BATCH,), generator=g, device=DEVICE)
+    first = {}
+    for remat in (False, True):
+        model = _ft_model(torch, name)
+        model.remat = remat
+        on = training_kernels(model)
+        step = make_augmented_train_step(
+            model, TrainOptimizer(model, make_optimizer(lr=FT_ADAMW_LR, kind="adamw"),
+                                  llrd=FT_LLRD),
+            AugmentConfig(), size, torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        losses = [float(step(canvas, sizes, labels, step_generator(0, i))["loss"])
+                  for i in range(D128_FT_STEPS)]
+        torch.cuda.synchronize()
+        flash = launch_counts()["flash_attention"]
+        ms = cuda_ms(lambda: step(canvas, sizes, labels, step_generator(0, 9)), 3, ahead=False)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        first[remat] = losses[0]
+        log(f"  {name} remat={'on' if remat else 'off'}: losses {[round(x, 5) for x in losses]}, "
+            f"flash launches {flash} (flash on for training: {on['flash_attention']}); step "
+            f"{ms:.2f} ms by CUDA events, {D128_FT_BATCH / ms * 1e3:.1f} images/s, peak "
+            f"{peak:.2f} GiB allocated ({card})")
+        if flash or model.use_flash or not all(x == x and abs(x) < 1e4 for x in losses):
+            fail(f"{name} fine-tune: flash launches {flash}, losses {losses}")
+        del model, step
+        torch.cuda.empty_cache()
+    gap = abs(first[True] - first[False]) / abs(first[False])
+    log(f"  {name} first loss remat off {first[False]!r}, on {first[True]!r}: rel {gap:.1e} "
+        f"(tol {D128_LOSS_TOL:g})")
+    if not gap <= D128_LOSS_TOL:
+        fail(f"{name}: remat changed the first loss by {gap} relative")
+
+
+def time_d128_attention(torch, attention) -> dict:
+    """[13f]: kernel 1 through ``flash_attention_qkv`` on a bucket-32 qkv
+    product at [32, 12, 577, 64] (``vit_b16``), [32, 6, 577, 128]
+    (``vit_b16_h6d128``: the same bytes and operations) and [32, 8, 577, 128]
+    (``vit_l16_h8d128``), in turns in this process with
+    ``F.scaled_dot_product_attention`` on contiguous q, k, v (a yardstick
+    only); the plain version; the bound; the host's time a launch. Returns
+    {shape: numbers}."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    calls = {}
+    for shape in D128_TIMED:
+        b, h, s, d = shape
+        qkv = torch.randn((b, s, 3, h, d), generator=g, device="cuda").to(torch.bfloat16)
+        q, k, v = (t.contiguous() for t in qkv.permute(2, 0, 3, 1, 4).unbind(0))
+        calls[shape] = {
+            "kernel": lambda qkv=qkv: attention.flash_attention_qkv(qkv),
+            "library": lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v),
+            "plain": lambda q=q, k=k, v=v: attention.attention_reference(q, k, v)}
+    for fns in calls.values():
+        for fn in fns.values():
+            cuda_ms(fn, 2)
+    runs = {(shape, what): [] for shape in calls for what in ("kernel", "library")}
+    order = list(calls)
+    for i, turn in enumerate((order, order[::-1], order, order[::-1])):
+        for shape in turn:
+            for what in (("kernel", "library") if i % 2 == 0 else ("library", "kernel")):
+                runs[shape, what].append(cuda_ms(calls[shape][what], 10))
+    out = {}
+    for shape, fns in calls.items():
+        b, h, s, d = shape
+        rec = {"ms": sum(runs[shape, "kernel"]) / 4,
+               "library_ms": sum(runs[shape, "library"]) / 4,
+               "plain_ms": cuda_ms(fns["plain"], 3),
+               "host_us": host_us(fns["kernel"], calls=100),
+               **bound(4 * b * h * s * d * 2, 4.0 * b * h * s * s * d, BF16_FLOPS)}
+        log(f"  flash_attention_qkv {list(shape)} bf16: kernel {runs[shape, 'kernel']} ms, SDPA "
+            f"(yardstick only) {runs[shape, 'library']} ms; mean {rec['ms']:.4f} vs "
+            f"{rec['library_ms']:.4f} ms ({rec['ms'] / rec['library_ms']:.2f}x); plain "
+            f"{rec['plain_ms']:.3f} ms; bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+            f"({rec['bound_ms'] / rec['ms']:.0%}); host {rec['host_us']:.1f} us a launch")
+        out[shape] = rec
+    d64, d128 = out[D128_TIMED[0]], out[D128_TIMED[1]]
+    log(f"  equal work, head_dim 128 against 64: kernel {d128['ms'] / d64['ms']:.3f}x, SDPA "
+        f"{d128['library_ms'] / d64['library_ms']:.3f}x")
+    return out
+
+
+def profile_d128_steps(torch, states: dict, card: str) -> None:
+    """[13f]: a bucket-32 engine step of each head_dim-128 ViT (bf16, the
+    resize lane from a 512 canvas, as ``tools.profile_step``): the step by
+    CUDA events, its launches of the port's kernels, and by
+    ``tools.profile_step.profile_steps`` the device's busy share and where its
+    time goes."""
+    import numpy as np
+
+    from ics_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+    from ics_tpu_torch.tools.profile_step import profile_steps
+
+    rng = np.random.default_rng(0)
+    canvas = rng.integers(0, 256, (32, 512, 512, 3), np.uint8)
+    sizes = rng.integers(300, 513, (32, 2)).astype(np.int32)
+    for model in D128:
+        eng = InferenceEngine(model, precision="bf16", buckets=(32,), canvas=512,
+                              state_dict=states[model])
+        staged = eng._to_device(canvas, sizes)
+        step = lambda: eng._step(*staged)  # noqa: E731
+        cuda_ms(step, 3, ahead=False)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        step()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        if counts != {"flash_attention": D128_DEPTH[model]}:
+            fail(f"{model} bucket-32 step launched {counts}")
+        ms = cuda_ms(step, 10, ahead=False)
+        prof = profile_steps(step, 5)
+        top = [(round(t, 3), n, k[:60]) for t, n, k in prof["by_kernel"][:6]]
+        groups = {k: round(v, 3) for k, v in prof["device_ms_by_group"].items()}
+        log(f"  {model} bucket-32 step: {ms:.3f} ms by CUDA events ({32 / ms * 1e3:.0f} "
+            f"images/s), launches {counts}; by torch.profiler {prof['kernels_per_step']} kernels "
+            f"and {prof['device_busy_ms']:.3f} ms of device time a step, busy "
+            f"{prof['device_busy_share']:.1%} of {prof['wall_ms']:.3f} ms wall (profiler on); "
+            f"by group {json.dumps(groups)}; "
+            f"longest {top} ({card})")
+        del eng
+        torch.cuda.empty_cache()
+
+
+def check_d128(torch, attention, card: str) -> tuple:
+    """Phase 13: the head_dim-128 ViTs (see the module's docstring). Returns
+    (the flash launches on its main paths, [13a]'s largest error, [13f]'s
+    numbers at [32, 8, 577, 128])."""
+    t13 = time.perf_counter()
+    t = time.perf_counter()
+    err = check_d128_attention(torch, attention)
+    log(f"  (a) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    # drawn once on the CPU as an engine built with seed 0 draws them, so the
+    # server's answers and this process's engines share weights
+    states = {model: _model_state(torch, model) for model in D128}
+    for model in D128:
+        check_model(torch, model, states[model])
+    log(f"  (b) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ics_tpu_torch_smoke_") as tmp:
+        with serving(tmp, TPU_DEFAULT_MODEL="vit_b16_h6d128", TPU_FUSED_CHAINS="false") as (
+                base, admin, _, up_s):
+            log(f"  (c) server up in {up_s:.1f} s (TPU_DEFAULT_MODEL=vit_b16_h6d128, warmed)")
+            asyncio.run(await_lane_warm_up(base, admin, time.perf_counter() - up_s))
+            drive = asyncio.run(drive_d128(base, admin))
+    flash = check_d128_drive(torch, drive, states)
+    log(f"  (c) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    flash += check_d128_pipeline(torch, states)
+    log(f"  (d) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    check_d128_finetune(torch, card)
+    log(f"  (e) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    timed = time_d128_attention(torch, attention)
+    profile_d128_steps(torch, states, card)
+    log(f"  (f) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    flash += check_d128_extras(torch, states)
+    log(f"  (g) took {time.perf_counter() - t:.1f} s")
+    del states
+    torch.cuda.empty_cache()
+    log(f"  [13] flash launches at head_dim 128 on its main paths {flash}; took "
+        f"{time.perf_counter() - t13:.1f} s on {card}")
+    return flash, err, timed[D128_TIMED[2]]
+
+
 def main() -> None:
     import torch
 
@@ -4885,9 +5356,8 @@ def main() -> None:
     logs = _build.build()
     log(f"  built {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for kernel, line in ptxas_lines(text):
+            log(f"  {name}: {kernel}: {line}")
 
     log("[3] kernels against their plain versions on the card:")
     errs = {
@@ -5005,9 +5475,18 @@ def main() -> None:
         key = "window_attention_qkv_bwd" if name == "window_attention_bwd" else name
         launches[key] += count
 
+    log(f"[13] the head_dim-128 ViTs on the card ({card}): kernel 1 at head_dim 128 against "
+        "its plain version, both models at full width, served over HTTP "
+        "(TPU_DEFAULT_MODEL=vit_b16_h6d128, ?modelo=vit_l16_h8d128), GPipe stages, fine-tune "
+        "steps, kernel 1 timed at equal work and where a step's time goes:")
+    launches["flash_attention_d128"], errs["flash_attention_d128"], \
+        times["flash_attention_d128"] = check_d128(torch, attention, card)
+
     sources = {
         "flash_attention": ("ics_tpu_torch/ops/csrc/flash_attention.cu",
                             "ics_tpu/ops/attention.py:170"),
+        "flash_attention_d128": ("ics_tpu_torch/ops/csrc/flash_attention.cu",
+                                 "ics_tpu/ops/attention.py:170"),
         "bottleneck_chain": ("ics_tpu_torch/ops/csrc/bottleneck_chain.cu",
                              "ics_tpu/ops/pallas_bottleneck.py:164"),
         "normalize_u8": ("ics_tpu_torch/ops/csrc/normalize_u8.cu",

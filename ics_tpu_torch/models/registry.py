@@ -2,7 +2,7 @@
 
 Counterpart of ``ics_tpu/models/registry.py`` with its own ``ModelSpec``
 and the JAX package's preprocessing sizes and descriptions: every model of
-the reference but the two TPU-only ``*_h?d128`` ViTs. ``build(num_classes=..., device=...)`` returns a module with
+the reference. ``build(num_classes=..., device=...)`` returns a module with
 uninitialised parameters; the engine fills them from a seed or from a
 state dict.
 """
@@ -66,6 +66,11 @@ _REGISTRY: dict[str, ModelSpec] = {
                   "ViT-L/16 @384px — large variant, same attention kernel"),
         ModelSpec("vit_s16", vit.vit_s16, 224, 256,
                   "ViT-S/16 @224px — small-dataset fine-tune pick"),
+        ModelSpec("vit_b16_h6d128", vit.vit_b16_h6d128, 384, 384,
+                  "ViT-B/16 with 6xd=128 heads — the flash kernel at head_dim 128 "
+                  "(not weight-compatible with standard ViT-B)"),
+        ModelSpec("vit_l16_h8d128", vit.vit_l16_h8d128, 384, 384,
+                  "ViT-L/16 with 8xd=128 heads — the flash kernel at head_dim 128"),
         ModelSpec("vit_tiny", vit.vit_tiny, 64, 64,
                   "ViT tiny (8 blocks @64px) — dev/CI model; not a zoo model",
                   dev_only=True),

@@ -3,11 +3,13 @@
 The patch embed is a strided convolution (cuDNN); attention goes through
 the hand-written flash kernel (``ics_tpu_torch.ops.attention``) on the
 serving path, which reads q, k and v out of the fused qkv product by their
-strides, and through its plain version with ``use_flash=False``.
-ViT-B/16 @384 has 577 tokens (24x24 patches + cls); the kernel masks the
-ragged last tile itself. Training runs the plain version (the kernel has no
-backward), or ring attention over a sequence-parallel mesh
-(``MultiHeadAttention.ring``).
+strides, and through its plain version with ``use_flash=False``. The
+registered models take the kernel at head_dim 64 (ViT-S/B/L) and at head_dim
+128 (``vit_b16_h6d128``, ``vit_l16_h8d128``: the kernel's other ``wgmma``
+instantiation). ViT-B/16 @384 has 577 tokens (24x24 patches + cls); the
+kernel masks the ragged last tile itself. Training runs the plain version
+(the kernel has no backward), or ring attention over a sequence-parallel
+mesh (``MultiHeadAttention.ring``).
 """
 
 from __future__ import annotations
@@ -64,24 +66,28 @@ class MultiHeadAttention(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: int = 4, device=None):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: int = 4,
+                 gelu_exact: bool = True, device=None):
         super().__init__()
         self.ln1 = LayerNorm(dim, device=device)
         self.attn = MultiHeadAttention(dim, num_heads, device=device)
         self.ln2 = LayerNorm(dim, device=device)
         self.fc1 = Dense(dim, dim * mlp_ratio, device=device)
         self.fc2 = Dense(dim * mlp_ratio, dim, device=device)
+        # GELU's form follows the dtype (erf in fp32, tanh in bf16) unless
+        # gelu_exact is False, which takes tanh in every dtype (nn.layers.gelu)
+        self.gelu_exact = gelu_exact
 
     def forward(self, x: torch.Tensor, use_flash: bool = True) -> torch.Tensor:
         x = x + self.attn(self.ln1(x), use_flash)
-        y = gelu(self.fc1(self.ln2(x)))
+        y = gelu(self.fc1(self.ln2(x)), exact=self.gelu_exact)
         return x + self.fc2(y)
 
 
 class ViT(nn.Module):
     def __init__(self, image_size: int = 384, patch_size: int = 16,
                  dim: int = 768, depth: int = 12, num_heads: int = 12,
-                 num_classes: int = 1000, device=None):
+                 num_classes: int = 1000, gelu_exact: bool = True, device=None):
         super().__init__()
         self.image_size = image_size
         self.patch_size = patch_size
@@ -94,7 +100,7 @@ class ViT(nn.Module):
             torch.empty(1, self.num_patches + 1, dim, device=device)
         )
         self.blocks = nn.ModuleList(
-            TransformerBlock(dim, num_heads, device=device)
+            TransformerBlock(dim, num_heads, gelu_exact=gelu_exact, device=device)
             for _ in range(depth)
         )
         self.ln = LayerNorm(dim, device=device)
@@ -135,6 +141,15 @@ def vit_b16(num_classes: int = 1000, image_size: int = 384, device=None) -> ViT:
     return ViT(image_size=image_size, num_classes=num_classes, device=device)
 
 
+def vit_b16_h6d128(num_classes: int = 1000, image_size: int = 384, device=None) -> ViT:
+    """ViT-B/16 with 6 heads of d=128 in place of 12 of d=64: the same width,
+    depth and parameter count, the flash kernel at head_dim 128, and the tanh
+    GELU in every dtype. Not weight-compatible with standard ViT-B/16
+    checkpoints; meant for fine-tuning from its own weights."""
+    return ViT(image_size=image_size, num_classes=num_classes, num_heads=6,
+               gelu_exact=False, device=device)
+
+
 def vit_s16(num_classes: int = 1000, image_size: int = 224, device=None) -> ViT:
     """ViT-S/16: dim 384, 12 layers, 6 heads of d=64."""
     return ViT(image_size=image_size, dim=384, depth=12, num_heads=6,
@@ -150,3 +165,9 @@ def vit_tiny(num_classes: int = 1000, device=None) -> ViT:
     """Dev/CI ViT: 8 blocks of dim 32 at 64 px. Not a zoo model."""
     return ViT(image_size=64, patch_size=8, dim=32, depth=8, num_heads=2,
                num_classes=num_classes, device=device)
+
+
+def vit_l16_h8d128(num_classes: int = 1000, image_size: int = 384, device=None) -> ViT:
+    """ViT-L/16 with 8 heads of d=128 (see ``vit_b16_h6d128``)."""
+    return ViT(image_size=image_size, dim=1024, depth=24, num_heads=8,
+               num_classes=num_classes, gelu_exact=False, device=device)

@@ -161,13 +161,39 @@ def main() -> None:
           f"images/s), preprocess alone {pre_ms if pre_ms is None else round(pre_ms, 3)} ms, "
           f"kernel launches per step {per_step}")
 
+    prof = profile_steps(step, args.steps)
+    by_group, busy_ms = prof["device_ms_by_group"], prof["device_busy_ms"]
+    if busy_ms == 0:
+        print("torch.profiler recorded no device time here; only the event times above hold")
+    for group, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"  {group:32s} {ms:8.3f} ms/step  {ms / busy_ms:6.1%}")
+    for ms, count, key in prof["by_kernel"][:args.top]:
+        print(f"    {ms:8.3f} ms/step  x{count:<4d} {key[:100]}")
+    print(f"  device busy {busy_ms:.3f} ms/step of {prof['wall_ms']:.3f} ms wall "
+          f"({prof['device_busy_share']:.1%}; profiler on), {prof['kernels_per_step']} "
+          "kernels a step")
+    print(json.dumps({
+        "card": card, "model": args.model, "bucket": args.bucket,
+        "fused_chains": eng.fused_chains, "kernels": not args.no_kernels,
+        "fixed_size": fixed, "step_ms": step_ms,
+        "preprocess_ms": pre_ms, "launches_per_step": per_step,
+        **{k: v for k, v in prof.items() if k != "by_kernel"},
+    }))
+
+
+def profile_steps(step, steps: int) -> dict:
+    """``steps`` calls of ``step`` (an engine step returning (idx, scores))
+    under ``torch.profiler``, each ending in a fetch as the served step does:
+    the device time a step by group and by kernel (ms, launches, name; the
+    longest first), the device's busy time and share of the profiled wall
+    time (profiler on), and the kernels a step."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
+        for _ in range(steps):
             idx, _ = step()
-            idx.cpu()       # each step ends in a fetch, as the served step does
+            idx.cpu()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_group: dict[str, float] = defaultdict(float)
     by_kernel = []
@@ -179,27 +205,13 @@ def main() -> None:
             str(ev.device_type).endswith("CUDA")
         if not is_kernel or device_us <= 0:
             continue
-        by_group[group_of(ev.key)] += device_us / 1e3 / args.steps
-        by_kernel.append((device_us / 1e3 / args.steps, ev.count // args.steps, ev.key))
+        by_group[group_of(ev.key)] += device_us / 1e3 / steps
+        by_kernel.append((device_us / 1e3 / steps, ev.count // steps, ev.key))
         n_kernels += ev.count
     busy_ms = sum(by_group.values())
-    if busy_ms == 0:
-        print("torch.profiler recorded no device time here; only the event times above hold")
-    for group, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        print(f"  {group:32s} {ms:8.3f} ms/step  {ms / busy_ms:6.1%}")
-    for ms, count, key in sorted(by_kernel, reverse=True)[:args.top]:
-        print(f"    {ms:8.3f} ms/step  x{count:<4d} {key[:100]}")
-    busy_share = busy_ms * args.steps / wall_ms
-    print(f"  device busy {busy_ms:.3f} ms/step of {wall_ms / args.steps:.3f} ms wall "
-          f"({busy_share:.1%}; profiler on), {n_kernels // args.steps} kernels a step")
-    print(json.dumps({
-        "card": card, "model": args.model, "bucket": args.bucket,
-        "fused_chains": eng.fused_chains, "kernels": not args.no_kernels,
-        "fixed_size": fixed, "step_ms": step_ms,
-        "preprocess_ms": pre_ms, "launches_per_step": per_step,
-        "device_ms_by_group": dict(by_group), "device_busy_share": busy_share,
-        "kernels_per_step": n_kernels // args.steps,
-    }))
+    return {"device_ms_by_group": dict(by_group), "by_kernel": sorted(by_kernel, reverse=True),
+            "device_busy_ms": busy_ms, "wall_ms": wall_ms / steps,
+            "device_busy_share": busy_ms * steps / wall_ms, "kernels_per_step": n_kernels // steps}
 
 
 if __name__ == "__main__":

@@ -96,7 +96,8 @@ async def test_routes_of_the_port(served):
                      "regnet_y_1_6gf", "regnet_y_400mf",
                      "resnet101", "resnet152", "resnet18", "resnet34", "resnet50",
                      "resnext50_32x4d", "swin_base", "swin_small", "swin_tiny", "vit_b16",
-                     "vit_l16", "vit_s16", "wide_resnet50_2"]   # dev models stay hidden
+                     "vit_b16_h6d128", "vit_l16", "vit_l16_h8d128", "vit_s16",
+                     "wide_resnet50_2"]   # dev models stay hidden
     r = await client.post("/inferencia/classificar?modelo=vit_tiny", headers=h,
                           files=[("files", ("a.jpg", _jpeg(0), "image/jpeg"))])
     assert r.status_code == 422
@@ -182,12 +183,17 @@ async def test_routes_of_a_hedged_service(tmp_path):
 
 @pytest.fixture()
 def public_dev_models():
-    """One dev-size model per new family, registered at 64 px as public
-    names, so that ``?modelo=`` reaches them."""
+    """One dev-size model per new family (and the head_dim-128 ViT cut to
+    size), registered at 64 px as public names, so that ``?modelo=`` reaches
+    them."""
     import ics_tpu_torch.models.registry as registry
     from ics_tpu_torch.models import convnext, densenet, efficientnet, mobilenetv3, regnet, swin
+    from ics_tpu_torch.models import vit
+    from tests.test_torch_engine_pairs import VIT_D128_MICRO
 
     constructors = {
+        "vit_d128_dev": lambda num_classes, device=None: vit.ViT(
+            num_classes=num_classes, device=device, **VIT_D128_MICRO),
         "convnext_dev": lambda num_classes, device=None: convnext.ConvNeXt(
             (1, 1, 1, 1), (16, 32, 64, 128), num_classes, device=device),
         "mobilenetv3_dev": mobilenetv3.mobilenetv3_small,
@@ -208,7 +214,7 @@ def public_dev_models():
 
 @pytest.mark.anyio
 @pytest.mark.parametrize("name", ["convnext_dev", "mobilenetv3_dev", "efficientnet_dev",
-                                  "swin_dev", "densenet_dev", "regnet_dev"])
+                                  "swin_dev", "densenet_dev", "regnet_dev", "vit_d128_dev"])
 async def test_classify_with_modelo_builds_and_serves_the_new_families(
         served, public_dev_models, name):
     app, client, _ = served
@@ -557,8 +563,9 @@ def _seed_ambiente(db, image: bytes) -> dict:
                 "hash": sha256_hex(image)}
 
 
-def _register_version(db, amb: dict, directory, temperature=2.0, port_copy=True) -> None:
-    """Version 1 of ``resnet_tiny`` over the ambiente's options, active, its
+def _register_version(db, amb: dict, directory, temperature=2.0, port_copy=True,
+                      model="resnet_tiny") -> None:
+    """Version 1 of ``model`` over the ambiente's options, active, its
     weights in ``directory`` twice: orbax (the reference's manager) and
     ``torch.save`` (the port's), from one randomised tree; with
     ``port_copy=False`` orbax alone, as the JAX trainer leaves it."""
@@ -569,7 +576,7 @@ def _register_version(db, amb: dict, directory, temperature=2.0, port_copy=True)
     from ics_tpu_torch.train.checkpoint import CheckpointManager
     from tests.test_torch_engine_pairs import variables_of
 
-    variables = variables_of("resnet_tiny", 3, seed=4)
+    variables = variables_of(model, 3, seed=4)
     mgr = JaxManager(directory)
     mgr.save(3, variables)
     mgr.close()
@@ -577,7 +584,7 @@ def _register_version(db, amb: dict, directory, temperature=2.0, port_copy=True)
         CheckpointManager(directory).save(3, weights.from_jax_variables(variables))
     with db.session() as s:
         s.add(m.ModeloTreinado(
-            id_amb=amb["id_amb"], nome_modelo="resnet_tiny", versao=1, num_classes=3,
+            id_amb=amb["id_amb"], nome_modelo=model, versao=1, num_classes=3,
             class_map={o: i for i, o in enumerate(amb["options"])},
             dir_checkpoint=str(directory), passo=3, metricas={"temperatura": temperature},
             ativo=True, data_criado=tz.utcnow()))
@@ -604,10 +611,12 @@ def _services(model: str):
 @pytest.fixture()
 async def both_apps(tmp_path, request):
     """The reference's app and the port's on one SQLite file, each serving
-    ``request.param`` (default ``resnet_tiny``) on the same weights."""
+    ``request.param`` (default ``resnet_tiny``; the dev models of
+    ``tests/test_torch_engine_pairs.py`` are registered) on the same weights."""
     from ics_tpu.db.engine import Database as JaxDatabase
     from ics_tpu.main import create_app as create_jax_app
     from ics_tpu_torch.main import create_app
+    from tests.test_torch_engine_pairs import dev_models
 
     url = f"sqlite:///{tmp_path}/shared.db"
     apps = {"ref": create_jax_app(db=JaxDatabase(url)), "port": create_app(db=Database(url))}
@@ -616,20 +625,21 @@ async def both_apps(tmp_path, request):
     image = _jpeg(11, 56, 60)
     amb = _seed_ambiente(apps["ref"].state.db, image)
     model = getattr(request, "param", "resnet_tiny")
-    for app, (service, pool) in zip(apps.values(), _services(model)):
-        await service.start()
-        app.state.engine = service
-        app.state.engine_pool = pool
-    clients = {k: httpx.AsyncClient(transport=httpx.ASGITransport(app=a), base_url="http://t")
-               for k, a in apps.items()}
-    try:
-        yield apps, clients, amb, image
-    finally:
-        for k, app in apps.items():
-            await clients[k].aclose()
-            await app.state.engine.stop()
-            await app.state.engine_pool.stop()
-            await app.shutdown()
+    with dev_models():
+        for app, (service, pool) in zip(apps.values(), _services(model)):
+            await service.start()
+            app.state.engine = service
+            app.state.engine_pool = pool
+        clients = {k: httpx.AsyncClient(transport=httpx.ASGITransport(app=a),
+                                        base_url="http://t") for k, a in apps.items()}
+        try:
+            yield apps, clients, amb, image
+        finally:
+            for k, app in apps.items():
+                await clients[k].aclose()
+                await app.state.engine.stop()
+                await app.state.engine_pool.stop()
+                await app.shutdown()
 
 
 async def _login(client, username="esp@x.com", password="SenhaBoa1"):
@@ -780,6 +790,31 @@ async def test_a_version_the_jax_trainer_wrote_is_served_after_conversion(both_a
                                    [o["score"] for o in ref["opcoes"]], atol=2e-4, rtol=1e-4)
 
 
+@pytest.mark.anyio
+async def test_a_jax_trained_head_dim_128_vit_is_served_after_conversion(both_apps, tmp_path):
+    """The same for a version of ``vit_d128_micro`` (the head_dim-128 ViTs cut
+    to size): after ``convert_checkpoints.py`` the port's ``classificar-tpu``
+    answers the reference's options and scores, and ``explicar`` is a 422 in
+    both (no gradient through the flash kernel)."""
+    import convert_checkpoints
+
+    apps, clients, amb, image = both_apps
+    directory = tmp_path / "jax_vit"
+    _register_version(apps["ref"].state.db, amb, directory, port_copy=False,
+                      model="vit_d128_micro")
+    assert convert_checkpoints.main([str(directory)]) == 0
+    base = f"/classificacoes/ambiente/{amb['id_amb']}"
+    r = await _post_both(clients, base + "/classificar-tpu", image)
+    assert r["ref"].status_code == r["port"].status_code == 200, r["port"].text
+    ref, got = r["ref"].json(), r["port"].json()
+    assert got["model"] == ref["model"] == "vit_d128_micro"
+    assert [o["id_opc"] for o in got["opcoes"]] == [o["id_opc"] for o in ref["opcoes"]]
+    np.testing.assert_allclose([o["score"] for o in got["opcoes"]],
+                               [o["score"] for o in ref["opcoes"]], atol=2e-4, rtol=1e-4)
+    r = await _post_both(clients, base + "/explicar", image)
+    assert r["ref"].status_code == r["port"].status_code == 422
+
+
 def test_the_conversion_tool_writes_what_the_port_restores(tmp_path):
     """``convert_checkpoints.py`` on a directory: every orbax step gets its
     ``step_<n>.pt``, holding ``weights.from_jax_variables`` of that step's
@@ -816,14 +851,15 @@ def test_the_conversion_tool_writes_what_the_port_restores(tmp_path):
 
 
 @pytest.mark.anyio
-@pytest.mark.parametrize("both_apps", ["vit_tiny"], indirect=True)
+@pytest.mark.parametrize("both_apps", ["vit_tiny", "vit_d128_micro"], indirect=True)
 async def test_vit_explicar_is_a_422_in_both_apps(both_apps):
-    _, clients, amb, image = both_apps
+    apps, clients, amb, image = both_apps
+    model = apps["port"].state.engine.engine.model_name
     r = await _post_both(clients, f"/classificacoes/ambiente/{amb['id_amb']}/explicar", image)
     assert r["ref"].status_code == r["port"].status_code == 422
     assert r["ref"].json()["detail"] == "Imagem inválida ou não decodificável."
     # the one divergence: the port says why
-    assert "vit_tiny" in r["port"].json()["detail"] and "gradiente" in r["port"].json()["detail"]
+    assert model in r["port"].json()["detail"] and "gradiente" in r["port"].json()["detail"]
     r = await _post_both(clients, f"/classificacoes/ambiente/{amb['id_amb']}/classificar-tpu",
                          image)
     assert r["ref"].status_code == r["port"].status_code == 200

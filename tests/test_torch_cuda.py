@@ -38,7 +38,9 @@ the same bars as ``chip_smoke.py`` phase 8; explain on the card, kernel path
 against plain path in fp32: the same top-k, heat maps within 1e-4.
 DenseNet-121 and RegNet-Y 400MF in bf16 against fp32 on the card: the top-1
 equal wherever the fp32 margin exceeds twice the largest deviation, and no
-kernel of the port launched; a pretrained file written by ``save_npz`` and
+kernel of the port launched; vit_b16_h6d128 and vit_l16_h8d128 at full
+width, bf16 through the kernel at head_dim 128 within twice the plain bf16
+forward's gap from fp32; a pretrained file written by ``save_npz`` and
 loaded onto the card: the seeded engine's logits exactly. A fine-tune job
 of a manager with no device named trains on the card through the window
 kernels, while an engine on the card serves the same answers as when the
@@ -132,6 +134,51 @@ def test_kernel_at_the_tile_edges_on_strided_views(cuda_device, seq, head_dim):
 
 _MASKED_BF16 = [((2, 3, 577, d), torch.bfloat16, n) for d in (64, 128) for n in (0, 1, 300, 577)]
 _MASKED_BF16 += [((2, 3, 130, 16), torch.bfloat16, 70), ((2, 3, 130, 32), torch.bfloat16, 129)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq_len", [None, 300])
+@pytest.mark.parametrize("batch", [1, 8, 32])
+@pytest.mark.parametrize("heads", [6, 8])
+def test_kernel_at_the_head_dim_128_vits_served_shapes(cuda_device, heads, batch, seq_len):
+    """The qkv product of vit_b16_h6d128 (6 heads) and vit_l16_h8d128 (8) at
+    577 tokens and buckets 1, 8, 32: rows 3 x H x 128 apart, NaN behind the
+    batch and behind ``seq_len``."""
+    before = LAUNCHES["flash_attention"].value
+    outs, ref = _strided_case(cuda_device, (batch, heads, 577, 128), torch.bfloat16, seq_len)
+    assert LAUNCHES["flash_attention"].value == before + 4
+    for out in outs:
+        assert bool(torch.isfinite(out).all())
+        assert (out.float() - ref.float()).abs().max().item() <= 1e-2
+        assert torch.equal(out, outs[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["vit_b16_h6d128", "vit_l16_h8d128"])
+def test_head_dim_128_vit_at_full_width_through_the_kernel(cuda_device, name):
+    """Random weights from seed 0, four seeded images at 384: fp32 through the
+    kernel within 1e-3 of fp32 through the plain version, bf16 through the
+    kernel within twice the plain bf16 forward's gap from fp32 (as
+    ``chip_smoke.py`` phase 5), one flash launch a block."""
+    from ics_tpu_torch.models.registry import get_model
+
+    model = get_model(name).build(num_classes=1000).init_weights(
+        torch.Generator().manual_seed(0)).to(cuda_device).eval()
+    x = torch.randn((4, 384, 384, 3), generator=torch.Generator(device=cuda_device).manual_seed(2),
+                    device=cuda_device)
+    with torch.inference_mode():
+        ref = model(x, use_flash=False)
+        f32_kernel = model(x, use_flash=True)
+        model.to(torch.bfloat16)
+        xb = x.to(torch.bfloat16)
+        plain = model(xb, use_flash=False).float()
+        before = LAUNCHES["flash_attention"].value
+        kernel = model(xb, use_flash=True).float()
+        torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"].value - before == len(model.blocks)
+    assert (f32_kernel - ref).abs().max().item() <= 1e-3
+    assert bool(torch.isfinite(kernel).all())
+    assert (kernel - ref).abs().max().item() <= 2 * (plain - ref).abs().max().item()
 
 
 @pytest.mark.cuda

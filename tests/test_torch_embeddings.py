@@ -4,8 +4,9 @@ JAX package's (``tests/test_embeddings.py``).
 - ``InferenceEngine.embed_staged``: the same bridged weights and staged
   canvases give the reference's L2-normalized features (fp32,
   ``atol=2e-4, rtol=1e-4``) on ``resnet_tiny`` (with and without the chain
-  path), ``vit_tiny`` (the flash kernel's plain version) and ``swin_micro``
-  (the window kernel's plain version).
+  path), ``vit_tiny`` (the flash kernel's plain version), ``swin_micro``
+  (the window kernel's plain version) and ``vit_d128_micro`` (head_dim 128,
+  registered by ``tests/test_torch_engine_pairs.py::dev_models``).
 - ``EmbeddingIndex.search``: the same stored corpus gives the reference's
   results, hashes in the same order and scores within 1e-6, including a
   corpus of 3 in a 128-row bucket with every cosine negative (what the
@@ -48,18 +49,21 @@ def _variables(name, seed):
 
 @pytest.mark.parametrize("name,fused_chains", [
     ("resnet_tiny", False), ("resnet_tiny", True), ("vit_tiny", False), ("swin_micro", False),
+    ("vit_d128_micro", False),
 ])
 def test_embed_staged_matches_the_jax_engine(name, fused_chains):
     from ics_tpu.runtime.engine import InferenceEngine as JaxEngine
     from ics_tpu_torch.runtime.engine import InferenceEngine
+    from tests.test_torch_engine_pairs import dev_models
 
-    variables = _variables(name, 11)
     canvas, sizes = stage_batch(_images(3), canvas=None)
-    ref = JaxEngine(name, num_classes=10, precision="fp32", buckets=(4,), canvas=256,
-                    variables=variables)
-    eng = InferenceEngine(name, num_classes=10, precision="fp32", buckets=(4,), canvas=256,
-                          state_dict=weights.from_jax_variables(variables), device="cpu",
-                          fused_chains=fused_chains)
+    with dev_models():
+        variables = _variables(name, 11)
+        ref = JaxEngine(name, num_classes=10, precision="fp32", buckets=(4,), canvas=256,
+                        variables=variables)
+        eng = InferenceEngine(name, num_classes=10, precision="fp32", buckets=(4,),
+                              canvas=256, state_dict=weights.from_jax_variables(variables),
+                              device="cpu", fused_chains=fused_chains)
     want = ref.embed_staged(canvas, sizes)
     got = eng.embed_staged(canvas, sizes)
     assert eng.embed_dim == ref.embed_dim and got.shape == (3, ref.embed_dim)

@@ -113,8 +113,8 @@ def test_same_seed_same_weights_across_engines():
 def test_rejects_unknown_precision_and_model():
     with pytest.raises(ValueError, match="precision"):
         InferenceEngine("vit_tiny", precision="fp8", device="cpu")
-    with pytest.raises(KeyError, match="vit_b16_h6d128"):
-        InferenceEngine("vit_b16_h6d128", device="cpu")
+    with pytest.raises(KeyError, match="vit_b16_h4d192"):
+        InferenceEngine("vit_b16_h4d192", device="cpu")
 
 
 # ---- ResNet, fused chains and the fixed-size lane --------------------------------

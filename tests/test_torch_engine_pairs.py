@@ -9,9 +9,10 @@ N(0, 0.5), so that every branch, and the kernels in it, reaches the
 logits), and a port engine on the CPU from the same tree through
 ``weights.py``. ``dev_models`` registers ``convnext_dev`` (one block a stage,
 dims 16-128, at 64 px), ``densenet_micro`` and ``regnet_micro`` (the
-families' dev models, at 64 px) in both registries, and in the port's
-``resnet_2211``, a ResNet whose first two stages have an identity
-bottleneck for ``fold(fused_chains=True)`` to chain.
+families' dev models, at 64 px) and ``vit_d128_micro`` (the head_dim-128
+ViTs cut to two blocks of two heads of 128 at 64 px, tanh GELU) in both
+registries, and in the port's ``resnet_2211``, a ResNet whose first two
+stages have an identity bottleneck for ``fold(fused_chains=True)`` to chain.
 """
 
 from __future__ import annotations
@@ -24,6 +25,9 @@ import numpy as np
 from ics_tpu_torch import weights
 
 DEV_DEPTHS, DEV_DIMS = (1, 1, 1, 1), (16, 32, 64, 128)
+# vit_b16_h6d128 / vit_l16_h8d128 cut to size: head_dim 128, tanh GELU in every dtype
+VIT_D128_MICRO = dict(image_size=64, patch_size=8, dim=256, depth=2, num_heads=2,
+                      gelu_exact=False)
 
 
 def randomise(tree, rng, path=()):
@@ -42,17 +46,20 @@ def randomise(tree, rng, path=()):
 
 @contextlib.contextmanager
 def dev_models():
-    """``convnext_dev``, ``densenet_micro`` and ``regnet_micro`` in the JAX
-    registry and the port's, ``resnet_2211`` in the port's, at 64 px."""
+    """``convnext_dev``, ``densenet_micro``, ``regnet_micro`` and
+    ``vit_d128_micro`` in the JAX registry and the port's, ``resnet_2211`` in
+    the port's, at 64 px."""
     import ics_tpu.models.registry as jax_registry
     import ics_tpu_torch.models.registry as torch_registry
     from ics_tpu.models import convnext as jax_convnext
     from ics_tpu.models import densenet as jax_densenet
     from ics_tpu.models import regnet as jax_regnet
+    from ics_tpu.models import vit as jax_vit
     from ics_tpu_torch.models import convnext as torch_convnext
     from ics_tpu_torch.models import densenet as torch_densenet
     from ics_tpu_torch.models import regnet as torch_regnet
     from ics_tpu_torch.models import resnet as torch_resnet
+    from ics_tpu_torch.models import vit as torch_vit
 
     jax_registry.get_model("resnet_tiny")          # the registry fills itself on first use
     jax_registry.register_model(
@@ -64,12 +71,16 @@ def dev_models():
     torch_registry._REGISTRY["resnet_2211"] = torch_registry.ModelSpec(
         "resnet_2211", lambda num_classes, device=None: torch_resnet.ResNet(
             (2, 2, 1, 1), num_classes, device=device), 64, 64, dev_only=True)
-    micro = {"densenet_micro": (jax_densenet, torch_densenet),
-             "regnet_micro": (jax_regnet, torch_regnet)}
-    for name, (jax_module, torch_module) in micro.items():
-        jax_registry.register_model(name, getattr(jax_module, name), 64, 64, dev_only=True)
+    micro = {"densenet_micro": (jax_densenet.densenet_micro, torch_densenet.densenet_micro),
+             "regnet_micro": (jax_regnet.regnet_micro, torch_regnet.regnet_micro),
+             "vit_d128_micro": (
+                 lambda num_classes: jax_vit.ViT(num_classes=num_classes, **VIT_D128_MICRO),
+                 lambda num_classes, device=None: torch_vit.ViT(
+                     num_classes=num_classes, device=device, **VIT_D128_MICRO))}
+    for name, (jax_build, torch_build) in micro.items():
+        jax_registry.register_model(name, jax_build, 64, 64, dev_only=True)
         torch_registry._REGISTRY[name] = torch_registry.ModelSpec(
-            name, getattr(torch_module, name), 64, 64, dev_only=True)
+            name, torch_build, 64, 64, dev_only=True)
     try:
         yield
     finally:
@@ -113,9 +124,12 @@ def test_dev_models_register_in_both_registries_and_leave_none_behind():
         assert torch_registry.get_model("resnet_2211").dev_only
         state = torch_spec.build(num_classes=3).state_dict()
         assert state["head.weight"].shape[1] == DEV_DIMS[-1]
-        for name in ("densenet_micro", "regnet_micro"):
+        for name in ("densenet_micro", "regnet_micro", "vit_d128_micro"):
             assert jax_registry.get_model(name).dev_only and torch_registry.get_model(name).dev_only
             assert torch_registry.get_model(name).build(num_classes=3).num_classes == 3
-    assert not {"convnext_dev", "densenet_micro", "regnet_micro"} & set(jax_registry._REGISTRY)
-    assert not {"convnext_dev", "resnet_2211", "densenet_micro", "regnet_micro"} & set(
-        torch_registry._REGISTRY)
+        vit = torch_registry.get_model("vit_d128_micro").build(num_classes=3, device="meta")
+        assert vit.blocks[0].attn.head_dim == 128 and not vit.blocks[0].gelu_exact
+    assert not {"convnext_dev", "densenet_micro", "regnet_micro", "vit_d128_micro"} & set(
+        jax_registry._REGISTRY)
+    assert not {"convnext_dev", "resnet_2211", "densenet_micro", "regnet_micro",
+                "vit_d128_micro"} & set(torch_registry._REGISTRY)

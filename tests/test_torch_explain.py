@@ -157,7 +157,7 @@ def test_the_default_explains_the_top_class(engine, staged):
     np.testing.assert_array_equal(heat, heat_top)
 
 
-@pytest.mark.parametrize("name,kwargs", [("vit_tiny", {}),
+@pytest.mark.parametrize("name,kwargs", [("vit_tiny", {}), ("vit_d128_micro", {}),
                                          ("resnet_2211", {"fused_chains": True})])
 def test_kernels_with_no_backward_raise_on_the_cpu(staged, name, kwargs):
     with dev_models():

@@ -136,6 +136,23 @@ def test_the_reference_and_the_port_agree_on_one_file(name, layout, tmp_path):
     _assert_is_the_mapping_of(state_dict, ref)
 
 
+def test_a_timm_vit_b16_file_loads_into_the_h6d128_vit_as_in_the_reference(tmp_path):
+    """Shared with the reference (``ROADMAP.md`` §3): the torch-layout mapper is
+    picked by the ``vit`` prefix and checks shapes alone, so a timm ViT-B/16
+    file (12 heads of 64) loads into ``vit_b16_h6d128`` (6 heads of 128) in
+    both packages, and the port's state dict is the mapping of the
+    reference's tree, which holds the file's weights unchanged."""
+    jmodel, variables = _seeded("vit_b16")
+    path = tmp_path / "b16.npz"
+    np.savez(path, **_EXPORTERS["vit"](jmodel, variables))
+    _, ref = jax_pt.load_pretrained("vit_b16_h6d128", path)
+    model, state_dict = pt.load_pretrained("vit_b16_h6d128", path)
+    path.unlink()
+    assert model.blocks[0].attn.head_dim == 128 and model.num_classes == 6
+    _assert_is_the_mapping_of(state_dict, jax.tree_util.tree_map(np.asarray, ref))
+    _assert_is_the_mapping_of(state_dict, variables)
+
+
 def test_a_resized_position_embedding_agrees_with_the_reference(tmp_path):
     jmodel, variables = _seeded("vit_tiny")
     flat = _EXPORTERS["vit"](jmodel, variables)

@@ -4,8 +4,8 @@
 Same randomised weights (``tests/test_torch_engine_pairs.py``), same staged uint8
 canvases, fp32: the port's TTA top-k equals the JAX engine's and its scores
 agree to atol 2e-4, rtol 1e-4 (the bar of the engine parity tests), on
-``resnet_tiny``, a one-block-a-stage ConvNeXt, ``swin_micro``, ``densenet_micro``
-and ``regnet_micro``, through the
+``resnet_tiny``, a one-block-a-stage ConvNeXt, ``swin_micro``, ``densenet_micro``,
+``regnet_micro`` and ``vit_d128_micro`` (head_dim 128), through the
 resize lane and the fixed-size lane. Then the step's own contract: the mean
 of the image's and its flip's probabilities, flip invariance of a symmetric
 image, probabilities that sum to 1, padding rows cut away, the step recorded
@@ -24,7 +24,7 @@ from tests.test_torch_engine_pairs import dev_models, engine_pair
 
 
 @pytest.fixture(scope="module", params=["resnet_tiny", "convnext_dev", "swin_micro",
-                                        "densenet_micro", "regnet_micro"])
+                                        "densenet_micro", "regnet_micro", "vit_d128_micro"])
 def pair(request):
     with dev_models():
         return engine_pair(request.param, num_classes=6, buckets=(1, 4))

@@ -26,6 +26,9 @@ CONFIGS = {
                      num_classes=10),
     "vit_tiny": dict(image_size=64, patch_size=8, dim=32, depth=8, num_heads=2,
                      num_classes=10),
+    # the head_dim-128 ViTs (vit_b16_h6d128, vit_l16_h8d128) cut to size
+    "vit_d128": dict(image_size=32, patch_size=8, dim=256, depth=2, num_heads=2,
+                     num_classes=10, gelu_exact=False),
 }
 
 
@@ -96,6 +99,91 @@ def test_vit_b16_full_width_maps_one_to_one():
     n_jax = sum(int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(shapes["params"]))
     n_ours = sum(int(np.prod(s)) for s in ours.values())
     assert n_jax == n_ours == 86_859_496
+
+
+@pytest.mark.parametrize("name,n_params", [("vit_b16_h6d128", 86_859_496),
+                                           ("vit_l16_h8d128", 304_715_752)])
+def test_head_dim_128_vits_full_width_map_one_to_one(name, n_params):
+    """Both head_dim-128 ViTs @384 at full width, shapes only: every JAX
+    parameter on exactly one state-dict entry of its shape; the parameter
+    counts of ViT-B/16 and ViT-L/16 (the heads split the same width)."""
+    shapes = jax.eval_shape(getattr(jax_vit, name)().init, jax.random.PRNGKey(0))
+    ours = {k: tuple(v.shape) for k, v in
+            getattr(torch_vit, name)(device="meta").state_dict().items()}
+    assert weights.mapped_shapes(shapes) == ours
+    n_jax = sum(int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(shapes["params"]))
+    assert n_jax == sum(int(np.prod(s)) for s in ours.values()) == n_params
+    model = getattr(torch_vit, name)(device="meta")
+    assert {blk.attn.head_dim for blk in model.blocks} == {128}
+    assert not any(blk.gelu_exact for blk in model.blocks)
+
+
+# ViT-B/16's width (768, heads of 64 or 128) cut to one block at 32 px
+GEOMETRY = dict(image_size=32, patch_size=8, dim=768, depth=1, num_classes=10)
+
+
+@pytest.fixture(scope="module")
+def b16_geometry():
+    """One JAX tree of ViT-B/16's width, and a seeded input."""
+    variables = jax.tree_util.tree_map(
+        np.asarray, jax_vit.ViT(num_heads=12, **GEOMETRY).init(jax.random.PRNGKey(4)))
+    x = np.random.default_rng(4).standard_normal((2, 32, 32, 3)).astype(np.float32)
+    return variables, x
+
+
+def test_heads_and_the_gelu_form_change_the_function(b16_geometry):
+    """The same weights as ViT-B/16 (12 heads of 64, exact GELU), with 6
+    heads of 128, and as ``vit_b16_h6d128`` (6 of 128, tanh GELU) are three
+    functions: each port variant equals its JAX twin in fp32, and any two
+    variants differ by more than ten times the largest gap between a variant
+    and its twin (the GELU forms differ by at most ~3e-4 a unit, so their
+    logits part by ~1e-4 at these initial scales)."""
+    variables, x = b16_geometry
+    state = weights.from_jax_variables(variables)
+    logits, twin_gaps = {}, []
+    for heads, exact in ((12, True), (6, True), (6, False)):
+        jmodel = jax_vit.ViT(num_heads=heads, gelu_exact=exact, **GEOMETRY)
+        tmodel = torch_vit.ViT(num_heads=heads, gelu_exact=exact, **GEOMETRY)
+        tmodel.load_state_dict(state, strict=True)
+        got = _torch_logits(tmodel.eval(), x, torch.float32)
+        want = _jax_logits(jmodel, variables, x, jnp.float32)
+        np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-4)
+        logits[heads, exact] = got
+        twin_gaps.append(float(np.abs(got - want).max()))
+    pairs = [(a, b) for a in logits for b in logits if a < b]
+    gaps = {(a, b): float(np.abs(logits[a] - logits[b]).max()) for a, b in pairs}
+    assert min(gaps.values()) > 10 * max(twin_gaps), (gaps, twin_gaps)
+
+
+@pytest.mark.parametrize("dim,heads", [(768, 6), (1024, 8)])
+def test_the_kernel_gets_the_qkv_product_of_the_d128_vits_by_its_strides(dim, heads, monkeypatch):
+    """At the served widths and 577 tokens, ``flash_attention_qkv`` gets the
+    [B, 577, 3, H, 128] view of the projection's output, no copy: rows 3 x H
+    x 128 apart (2,304 elements for H 6, 3,072 for H 8)."""
+    attn = torch_vit.MultiHeadAttention(dim, heads).eval()
+    seen = {}
+    real = torch_vit.flash_attention_qkv
+
+    def spy(qkv, *args, **kwargs):
+        seen["shape"], seen["stride"] = tuple(qkv.shape), qkv.stride()
+        seen["base"] = qkv.untyped_storage().data_ptr()
+        return real(qkv, *args, **kwargs)
+
+    proj = attn.qkv.forward
+
+    def remember(x):
+        out = proj(x)
+        seen["product"] = out.untyped_storage().data_ptr()
+        return out
+
+    monkeypatch.setattr(torch_vit, "flash_attention_qkv", spy)
+    monkeypatch.setattr(attn.qkv, "forward", remember)
+    with torch.inference_mode():
+        attn(torch.zeros((1, 577, dim)), use_flash=True)
+    row = 3 * heads * 128
+    assert seen["shape"] == (1, 577, 3, heads, 128)
+    assert seen["stride"] == (577 * row, row, heads * 128, 128, 1) and row == 3 * dim
+    assert seen["base"] == seen["product"]
 
 
 def test_from_jax_variables_layouts():
