@@ -9,6 +9,13 @@ Design: an asyncio queue + a single flusher task. A flush fires when either
 largest-bucket batch is ready. Device work runs in a worker thread so the
 event loop (and therefore host CRUD latency) never blocks on the device —
 SURVEY.md §7.2 hard-part 5.
+
+Each flush is timed into the registry (``utils.metrics``): ``dispatch_wait``,
+from the hand-off of its stage-and-dispatch to the executor until a worker
+starts it; the span ``dispatch`` around the whole of it, with ``stage``
+around the staging inside (the engine adds ``pad``, ``copy`` and
+``launch``); ``resolve_wait`` and the span ``resolve`` for the fetch. Without
+pipelining, ``dispatch`` holds the fetch too.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 import numpy as np
+
+from ics_tpu_torch.utils.metrics import registry, span, waited
 
 logger = logging.getLogger(__name__)
 
@@ -56,8 +65,10 @@ class DynamicBatcher:
         max_deadline_us: int = 50_000,
         incoming: Optional[IncomingCounter] = None,
         predict_dispatch: Optional[Callable] = None,
+        lane: str = "pixel",
     ):
         self.predict_staged = predict_staged
+        self.lane = lane                # named in the profiler's args of a flush's spans
         self.stage_batch = stage_batch
         self.max_batch = max_batch
         self.deadline_s = deadline_us / 1e6
@@ -214,8 +225,6 @@ class DynamicBatcher:
                         p.future.set_exception(exc)
 
     async def _flush(self, batch: list[_Pending]) -> None:
-        from ics_tpu_torch.utils.metrics import registry
-
         self.stats["flushes"] += 1
         self.stats["max_batch_seen"] = max(self.stats["max_batch_seen"], len(batch))
         registry.histogram(
@@ -237,10 +246,14 @@ class DynamicBatcher:
             # dispatches the NEXT batch (its staging/H2D overlaps this
             # one's compute).
             def stage_and_dispatch():
-                canvas, sizes = self.stage_batch(images)
-                return self.predict_dispatch(canvas, sizes)
+                waited("dispatch_wait", handed)
+                with span("dispatch", lane=self.lane, images=len(images)):
+                    with span("stage"):
+                        canvas, sizes = self.stage_batch(images)
+                    return self.predict_dispatch(canvas, sizes)
 
             try:
+                handed = time.perf_counter()
                 resolve = await loop.run_in_executor(None, stage_and_dispatch)
             except Exception as exc:
                 logger.exception("batch dispatch failed")
@@ -272,9 +285,13 @@ class DynamicBatcher:
             # staging (numpy canvas assembly) AND device work run off the
             # event loop — host CRUD latency must never couple to either
             def stage_and_predict():
-                canvas, sizes = self.stage_batch(images)
-                return self.predict_staged(canvas, sizes)
+                waited("dispatch_wait", handed)
+                with span("dispatch", lane=self.lane, images=len(images)):
+                    with span("stage"):
+                        canvas, sizes = self.stage_batch(images)
+                    return self.predict_staged(canvas, sizes)
 
+            handed = time.perf_counter()
             idx, scores = await loop.run_in_executor(None, stage_and_predict)
             for i, p in enumerate(batch):
                 if not p.future.done():
@@ -288,9 +305,16 @@ class DynamicBatcher:
     async def _resolve_batch(self, parked: tuple[list, Callable]) -> None:
         batch, resolve = parked
         loop = asyncio.get_running_loop()
+
+        def timed_resolve():
+            waited("resolve_wait", handed)
+            with span("resolve"):
+                return resolve()
+
         try:
             # the D2H fetch blocks until device compute finishes — off-loop
-            idx, scores = await loop.run_in_executor(None, resolve)
+            handed = time.perf_counter()
+            idx, scores = await loop.run_in_executor(None, timed_resolve)
             for i, p in enumerate(batch):
                 if not p.future.done():
                     p.future.set_result((idx[i], scores[i]))

@@ -55,6 +55,23 @@ The engine is driven from several threads at once (the batchers' flushes,
 the embed calls, the lanes' background warm-up): its step records and the
 steps it makes on first use are kept under a lock.
 
+Step time (``StepClock``): on the card, two CUDA events on the current
+stream of the engine's device (the first position's under a mesh), one
+before the batch's copy and one, after its top-k, as a served flush's
+resolver starts its fetch, read once the step is fetched; on the CPU the
+host clock at the same two points. Every lane enqueues on that one stream,
+so one step's interval can hold another's work: a step is credited only
+the part of its interval that no step timed before it covered, and the
+credits add up to the stream time spent inside some step, each moment
+once. A shape's first call (its compile) and
+``record=False`` (warm-up) stay out of ``device_ms``, as out of the
+registry's ``step_device_ms`` histogram and ``resolved_images`` counter.
+A served flush (``predict_staged_async``, ``predict_coeff_staged_async``)
+is timed in spans (``utils.metrics``): ``pad`` to the bucket, ``copy`` of
+the padded host arrays to the device (the counter ``copy_bytes`` adds their
+bytes, ``dispatched_images`` the flush's real images; under a mesh the
+copies run inside ``launch``), and ``launch``, the step's enqueue.
+
 On a mesh (``mesh``, ``parallel.mesh``): a ``("data"[, "model"])`` mesh of
 more than one position serves the pixel, coefficient and embed steps data
 parallel (``parallel.mesh.MeshModel``: the batch split over the ``data``
@@ -72,9 +89,11 @@ process's: a data-parallel step launches each kernel once a position.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import time
+from bisect import bisect_left
 from typing import Optional, Sequence
 
 import numpy as np
@@ -93,6 +112,7 @@ from ics_tpu_torch.runtime.device_decode import (
     make_fused_decode_infer_step,
     to_device,
 )
+from ics_tpu_torch.utils.metrics import registry, span
 
 logger = logging.getLogger(__name__)
 
@@ -100,6 +120,95 @@ TOP_K = 5
 PAD_SIZE = 256  # true (h, w) given to padding rows: any sane extent will do
 EXPLAIN_GRID = 16  # side of the saliency grid explain returns, whatever the image size
 _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+class StepClock:
+    """Marks on a step's clock and the stream time the timed steps cover.
+
+    ``mark`` is a CUDA event recorded on the current stream of the device
+    (the host clock, in ms, on the CPU); ``credit(start, end)`` places the
+    two marks of a finished step on one timeline and returns the part of
+    [start, end] that no step credited before covered, so the credits add
+    up to the union of the steps' intervals. The timeline's origin is an
+    event of its own, moved to a newer step's start every ``REBASE_MS``
+    (``elapsed_time`` is a float32 of ms: 0.06 ms apart at 10 min).
+
+    The events are kept for reuse: while another thread copies from pageable
+    memory every CUDA call waits for that copy, so an event made and
+    destroyed a step (the last reference often dropped on the event loop)
+    would add such waits.
+    """
+
+    REBASE_MS = 600_000.0
+    HORIZON_MS = 60_000.0       # no step lasts longer: older cover is forgotten
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self._lock = threading.Lock()
+        self._events: list = []
+        self._origin = None     # (event, its time on the timeline, ms)
+        self._covered: list = []    # disjoint (start, end) ms, ascending
+
+    def mark(self):
+        if not self.cuda:
+            return time.perf_counter() * 1e3
+        stream = torch.cuda.current_stream(self.device)
+        if self._origin is None:
+            with self._lock:                    # recorded before any mark it times
+                if self._origin is None:
+                    origin = torch.cuda.Event(enable_timing=True)
+                    origin.record(stream)
+                    self._origin = (origin, 0.0)
+        try:
+            event = self._events.pop()
+        except IndexError:
+            event = torch.cuda.Event(enable_timing=True)
+        event.record(stream)
+        return event
+
+    def release(self, start, end) -> None:
+        """Hand back the marks of a step that is not timed."""
+        if self.cuda:
+            self._events += (start, end)
+
+    def credit(self, start, end) -> float:
+        """ms of [start, end] (two marks of a fetched step) that no step
+        credited before covered."""
+        if self.cuda:
+            origin, at = self._origin
+            offset = origin.elapsed_time(start)
+            lo = at + offset
+            hi = lo + start.elapsed_time(end)
+        else:
+            lo, hi = start, end
+        with self._lock:
+            ms = self._cover(lo, hi)
+            if self.cuda and offset > self.REBASE_MS and self._origin[0] is origin:
+                self._origin, start = (start, lo), None     # the new origin stays out of reuse
+        if self.cuda:
+            self._events += [e for e in (start, end) if e is not None]
+        return ms
+
+    def _cover(self, lo: float, hi: float) -> float:
+        cov = self._covered
+        i = bisect_left(cov, (lo,))
+        if i and cov[i - 1][1] >= lo:
+            i -= 1
+        j, new, a0, b0 = i, hi - lo, lo, hi
+        while j < len(cov) and cov[j][0] <= hi:
+            a, b = cov[j]
+            new -= min(b, hi) - max(a, lo)
+            a0, b0 = min(a0, a), max(b0, b)
+            j += 1
+        cov[i:j] = [(a0, b0)]
+        stale = bisect_left(cov, (cov[-1][1] - self.HORIZON_MS,))
+        if stale > 1:
+            del cov[:stale - 1]
+        return new
 
 
 def _resize_linear(heat: torch.Tensor, size: int) -> torch.Tensor:
@@ -219,23 +328,45 @@ class InferenceEngine:
         # guards _compiled_shapes, _stats and the steps made on first use
         self._lock = threading.Lock()
         self._stats = {
-            "batches": 0, "images": 0, "total_device_ms": 0.0, "compiles": 0,
+            "batches": 0, "images": 0, "device_ms": 0.0, "compiles": 0,
         }
+        self._clock = StepClock(self.device)
+        self._mark = self._clock.mark
 
-    def _record_step(self, key, dt_ms: float, n: int, record: bool = True) -> None:
+    @staticmethod
+    def _span(name: str, record: bool = True, **args):
+        """A span of a served flush; warm-ups (``record=False``) time none."""
+        return span(name, **args) if record else _NO_SPAN
+
+    @staticmethod
+    def _count_dispatch(n: int, arrays) -> None:
+        registry.counter("dispatched_images", "real images of the dispatched flushes").inc(n)
+        registry.counter("copy_bytes", "bytes copied host to device by the flushes").inc(
+            sum(a.nbytes for a in arrays))
+
+    def _record_step(self, key, n: int, marks=None, record: bool = True) -> None:
         """The FIRST call on a shape key is a compile (counted, kept out of
-        total_device_ms); ``record=False`` keeps warmup out of the stats."""
+        device_ms); ``record=False`` keeps warmup out of the stats. ``marks``
+        (the step's two ``_mark``s) go back to the clock, read only where the
+        step is timed."""
         with self._lock:
             new_shape = key not in self._compiled_shapes
             self._compiled_shapes.add(key)
-            if not record:
-                return
-            self._stats["batches"] += 1
-            self._stats["images"] += n
-            if new_shape:
-                self._stats["compiles"] += 1
-            else:
-                self._stats["total_device_ms"] += dt_ms
+            if record:
+                self._stats["batches"] += 1
+                self._stats["images"] += n
+                self._stats["compiles"] += new_shape
+        if marks is None:
+            return
+        if not record or new_shape:
+            self._clock.release(*marks)
+            return
+        ms = self._clock.credit(*marks)
+        with self._lock:
+            self._stats["device_ms"] += ms
+        registry.histogram("step_device_ms", "a step's stream time no step before it "
+                           "covered (ms)").observe(ms)
+        registry.counter("resolved_images", "real images of the timed steps").inc(n)
 
     def _top_k(self) -> int:
         # multi-label returns every class: each sigmoid is its own decision
@@ -318,10 +449,10 @@ class InferenceEngine:
             canvas = np.zeros((b, self.canvas, self.canvas, 3), np.uint8)
             sizes = np.full((b, 2), PAD_SIZE, np.int32)
             self._dispatch(canvas, sizes)[0].cpu()
-            self._record_step((b, self.canvas), 0.0, b, record=False)
+            self._record_step((b, self.canvas), b, record=False)
             if self.spec.resize_short == self.spec.image_size <= self.canvas:
                 self._dispatch(canvas, sizes, fixed_size=True)[0].cpu()
-                self._record_step((b, self.canvas, "fixed"), 0.0, b, record=False)
+                self._record_step((b, self.canvas, "fixed"), b, record=False)
             logger.info("warmed %s step for bucket %d", self.model_name, b)
 
     def _to_device(self, canvas: np.ndarray, sizes: np.ndarray):
@@ -337,15 +468,28 @@ class InferenceEngine:
         results (blocking) and records step telemetry."""
         n = canvas.shape[0]
         fixed_size = self._fixed_size(canvas, sizes)
-        canvas, sizes, bucket = self._pad(canvas, sizes)
-        t0 = time.perf_counter()
-        idx, scores = self._dispatch(canvas, sizes, fixed_size)
+        with self._span("pad"):
+            canvas, sizes, bucket = self._pad(canvas, sizes)
+        self._count_dispatch(n, (canvas, sizes))
+        start = self._mark()
+        if self._mesh_model is None:
+            with self._span("copy"):
+                dev = self._to_device(canvas, sizes)
+            with self._span("launch", bucket=bucket):
+                idx, scores = self._step(*dev, fixed_size=fixed_size)
+        else:
+            with self._span("launch", bucket=bucket):   # each data group copies its rows
+                idx, scores = self._dispatch(canvas, sizes, fixed_size)
         shape_key = (bucket, canvas.shape[1]) + (("fixed",) if fixed_size else ())
 
         def resolve() -> tuple[np.ndarray, np.ndarray]:
+            # each mark and read sits next to a CUDA call the flush makes
+            # anyway (the copy, the two fetches), so a wait behind another
+            # thread's pageable copy falls where the flush waited already
+            end = self._mark()
             i = idx.cpu().numpy()[:n]
+            self._record_step(shape_key, n, (start, end))
             s = scores.cpu().numpy()[:n]
-            self._record_step(shape_key, (time.perf_counter() - t0) * 1000, n)
             return i, s
 
         return resolve
@@ -386,10 +530,11 @@ class InferenceEngine:
         n = canvas.shape[0]
         fixed_size = self._fixed_size(canvas, sizes)
         canvas, sizes, bucket = self._pad(canvas, sizes)
-        t0 = time.perf_counter()
+        start = self._mark()
         idx, scores = self._tta_step(*self._to_device(canvas, sizes), fixed_size=fixed_size)
+        end = self._mark()
         idx, scores = idx.cpu().numpy()[:n], scores.cpu().numpy()[:n]
-        self._record_step(("tta", bucket, canvas.shape[1]), (time.perf_counter() - t0) * 1000, n)
+        self._record_step(("tta", bucket, canvas.shape[1]), n, (start, end))
         return idx, scores
 
     # -- explainability ------------------------------------------------------
@@ -452,11 +597,12 @@ class InferenceEngine:
         n = self.quantize_smooth(smooth_samples)
         canvas, sizes = canvas[:1], sizes[:1]
         fixed_size = self._fixed_size(canvas, sizes)
-        t0 = time.perf_counter()
+        start = self._mark()
         idx, scores, heat = self._explain_step(*self._to_device(canvas, sizes), class_idx, n,
                                                seed, fixed_size)
+        end = self._mark()
         out = idx.cpu().numpy(), scores.cpu().numpy(), heat.cpu().numpy()
-        self._record_step(("explain", n, canvas.shape[1]), (time.perf_counter() - t0) * 1000, 1)
+        self._record_step(("explain", n, canvas.shape[1]), 1, (start, end))
         return out
 
     # -- the JPEG-coefficient (device decode) lanes ---------------------------
@@ -487,26 +633,32 @@ class InferenceEngine:
         waiting; returns a zero-arg resolver, as ``predict_staged_async``."""
         n = staged["y"].shape[0]
         bucket = self.bucket_for(n)
-        if n < bucket:
-            pad = bucket - n
-            staged = {k: np.concatenate([v, np.zeros((pad, *v.shape[1:]), v.dtype)])
-                      for k, v in staged.items()}
-            # zero quant tables make padded rows decode to zeros; give the
-            # padded sizes a sane nonzero extent for the resize plan
-            staged["sizes"][n:] = 64
+        with self._span("pad", record):
+            if n < bucket:
+                pad = bucket - n
+                staged = {k: np.concatenate([v, np.zeros((pad, *v.shape[1:]), v.dtype)])
+                          for k, v in staged.items()}
+                # zero quant tables make padded rows decode to zeros; give the
+                # padded sizes a sane nonzero extent for the resize plan
+                staged["sizes"][n:] = 64
         step = self._get_coeff_step(mode)
-        t0 = time.perf_counter()
+        if record:
+            self._count_dispatch(n, [staged[k] for k in STAGED_KEYS])
+        start = self._mark()
         if self._mesh_model is None:
-            dev = to_device(staged, self.device)
-            idx, scores = step(*(dev[k] for k in STAGED_KEYS))
+            with self._span("copy", record):
+                dev = to_device(staged, self.device)
         else:
-            idx, scores = step(*(staged[k] for k in STAGED_KEYS))
+            dev = staged                        # each data group copies its rows
+        with self._span("launch", record, bucket=bucket):
+            idx, scores = step(*(dev[k] for k in STAGED_KEYS))
         shape_key = ("coeff", mode, staged["y"].shape[1], bucket)
 
         def resolve() -> tuple[np.ndarray, np.ndarray]:
+            end = self._mark()                  # placed as the pixel lane's
             i = idx.cpu().numpy()[:n]
+            self._record_step(shape_key, n, (start, end), record)
             s = scores.cpu().numpy()[:n]
-            self._record_step(shape_key, (time.perf_counter() - t0) * 1000, n, record=record)
             return i, s
 
         return resolve
@@ -568,21 +720,22 @@ class InferenceEngine:
         self._require_no_pp("embeddings")
         n = canvas.shape[0]
         canvas, sizes, bucket = self._pad(canvas, sizes)
-        t0 = time.perf_counter()
+        start = self._mark()
         if self._mesh_model is None:
             feats = self._embed_step(self._get_embed_model(), *self._to_device(canvas, sizes))
         else:
             (feats,) = self._mesh_model.map(
                 lambda group, c, s: (self._embed_step(group.trunk, c, s),), canvas, sizes)
+        end = self._mark()
         feats = feats.cpu().numpy()[:n]
-        self._record_step(("embed", bucket, canvas.shape[1]),
-                          (time.perf_counter() - t0) * 1000, n)
+        self._record_step(("embed", bucket, canvas.shape[1]), n, (start, end))
         return feats
 
     def status(self) -> dict:
         cuda = self.device.type == "cuda"
         with self._lock:
             stats = dict(self._stats)
+        timed = stats["batches"] - stats["compiles"]
         return {
             "enabled": True,
             "model": self.model_name,
@@ -597,4 +750,6 @@ class InferenceEngine:
             "fused_chains": self.fused_chains,
             "kernel_launches": launch_counts(),
             **stats,
+            "avg_device_ms": stats["device_ms"] / timed if timed else None,
+            "device_clock": "cuda_events" if cuda else "host",
         }

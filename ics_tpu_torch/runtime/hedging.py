@@ -27,10 +27,9 @@ import asyncio
 import logging
 from typing import Optional
 
-import numpy as np
-
 from ics_tpu_torch.core.config import settings as global_settings
 from ics_tpu_torch.runtime.decode import ImagemInvalida
+from ics_tpu_torch.runtime.service import latency_summary
 
 logger = logging.getLogger(__name__)
 
@@ -206,17 +205,7 @@ class HedgedInferenceService:
         return await self.replicas[self._next()].classify_bytes_tta(data)
 
     def latency_percentiles(self) -> dict:
-        merged: list[float] = []
-        for r in self.replicas:
-            merged.extend(r._latencies_ms)
-        if not merged:
-            return {}
-        arr = np.asarray(merged)
-        return {
-            "p50_ms": float(np.percentile(arr, 50)),
-            "p99_ms": float(np.percentile(arr, 99)),
-            "n": len(arr),
-        }
+        return latency_summary([r.latency for r in self.replicas])
 
     def status(self) -> dict:
         per_replica = [r.status() for r in self.replicas]

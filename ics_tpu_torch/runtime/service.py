@@ -54,11 +54,28 @@ from ics_tpu_torch.runtime.device_decode import (
     classify_coefficients,
     stage_coefficient_batch,
 )
+from ics_tpu_torch.utils.metrics import Histogram, log_buckets, span, waited
 from ics_tpu_torch.utils.metrics import registry as metrics_registry
 from ics_tpu_torch.runtime.engine import InferenceEngine
 from ics_tpu_torch.train.checkpoint import UnconvertedCheckpointError
 
 logger = logging.getLogger(__name__)
+
+# a request's latency, 0.05 ms to 10 min, each bound 4 % above the last:
+# p50 and p99 read within 4 % of the exact percentiles
+LATENCY_BUCKETS = log_buckets(0.05, 600_000.0, 1.04)
+
+
+def latency_summary(histograms: Sequence[Histogram]) -> dict:
+    """p50, p99 and the count of every request the histograms hold."""
+    merged = Histogram("classify_latency_ms", buckets=LATENCY_BUCKETS)
+    for h in histograms:
+        merged.merge(h)
+    if merged.count == 0:
+        return {}
+    return {"p50_ms": merged.quantile(0.5), "p99_ms": merged.quantile(0.99),
+            "n": merged.count}
+
 
 _warned: set[str] = set()  # notices already given in this process
 
@@ -102,7 +119,9 @@ class InferenceService:
         # requests inside classify_bytes (decoding, queued or awaiting a
         # flush): the background warm-up waits for this to be 0
         self._inflight = 0
-        self._latencies_ms: list[float] = []
+        # every request's latency, as long as the service lives
+        self.latency = Histogram("classify_latency_ms", "classify latency (ms)",
+                                 LATENCY_BUCKETS)
         self._device_errors = 0
         self._stats = {"device_decoded": 0, "host_decoded": 0}
         self._started = False
@@ -133,6 +152,7 @@ class InferenceService:
             max_deadline_us=self._max_deadline_us,
             incoming=self._incoming,
             predict_dispatch=dispatch if self._pipelined else None,
+            lane=f"{mode}/{luma_blocks * 8}px",
         )
 
     async def _get_coeff_lane(self, mode: str, luma_blocks: int) -> DynamicBatcher:
@@ -314,7 +334,7 @@ class InferenceService:
         try:
             if self.device_decode and imgcodec.probe(data) == "jpeg":
                 coeffs = await loop.run_in_executor(
-                    None, imgcodec.jpeg_coefficients, data, settings.TPU_DECODE_THREADS)
+                    None, _entropy_decode, data, time.perf_counter())
                 lane_key = classify_coefficients(coeffs)
                 if lane_key is not None:
                     mode, luma_blocks = lane_key
@@ -422,19 +442,10 @@ class InferenceService:
         return feats[0]
 
     def _record_latency(self, ms: float) -> None:
-        self._latencies_ms.append(ms)
-        if len(self._latencies_ms) > 10_000:
-            self._latencies_ms = self._latencies_ms[-5_000:]
+        self.latency.observe(ms)
 
     def latency_percentiles(self) -> dict:
-        if not self._latencies_ms:
-            return {}
-        arr = np.asarray(self._latencies_ms)
-        return {
-            "p50_ms": float(np.percentile(arr, 50)),
-            "p99_ms": float(np.percentile(arr, 99)),
-            "n": len(arr),
-        }
+        return latency_summary([self.latency])
 
     def status(self) -> dict:
         return {
@@ -453,6 +464,15 @@ class InferenceService:
                                      and not self._lane_warm_task.done()),
             **self._stats,
         }
+
+
+def _entropy_decode(data: bytes, handed: float):
+    """A request's host entropy decode on an executor thread: its wait for
+    the thread since ``handed`` and the decode itself (``imgcodec`` looked
+    up at the call, so a wrapper set on it is what runs)."""
+    waited("entropy_wait", handed)
+    with span("entropy_decode"):
+        return imgcodec.jpeg_coefficients(data, settings.TPU_DECODE_THREADS)
 
 
 async def _drain_and_stop(service: InferenceService, grace_s: float = 30.0,

@@ -181,12 +181,27 @@ def main() -> None:
     }))
 
 
+def _on_device(ev) -> bool:
+    return getattr(ev, "device_type", None) is not None and str(ev.device_type).endswith("CUDA")
+
+
+def union_length(intervals) -> float:
+    """The length of the union of (start, end) intervals."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
 def profile_steps(step, steps: int) -> dict:
     """``steps`` calls of ``step`` (an engine step returning (idx, scores))
     under ``torch.profiler``, each ending in a fetch as the served step does:
     the device time a step by group and by kernel (ms, launches, name; the
-    longest first), the device's busy time and share of the profiled wall
-    time (profiler on), and the kernels a step."""
+    longest first), the device's busy time (the union of the kernels'
+    intervals) and its share of the profiled wall time (profiler on), and
+    the kernels a step."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -201,14 +216,14 @@ def profile_steps(step, steps: int) -> dict:
     for ev in prof.key_averages():
         device_us = getattr(ev, "self_device_time_total", 0) or getattr(
             ev, "self_cuda_time_total", 0)
-        is_kernel = getattr(ev, "device_type", None) is not None and \
-            str(ev.device_type).endswith("CUDA")
-        if not is_kernel or device_us <= 0:
+        if not _on_device(ev) or device_us <= 0:
             continue
         by_group[group_of(ev.key)] += device_us / 1e3 / steps
         by_kernel.append((device_us / 1e3 / steps, ev.count // steps, ev.key))
         n_kernels += ev.count
-    busy_ms = sum(by_group.values())
+    # the device is busy where any kernel runs: overlapping kernels count once
+    busy_ms = union_length([(ev.time_range.start, ev.time_range.end)
+                            for ev in prof.events() if _on_device(ev)]) / 1e3 / steps
     return {"device_ms_by_group": dict(by_group), "by_kernel": sorted(by_kernel, reverse=True),
             "device_busy_ms": busy_ms, "wall_ms": wall_ms / steps,
             "device_busy_share": busy_ms * steps / wall_ms, "kernels_per_step": n_kernels // steps}
