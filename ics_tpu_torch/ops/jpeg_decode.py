@@ -120,11 +120,12 @@ def ycbcr_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
     return rgb.round_().clamp_(0.0, 255.0) if rounded else rgb
 
 
-def as_device_tensor(x, device) -> torch.Tensor:
+def as_device_tensor(x, device, non_blocking: bool = False) -> torch.Tensor:
     """A numpy array or tensor on ``device``, dtype kept; uint16 arrays cross
-    as their int16 bit pattern (``widen_quant`` reads them back)."""
+    as their int16 bit pattern (``widen_quant`` reads them back). A tensor in
+    page-locked memory may cross ``non_blocking``."""
     if isinstance(x, torch.Tensor):
-        return x.to(device)
+        return x.to(device, non_blocking=non_blocking)
     x = np.ascontiguousarray(x)
     if x.dtype == np.uint16:
         x = x.view(np.int16)

@@ -57,11 +57,29 @@ def apply_resize_weights(canvas: torch.Tensor, ry: torch.Tensor,
     return y.permute(0, 2, 3, 1)                              # [B, out, out, c]
 
 
+_NORM_CONSTANTS: dict = {}
+
+
+def _norm_constants(mean, std, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``mean`` and ``std`` in fp32 times 255, on ``device``, made once per
+    device: a step then copies nothing to the device (a copy from pageable
+    memory would make the host wait for the stream). The product is taken
+    on the CPU, whose fp32 multiply rounds as the card's does, and copied
+    whole before any stream can read it."""
+    key = (tuple(mean), tuple(std), str(device))
+    consts = _NORM_CONSTANTS.get(key)
+    if consts is None:
+        with torch.inference_mode(False):       # usable inside and outside inference mode
+            consts = tuple((torch.tensor(v, dtype=torch.float32) * 255.0).to(device)
+                           for v in (mean, std))
+        _NORM_CONSTANTS[key] = consts
+    return consts
+
+
 def normalize_pixels(y: torch.Tensor, mean=IMAGENET_MEAN, std=IMAGENET_STD,
                      dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """ImageNet-normalize an fp32 [0, 255]-space image and cast."""
-    mean_t = torch.tensor(mean, dtype=torch.float32, device=y.device) * 255.0
-    std_t = torch.tensor(std, dtype=torch.float32, device=y.device) * 255.0
+    mean_t, std_t = _norm_constants(mean, std, y.device)
     return ((y - mean_t) / std_t).to(dtype)
 
 

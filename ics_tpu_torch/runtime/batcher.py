@@ -13,9 +13,11 @@ SURVEY.md §7.2 hard-part 5.
 Each flush is timed into the registry (``utils.metrics``): ``dispatch_wait``,
 from the hand-off of its stage-and-dispatch to the executor until a worker
 starts it; the span ``dispatch`` around the whole of it, with ``stage``
-around the staging inside (the engine adds ``pad``, ``copy`` and
-``launch``); ``resolve_wait`` and the span ``resolve`` for the fetch. Without
-pipelining, ``dispatch`` holds the fetch too.
+around the staging inside (the engine adds ``copy`` and ``launch``, and
+``pad`` on the pixel lane); ``resolve_wait`` and the span ``resolve`` for
+the fetch. Without pipelining, ``dispatch`` holds the fetch too. A flush
+dispatched while an earlier one of the lane is unresolved counts in
+``stats["pipelined"]`` and in the registry's ``pipelined_flushes``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ import numpy as np
 from ics_tpu_torch.utils.metrics import registry, span, waited
 
 logger = logging.getLogger(__name__)
+
+PIPELINED_FLUSHES = ("pipelined_flushes",
+                     "flushes dispatched while an earlier flush of their lane was unresolved")
 
 
 @dataclass
@@ -97,6 +102,7 @@ class DynamicBatcher:
         self._resolve_tasks: list[asyncio.Task] = []
         self.stats = {"flushes": 0, "queued": 0, "max_batch_seen": 0,
                       "pipelined": 0}
+        registry.counter(*PIPELINED_FLUSHES)    # the registry's mirror of "pipelined", from 0
 
     @property
     def _incoming(self) -> int:
@@ -268,6 +274,7 @@ class DynamicBatcher:
                 # a prior batch is still computing/fetching while this one
                 # was staged + dispatched: that's the overlap working
                 self.stats["pipelined"] += 1
+                registry.counter(*PIPELINED_FLUSHES).inc()
             for p in batch:
                 p.dispatched = True
             self._resolve_tasks.append(

@@ -17,6 +17,9 @@ widened there.
 
 from __future__ import annotations
 
+import collections
+import logging
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -28,6 +31,9 @@ from ics_tpu_torch.ops.jpeg_decode import (
     upsample_chroma,
     ycbcr_to_rgb,
 )
+from ics_tpu_torch.utils.metrics import registry
+
+logger = logging.getLogger(__name__)
 
 # default luma block canvas: 64x64 blocks = 512x512 px (matches the pixel
 # staging canvas); the wide lane doubles it
@@ -38,6 +44,8 @@ LUMA_BUCKETS = (64, 128)
 MODE_RATIOS = {"444": (1, 1), "422": (2, 1), "420": (2, 2)}
 
 STAGED_KEYS = ("y", "yq", "cb", "cq", "cr", "rq", "sizes")
+SLOT_WAITS = ("staging_slot_waits", "flushes that waited for a staging slot")
+SLOT_GROWS = ("staging_slot_grows", "staging slots made or grown by a flush")
 
 
 def classify_coefficients(co, luma_buckets: Sequence[int] = LUMA_BUCKETS):
@@ -77,71 +85,236 @@ def _chroma_canvas(mode: str, luma_blocks: int) -> tuple[int, int]:
     return luma_blocks // vr, luma_blocks // hr
 
 
+class StagingSlot:
+    """Host arrays of one coefficient lane (``mode``, ``luma_blocks``), reused
+    flush after flush: the seven ``STAGED_KEYS`` arrays at ``rows`` rows, each
+    a numpy view (``arrays``, the quant tables as ``uint16``) of a torch tensor
+    (``tensors``, the tables as their ``int16`` bit pattern). With ``pin``
+    the tensors are page-locked, so their copy to the card can run without
+    blocking the host; ``event`` is then recorded on the stream after that
+    copy, and the slot is restaged only once it has completed.
+
+    ``stage`` writes a batch over what the slot's last occupant left: it
+    keeps, for each row, the extent of the luma and chroma blocks that could
+    be nonzero, and zeroes only what that extent covered beyond the new
+    one, so the arrays hold the bytes a freshly zeroed staging would."""
+
+    def __init__(self, mode: str, luma_blocks: int, rows: int, pin: bool = False):
+        self.mode, self.luma_blocks, self.pin = mode, luma_blocks, pin
+        self.event = torch.cuda.Event() if pin else None
+        self.staged_rows = 0                # rows the last ``stage`` wrote
+        self.grow(rows)
+
+    def grow(self, rows: int) -> None:
+        """Room for ``rows`` rows: new arrays, all zero."""
+        cv, ch = _chroma_canvas(self.mode, self.luma_blocks)
+        lb = self.luma_blocks
+        shapes = {"y": ((rows, lb, lb, 64), np.int16), "cb": ((rows, cv, ch, 64), np.int16),
+                  "cr": ((rows, cv, ch, 64), np.int16), "yq": ((rows, 64), np.int16),
+                  "cq": ((rows, 64), np.int16), "rq": ((rows, 64), np.int16),
+                  "sizes": ((rows, 2), np.int32)}
+        self.tensors = {k: torch.from_numpy(np.zeros(shape, dtype))
+                        for k, (shape, dtype) in shapes.items()}
+        if self.pin:
+            self.tensors = {k: t.pin_memory() for k, t in self.tensors.items()}
+        self.arrays = {k: t.numpy() for k, t in self.tensors.items()}
+        for k in ("yq", "cq", "rq"):
+            self.arrays[k] = self.arrays[k].view(np.uint16)
+        self.rows = rows
+        # per row, (block rows, block columns) that may hold nonzero values
+        self._luma = np.zeros((rows, 2), np.int64)
+        self._chroma = np.zeros((rows, 2), np.int64)
+
+    def stage(self, coeff_list: Sequence, rows: int) -> None:
+        """Rows [0, n) from ``coeff_list`` (checked by the caller), rows
+        [n, ``rows``) padding: zero coefficients and tables (they decode to
+        zeros) and sizes 64, a sane extent for the resize plan."""
+        a = self.arrays
+        cbv, cbh_ = _chroma_canvas(self.mode, self.luma_blocks)
+        for i in range(rows):
+            co = coeff_list[i] if i < len(coeff_list) else None
+            luma = co.components[0]["coeffs"] if co is not None else None
+            color = co is not None and self.mode != "gray"
+            self._luma[i] = _restage(a["y"][i], self._luma[i],
+                                     luma.shape[:2] if luma is not None else (0, 0))
+            if luma is not None:
+                a["y"][i, :luma.shape[0], :luma.shape[1]] = luma
+                a["yq"][i] = co.components[0]["quant"]
+                a["sizes"][i] = (co.height, co.width)
+            else:
+                a["yq"][i] = 0
+                a["sizes"][i] = 64
+            if not color:
+                # zero chroma coeffs + zero quant = neutral 128 plane
+                for key, q in (("cb", "cq"), ("cr", "rq")):
+                    _restage(a[key][i], self._chroma[i], (0, 0))
+                    a[q][i] = 0
+                self._chroma[i] = 0
+                continue
+            cbc, crc = co.components[1], co.components[2]
+            ch, cw = cbc["coeffs"].shape[:2]
+            for key, q, comp in (("cb", "cq", cbc), ("cr", "rq", crc)):
+                plane = a[key][i]
+                _restage(plane, self._chroma[i], (ch, cw))
+                plane[:ch, :cw] = comp["coeffs"]
+                # edge-replicate chroma DC into the padding blocks: the fancy
+                # upsampler reads one neighbor past the image edge, and
+                # neutral-grey padding would pull border chroma 25% toward
+                # grey (lane divergence vs the host decoder). Replicating the
+                # edge blocks' DC keeps the neighbor at the edge value.
+                if ch < cbv:
+                    plane[ch, :cw, 0] = comp["coeffs"][ch - 1, :, 0]
+                if cw < cbh_:
+                    plane[:ch, cw, 0] = comp["coeffs"][:, cw - 1, 0]
+                if ch < cbv and cw < cbh_:
+                    # the corner block too: without it the bottom-right image
+                    # corner's right-neighbor column decodes to neutral grey
+                    plane[ch, cw, 0] = comp["coeffs"][ch - 1, cw - 1, 0]
+                a[q][i] = comp["quant"]
+            self._chroma[i] = (min(ch + 1, cbv), min(cw + 1, cbh_))
+        self.staged_rows = rows
+
+
+def _restage(plane: np.ndarray, old, new) -> tuple:
+    """Zero the blocks of ``plane`` [H, W, 64] inside the extent ``old`` and
+    outside ``new``, both (block rows, block columns); returns ``new``."""
+    (oh, ow), (nh, nw) = old, new
+    if oh > nh:
+        plane[nh:oh, :ow] = 0
+    if ow > nw:
+        plane[:min(oh, nh), nw:ow] = 0
+    return new
+
+
+class StagedBatch(dict):
+    """A staged batch (the ``STAGED_KEYS`` arrays of its n images) whose
+    arrays are the first rows of ``slot``; the slot holds the batch padded to
+    the ``slot.staged_rows`` it was staged at. A copy of it (``dict(...)``)
+    is a plain staged batch."""
+
+    def __init__(self, arrays: dict, slot: StagingSlot):
+        super().__init__(arrays)
+        self.slot = slot
+
+
 def stage_coefficient_batch(
     coeff_list: Sequence,
     luma_blocks: int = LUMA_BLOCKS,
     mode: str = "420",
+    slot: Optional[StagingSlot] = None,
+    rows: Optional[int] = None,
 ) -> Optional[dict]:
     """Stage a batch of same-mode JpegCoefficients onto fixed block canvases.
 
     Returns None if any image doesn't match ``mode`` or exceeds the canvas
     (callers route by classify_coefficients, so this is defense in depth).
+    By default the arrays are new, of the batch's own rows. With ``slot`` (of
+    this lane, at least ``rows`` rows) the batch is written into the slot,
+    padded to ``rows`` rows (default: the batch's), and a ``StagedBatch`` of
+    the slot's first n rows is returned.
     """
-    n = len(coeff_list)
     cbv, cbh_ = _chroma_canvas(mode, luma_blocks)
-    y = np.zeros((n, luma_blocks, luma_blocks, 64), np.int16)
-    cb = np.zeros((n, cbv, cbh_, 64), np.int16)
-    cr = np.zeros((n, cbv, cbh_, 64), np.int16)
-    yq = np.zeros((n, 64), np.uint16)
-    cq = np.zeros((n, 64), np.uint16)
-    rq = np.zeros((n, 64), np.uint16)
-    sizes = np.zeros((n, 2), np.int32)
-    for i, co in enumerate(coeff_list):
+    for co in coeff_list:
         cls = classify_coefficients(co, luma_buckets=(luma_blocks,))
         if cls is None or cls[0] != mode:
             return None
-        yc = co.components[0]
-        ybh, ybw = yc["coeffs"].shape[:2]
-        y[i, :ybh, :ybw] = yc["coeffs"]
-        yq[i] = yc["quant"]
-        sizes[i] = (co.height, co.width)
-        if mode == "gray":
-            continue  # zero chroma coeffs + zero quant = neutral 128 plane
-        cbc, crc = co.components[1], co.components[2]
-        ch, cw = cbc["coeffs"].shape[:2]
-        if ch > cbv or cw > cbh_:
-            return None
-        cb[i, :ch, :cw] = cbc["coeffs"]
-        cr[i, :ch, :cw] = crc["coeffs"]
-        # edge-replicate chroma DC into the padding blocks: the fancy
-        # upsampler reads one neighbor past the image edge, and neutral-grey
-        # padding would pull border chroma 25% toward grey (lane divergence
-        # vs the host decoder). Replicating the edge blocks' DC keeps the
-        # neighbor at the edge value.
-        if ch < cbv:
-            cb[i, ch, :cw, 0] = cbc["coeffs"][ch - 1, :, 0]
-            cr[i, ch, :cw, 0] = crc["coeffs"][ch - 1, :, 0]
-        if cw < cbh_:
-            cb[i, :ch, cw, 0] = cbc["coeffs"][:, cw - 1, 0]
-            cr[i, :ch, cw, 0] = crc["coeffs"][:, cw - 1, 0]
-        if ch < cbv and cw < cbh_:
-            # the corner block too: without it the bottom-right image
-            # corner's right-neighbor column decodes to neutral grey
-            cb[i, ch, cw, 0] = cbc["coeffs"][ch - 1, cw - 1, 0]
-            cr[i, ch, cw, 0] = crc["coeffs"][ch - 1, cw - 1, 0]
-        cq[i] = cbc["quant"]
-        rq[i] = crc["quant"]
-    return {
-        "y": y, "cb": cb, "cr": cr,
-        "yq": yq, "cq": cq, "rq": rq,
-        "sizes": sizes,
-    }
+        if mode != "gray":
+            ch, cw = co.components[1]["coeffs"].shape[:2]
+            if ch > cbv or cw > cbh_:
+                return None
+    n = len(coeff_list)
+    if slot is None:
+        fresh = StagingSlot(mode, luma_blocks, n)
+        fresh.stage(coeff_list, n)
+        return fresh.arrays
+    slot.stage(coeff_list, n if rows is None else rows)
+    return StagedBatch({k: slot.arrays[k][:n] for k in STAGED_KEYS}, slot)
 
 
-def to_device(staged: dict, device) -> dict:
+def pad_staged(staged: dict, rows: int) -> dict:
+    """A new staged batch of ``rows`` rows: ``staged`` and padding rows of
+    zero coefficients and tables, sizes 64 (what ``StagingSlot.stage`` pads
+    with)."""
+    n = staged["y"].shape[0]
+    if n >= rows:
+        return staged
+    padded = {}
+    for k, v in staged.items():             # numpy's zeros: padding pages stay untouched
+        padded[k] = np.zeros((rows, *v.shape[1:]), v.dtype)
+        padded[k][:n] = v
+    padded["sizes"][n:] = 64
+    return padded
+
+
+class StagingPool:
+    """The host slots of one coefficient lane, handed out one a flush.
+
+    ``reserve`` makes the lane's first ``RESERVED`` slots (the engine's
+    warm-up, so page-locking lands in set-up); ``acquire`` hands out a free
+    slot with room for a flush, making one while fewer than ``SLOTS``
+    exist, else waiting for a ``release``, then for the slot's last copy.
+    The service holds a slot from staging until the flush's resolver has
+    returned, so with the batcher's two-deep pipeline a lane holds two; the
+    third covers a warm-up or an unpipelined flush beside them. Each wait
+    counts in the registry's ``staging_slot_waits``, each slot made or grown
+    by a flush in ``staging_slot_grows``."""
+
+    RESERVED = 2
+    SLOTS = 3
+    STUCK_S = 60.0      # a wait this long makes one more slot: a slot was never handed back
+
+    def __init__(self, mode: str, luma_blocks: int, pin: bool):
+        self.mode, self.luma_blocks, self.pin = mode, luma_blocks, pin
+        self._free: collections.deque = collections.deque()
+        self._made = 0
+        self._cond = threading.Condition()
+
+    def _slot(self, rows: int) -> StagingSlot:
+        return StagingSlot(self.mode, self.luma_blocks, rows, self.pin)
+
+    def reserve(self, rows: int) -> None:
+        with self._cond:
+            while self._made < self.RESERVED:
+                self._free.append(self._slot(rows))
+                self._made += 1
+            for slot in self._free:
+                if slot.rows < rows:
+                    slot.grow(rows)
+
+    def acquire(self, rows: int) -> StagingSlot:
+        grown = False
+        with self._cond:
+            if not self._free and self._made >= self.SLOTS:
+                registry.counter(*SLOT_WAITS).inc()
+                self._cond.wait_for(lambda: self._free, timeout=self.STUCK_S)
+            slot = self._free.popleft() if self._free else None
+            if slot is None:
+                self._made += 1
+        if slot is None:
+            logger.info("decode lane %s/%dpx: staging slot %d", self.mode,
+                        self.luma_blocks * 8, self._made)
+            slot, grown = self._slot(rows), True
+        elif slot.event is not None and not slot.event.query():
+            registry.counter(*SLOT_WAITS).inc()
+            slot.event.synchronize()
+        if slot.rows < rows:
+            slot.grow(rows)
+            grown = True
+        if grown:
+            registry.counter(*SLOT_GROWS).inc()
+        return slot
+
+    def release(self, slot: StagingSlot) -> None:
+        with self._cond:
+            self._free.append(slot)
+            self._cond.notify()
+
+
+def to_device(staged: dict, device, non_blocking: bool = False) -> dict:
     """Host staged batch -> tensors on ``device``, dtypes as they are
-    (uint16 tables as their int16 bit pattern)."""
-    return {key: as_device_tensor(staged[key], device) for key in STAGED_KEYS}
+    (uint16 tables as their int16 bit pattern); ``non_blocking`` for
+    page-locked tensors."""
+    return {key: as_device_tensor(staged[key], device, non_blocking) for key in STAGED_KEYS}
 
 
 def clamp_to_extent(plane: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:

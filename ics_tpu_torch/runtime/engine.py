@@ -67,10 +67,20 @@ once. A shape's first call (its compile) and
 ``record=False`` (warm-up) stay out of ``device_ms``, as out of the
 registry's ``step_device_ms`` histogram and ``resolved_images`` counter.
 A served flush (``predict_staged_async``, ``predict_coeff_staged_async``)
-is timed in spans (``utils.metrics``): ``pad`` to the bucket, ``copy`` of
-the padded host arrays to the device (the counter ``copy_bytes`` adds their
-bytes, ``dispatched_images`` the flush's real images; under a mesh the
-copies run inside ``launch``), and ``launch``, the step's enqueue.
+is timed in spans (``utils.metrics``): ``pad`` to the bucket (the pixel
+lane), ``copy`` of the padded host arrays to the device (the counter
+``copy_bytes`` adds their bytes, ``dispatched_images`` the flush's real
+images; under a mesh the copies run inside ``launch``), and ``launch``, the
+step's enqueue.
+
+The coefficient lanes stage at the bucket (``stage_coefficients``): each
+lane has a few host slots (``device_decode.StagingPool``), made with rows
+for the largest bucket its warm-up runs and page-locked on a card, and a
+flush holds one from its staging until its resolver has returned
+(``release_staged``). Its copy is then enqueued without blocking (counted in
+``pinned_flushes``), and nothing from staging to the launch's return waits
+for the stream: a lane's dispatch does not wait for the step before it, nor
+for the other lane's copy.
 
 On a mesh (``mesh``, ``parallel.mesh``): a ``("data"[, "model"])`` mesh of
 more than one position serves the pixel, coefficient and embed steps data
@@ -108,8 +118,11 @@ from ics_tpu_torch.parallel.mesh import MeshModel, headless
 from ics_tpu_torch.parallel.pipeline import pipeline_vit_forward, stage_block_params
 from ics_tpu_torch.runtime.device_decode import (
     STAGED_KEYS,
-    _chroma_canvas,
+    StagedBatch,
+    StagingPool,
     make_fused_decode_infer_step,
+    pad_staged,
+    stage_coefficient_batch,
     to_device,
 )
 from ics_tpu_torch.utils.metrics import registry, span
@@ -123,6 +136,8 @@ _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
 _NO_SPAN = contextlib.nullcontext()
+PINNED_FLUSHES = ("pinned_flushes",
+                  "flushes copied from a page-locked staging slot without blocking")
 
 
 class StepClock:
@@ -324,14 +339,16 @@ class InferenceEngine:
         self.fused_chains = fused_chains
         self._compiled_shapes: set = set()
         self._coeff_steps: dict = {}
+        self._staging_pools: dict = {}
         self._embed_model: Optional[torch.nn.Module] = None
-        # guards _compiled_shapes, _stats and the steps made on first use
+        # guards _compiled_shapes, _stats and the steps and pools made on first use
         self._lock = threading.Lock()
         self._stats = {
             "batches": 0, "images": 0, "device_ms": 0.0, "compiles": 0,
         }
         self._clock = StepClock(self.device)
         self._mark = self._clock.mark
+        registry.counter(*PINNED_FLUSHES)       # from 0, also where no slot is page-locked
 
     @staticmethod
     def _span(name: str, record: bool = True, **args):
@@ -626,33 +643,70 @@ class InferenceEngine:
                 self._coeff_steps[mode] = step
             return step
 
+    def _staging(self, mode: str, luma_blocks: int) -> StagingPool:
+        """The host staging slots of one coefficient lane, made on first use:
+        page-locked on a card."""
+        with self._lock:
+            pool = self._staging_pools.get((mode, luma_blocks))
+            if pool is None:
+                pool = StagingPool(mode, luma_blocks, pin=self.device.type == "cuda")
+                self._staging_pools[(mode, luma_blocks)] = pool
+            return pool
+
+    def stage_coefficients(self, coeff_list: Sequence, mode: str,
+                           luma_blocks: int) -> Optional[StagedBatch]:
+        """Stage a flush of one coefficient lane into one of the lane's
+        reused host slots, padded to its batch bucket. The slot is the
+        caller's until it hands the batch back with ``release_staged``,
+        once the flush's resolver has returned. None (the slot handed back
+        already) where the batch does not fit the lane."""
+        n = len(coeff_list)
+        rows = max(n, self.bucket_for(n))
+        pool = self._staging(mode, luma_blocks)
+        slot = pool.acquire(rows)
+        staged = stage_coefficient_batch(coeff_list, luma_blocks, mode, slot=slot, rows=rows)
+        if staged is None:
+            pool.release(slot)
+        return staged
+
+    def release_staged(self, staged) -> None:
+        """Hand a staged batch's slot back to its lane (a plain batch has none)."""
+        slot = getattr(staged, "slot", None)
+        if slot is not None:
+            self._staging(slot.mode, slot.luma_blocks).release(slot)
+
     def predict_coeff_staged_async(self, staged: dict, mode: str = "420",
                                    record: bool = True):
-        """Pad a staged coefficient batch (``runtime.device_decode``) to the
-        batch bucket, copy it to the device and enqueue the step WITHOUT
-        waiting; returns a zero-arg resolver, as ``predict_staged_async``."""
+        """Copy a staged coefficient batch (``runtime.device_decode``), padded
+        to the batch bucket, to the device and enqueue the step WITHOUT
+        waiting; returns a zero-arg resolver, as ``predict_staged_async``.
+        A batch staged in a slot at its bucket (``stage_coefficients``) is
+        copied from the slot's page-locked rows without blocking; any other
+        is padded into new arrays and copied as it is."""
         n = staged["y"].shape[0]
         bucket = self.bucket_for(n)
-        with self._span("pad", record):
-            if n < bucket:
-                pad = bucket - n
-                staged = {k: np.concatenate([v, np.zeros((pad, *v.shape[1:]), v.dtype)])
-                          for k, v in staged.items()}
-                # zero quant tables make padded rows decode to zeros; give the
-                # padded sizes a sane nonzero extent for the resize plan
-                staged["sizes"][n:] = 64
+        slot = getattr(staged, "slot", None)
+        if slot is not None and slot.staged_rows == max(n, bucket):
+            arrays = {k: slot.tensors[k][:slot.staged_rows] for k in STAGED_KEYS}
+            pinned = slot.pin
+        else:
+            arrays, pinned = pad_staged(staged, bucket), False
         step = self._get_coeff_step(mode)
         if record:
-            self._count_dispatch(n, [staged[k] for k in STAGED_KEYS])
+            self._count_dispatch(n, [arrays[k] for k in STAGED_KEYS])
         start = self._mark()
         if self._mesh_model is None:
             with self._span("copy", record):
-                dev = to_device(staged, self.device)
+                dev = to_device(arrays, self.device, non_blocking=pinned)
+                if pinned:
+                    slot.event.record(torch.cuda.current_stream(self.device))
+            if pinned and record:
+                registry.counter(*PINNED_FLUSHES).inc()
         else:
-            dev = staged                        # each data group copies its rows
+            dev = arrays                        # each data group copies its rows
         with self._span("launch", record, bucket=bucket):
             idx, scores = step(*(dev[k] for k in STAGED_KEYS))
-        shape_key = ("coeff", mode, staged["y"].shape[1], bucket)
+        shape_key = ("coeff", mode, arrays["y"].shape[1], bucket)
 
         def resolve() -> tuple[np.ndarray, np.ndarray]:
             end = self._mark()                  # placed as the pixel lane's
@@ -672,18 +726,14 @@ class InferenceEngine:
                      buckets: Optional[Sequence[int]] = None) -> None:
         """Run the decode lane of ``mode`` at ``luma_blocks`` once per batch
         bucket (default: 4:2:0 at 512 px, the dominant JPEG shape), kept out
-        of the stats, so the first flush does not pay the cold start."""
-        cv, ch = _chroma_canvas(mode, luma_blocks)
-        for b in buckets or self.buckets:
-            staged = {
-                "y": np.zeros((b, luma_blocks, luma_blocks, 64), np.int16),
-                "cb": np.zeros((b, cv, ch, 64), np.int16),
-                "cr": np.zeros((b, cv, ch, 64), np.int16),
-                "yq": np.zeros((b, 64), np.uint16),
-                "cq": np.zeros((b, 64), np.uint16),
-                "rq": np.zeros((b, 64), np.uint16),
-                "sizes": np.full((b, 2), 64, np.int32),
-            }
+        of the stats, so the first flush does not pay the cold start; and
+        make the lane's staging slots with rows for the largest of them."""
+        buckets = buckets or self.buckets
+        # the lane's staging slots, page-locked here rather than in serving
+        self._staging(mode, luma_blocks).reserve(max(buckets))
+        for b in buckets:
+            # b padding rows: zero coefficients and tables, sizes 64
+            staged = pad_staged(stage_coefficient_batch([], luma_blocks, mode), b)
             self.predict_coeff_staged(staged, mode=mode, record=False)
             logger.info("warmed %s decode lane %s/%dpx for bucket %d",
                         self.model_name, mode, luma_blocks * 8, b)

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import threading
 import time
 from typing import Optional, Sequence
 
@@ -49,11 +50,7 @@ from ics_tpu_torch.core.config import settings
 from ics_tpu_torch.native import imgcodec
 from ics_tpu_torch.runtime.batcher import DynamicBatcher, IncomingCounter
 from ics_tpu_torch.runtime.decode import decode_image, stage_batch
-from ics_tpu_torch.runtime.device_decode import (
-    LUMA_BUCKETS,
-    classify_coefficients,
-    stage_coefficient_batch,
-)
+from ics_tpu_torch.runtime.device_decode import LUMA_BUCKETS, classify_coefficients
 from ics_tpu_torch.utils.metrics import Histogram, log_buckets, span, waited
 from ics_tpu_torch.utils.metrics import registry as metrics_registry
 from ics_tpu_torch.runtime.engine import InferenceEngine
@@ -116,6 +113,7 @@ class InferenceService:
         # one lane (batcher + step) per (sampling mode, luma bucket), made on
         # first use: 4:2:0/4:2:2/4:4:4/gray x <=512/<=1024 px
         self.coeff_batchers: dict[tuple[str, int], DynamicBatcher] = {}
+        self._dispatch_lock = threading.Lock()      # the lanes' turns to enqueue
         # requests inside classify_bytes (decoding, queued or awaiting a
         # flush): the background warm-up waits for this to be 0
         self._inflight = 0
@@ -132,14 +130,19 @@ class InferenceService:
         self._diag_sem = asyncio.Semaphore(2)
 
     def _make_coeff_lane(self, mode: str, luma_blocks: int) -> DynamicBatcher:
+        # a flush stages into one of the lane's host slots and holds it until
+        # its answers are fetched: a retry reads the same bytes
         def stage(coeff_list):
-            staged = stage_coefficient_batch(coeff_list, luma_blocks=luma_blocks, mode=mode)
+            staged = self.engine.stage_coefficients(coeff_list, mode, luma_blocks)
             if staged is None:  # routed by classify_coefficients upstream
                 raise RuntimeError("coefficient batch not stageable")
             return staged, None
 
         def predict(staged, _):
-            return self._predict_coeff_resilient(staged, mode)
+            try:
+                return self._predict_coeff_resilient(staged, mode)
+            finally:
+                self.engine.release_staged(staged)
 
         def dispatch(staged, _):
             return self._dispatch_coeff_resilient(staged, mode)
@@ -225,10 +228,17 @@ class InferenceService:
             lambda: self.engine.predict_staged(canvas, sizes), "device step"
         )
 
-    def _resilient_dispatch(self, dispatch, predict, what: str):
+    def _resilient_dispatch(self, dispatch, predict, what: str, done=None):
         """Pipelined flavour: the dispatch is retried once inline; a failure
-        while resolving falls back to one synchronous retry."""
-        resolve = self._retry_once(dispatch, f"{what} dispatch")
+        while resolving falls back to one synchronous retry. ``done`` is
+        called once the flush is over: its dispatch failed, or its resolver
+        (with the retry) returned or raised."""
+        try:
+            resolve = self._retry_once(dispatch, f"{what} dispatch")
+        except BaseException:
+            if done is not None:
+                done()
+            raise
 
         def resolve_resilient():
             try:
@@ -237,6 +247,9 @@ class InferenceService:
                 self._device_errors += 1
                 logger.exception("%s resolve failed; retrying once", what)
                 return predict()
+            finally:
+                if done is not None:
+                    done()
 
         return resolve_resilient
 
@@ -246,15 +259,23 @@ class InferenceService:
             lambda: self.engine.predict_staged(canvas, sizes), "device step",
         )
 
+    def _coeff_dispatch(self, staged, mode: str):
+        """Enqueue a coefficient flush's copy and step; the lanes take turns
+        (``_dispatch_lock``), so one step's copies and kernels lie together on
+        the engine's stream and two launching threads do not trade the
+        interpreter lock op by op. Staging and the fetch stay concurrent."""
+        with self._dispatch_lock:
+            return self.engine.predict_coeff_staged_async(staged, mode=mode)
+
     def _predict_coeff_resilient(self, staged, mode: str):
-        return self._retry_once(
-            lambda: self.engine.predict_coeff_staged(staged, mode=mode), "device coeff step"
-        )
+        return self._retry_once(lambda: self._coeff_dispatch(staged, mode)(),
+                                "device coeff step")
 
     def _dispatch_coeff_resilient(self, staged, mode: str):
         return self._resilient_dispatch(
-            lambda: self.engine.predict_coeff_staged_async(staged, mode=mode),
-            lambda: self.engine.predict_coeff_staged(staged, mode=mode), "device coeff step",
+            lambda: self._coeff_dispatch(staged, mode),
+            lambda: self._coeff_dispatch(staged, mode)(), "device coeff step",
+            done=lambda: self.engine.release_staged(staged),
         )
 
     async def start(self, warm: bool = False) -> None:

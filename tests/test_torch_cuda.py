@@ -24,7 +24,10 @@ hold for strided views of a fused qkv product and for ``flash_attention_qkv``.
 The device decode of the JPEG-coefficient lanes (plain PyTorch, fp32, TF32
 off) on the card against the same call on the CPU: within 1 LSB on at most
 0.1 % of the canvas; the fused coefficient step's top-5 equal and scores
-within atol 2e-4, rtol 1e-4 of its CPU run. The embed step of ResNet-50 in
+within atol 2e-4, rtol 1e-4 of its CPU run; a flush of the 4:2:0 lanes of
+ResNet-50 and ViT-L/16 waits for the stream nowhere from its staging to its
+launch's return, and answers bitwise as the same batch copied from pageable
+memory. The embed step of ResNet-50 in
 bf16 through the chain kernel against its fp32 plain path on the card:
 1 - cosine at most 3e-5 (bf16 activations through 50 layers; the bar
 ``chip_smoke.py`` phase 7 sets between its measured spread and the nearest
@@ -926,6 +929,69 @@ async def test_device_decode_lane_is_served_on_the_card(cuda_device):
         assert LAUNCHES["depthwise_conv"].value - before == 7 * st["batches"]
     finally:
         await service.stop()
+
+
+_SERVED_LANE_ENGINES: dict = {}
+
+
+def _served_lane_engine(name: str, cuda_device):
+    """ResNet-50 (the chain kernel) or ViT-L/16 in bf16 as the benchmark
+    serves them, buckets 1 and 128, both 4:2:0 lanes warmed: one a module."""
+    from ics_tpu_torch.runtime.engine import InferenceEngine
+
+    engine = _SERVED_LANE_ENGINES.get(name)
+    if engine is None:
+        engine = InferenceEngine(name, num_classes=1000, precision="bf16", buckets=(1, 128),
+                                 canvas=512, seed=11, fused_chains=name == "resnet50",
+                                 device=cuda_device)
+        for luma in (64, 128):
+            engine.warmup_coeff("420", luma, (1, 128))
+        _SERVED_LANE_ENGINES.clear()                 # one full-size model on the card at a time
+        _SERVED_LANE_ENGINES[name] = engine
+    return engine
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 100])
+@pytest.mark.parametrize("luma", [64, 128])
+@pytest.mark.parametrize("name", ["resnet50", "vit_l16"])
+def test_a_lane_stages_and_dispatches_without_waiting_and_as_the_pageable_copy(
+        cuda_device, name, luma, n):
+    """From staging to the launch's return a 4:2:0 flush makes no call that
+    waits for the stream (``set_sync_debug_mode("error")``: the staging slot
+    is page-locked and copied without blocking, the normalize constants live
+    on the card), and its top-5 indices and scores are bitwise those of the
+    same batch staged fresh and copied from pageable memory."""
+    from ics_tpu_torch.native import imgcodec
+    from ics_tpu_torch.runtime import device_decode
+    from ics_tpu_torch.utils.metrics import registry
+
+    engine = _served_lane_engine(name, cuda_device)
+    side = 8 * luma - 24
+    blobs = [_jpeg(20 + i, h, w) for i, (h, w) in enumerate(
+        [(side, side * 3 // 4), (side * 2 // 3, side), (side // 2 + 40, side // 2 + 60)])]
+    coeffs = [imgcodec.jpeg_coefficients(blobs[i % 3]) for i in range(n)]
+    assert {device_decode.classify_coefficients(co) for co in coeffs} == {("420", luma)}
+    pinned_before = registry.get("pinned_flushes").value
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        staged = engine.stage_coefficients(coeffs, "420", luma)
+        resolve = engine.predict_coeff_staged_async(staged, mode="420")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    try:
+        got = resolve()
+    finally:
+        engine.release_staged(staged)
+    assert registry.get("pinned_flushes").value == pinned_before + 1
+    fresh = device_decode.stage_coefficient_batch(coeffs, luma_blocks=luma, mode="420")
+    dev = device_decode.to_device(device_decode.pad_staged(fresh, engine.bucket_for(n)),
+                                  cuda_device)
+    idx, scores = engine._get_coeff_step("420")(*(dev[k] for k in device_decode.STAGED_KEYS))
+    assert got[0].shape == (n, 5)
+    assert got[0].tobytes() == idx.cpu().numpy()[:n].tobytes()
+    assert got[1].tobytes() == scores.cpu().numpy()[:n].tobytes()
 
 
 # ---- the embed step and the embedding index on the card ------------------------------

@@ -33,7 +33,7 @@ def jpeg(seed: int) -> bytes:
 # every histogram and counter a served device-decode flush writes, and how
 # many times: once a request or once a flush
 PER_REQUEST = ("entropy_wait_ms", "entropy_decode_ms")
-PER_FLUSH = ("dispatch_wait_ms", "dispatch_ms", "stage_ms", "pad_ms", "copy_ms", "launch_ms",
+PER_FLUSH = ("dispatch_wait_ms", "dispatch_ms", "stage_ms", "copy_ms", "launch_ms",
              "resolve_wait_ms", "resolve_ms", "step_device_ms")
 
 
@@ -97,7 +97,8 @@ async def test_one_device_decode_flush_counts_each_span_and_counter_once():
     service = InferenceService(engine, deadline_us=20_000)
     await service.start()
     blobs = [jpeg(seed) for seed in range(3)]
-    names = PER_REQUEST + PER_FLUSH + ("copy_bytes", "dispatched_images", "resolved_images")
+    names = PER_REQUEST + PER_FLUSH + ("copy_bytes", "dispatched_images", "resolved_images",
+                                       "pad_ms", "pinned_flushes", "pipelined_flushes")
     before = {n: _count(n) for n in names}
     bytes_before = _count("copy_bytes")
     try:
@@ -107,8 +108,12 @@ async def test_one_device_decode_flush_counts_each_span_and_counter_once():
     assert [o["decode"] for o in outs] == ["device:420"] * 3
     assert service.coeff_batchers[("420", 64)].stats["flushes"] == 1
     grew = {n: _count(n) - before[n] for n in names if n != "copy_bytes"}
+    # staged in a slot at the bucket: no padding, and on the CPU the slot is
+    # not page-locked, so the flush is not counted as pinned; it had nothing
+    # before it to overlap
     assert grew == {**{n: 3 for n in PER_REQUEST}, **{n: 1 for n in PER_FLUSH},
-                    "dispatched_images": 3, "resolved_images": 3}
+                    "dispatched_images": 3, "resolved_images": 3, "pad_ms": 0,
+                    "pinned_flushes": 0, "pipelined_flushes": 0}
     # the bytes the copy was handed: the staged arrays padded to bucket 4
     from ics_tpu_torch.native import imgcodec
 
@@ -120,6 +125,28 @@ async def test_one_device_decode_flush_counts_each_span_and_counter_once():
     assert status["device_clock"] == "host" and "total_device_ms" not in status
     assert status["batches"] == 1 and status["avg_device_ms"] == status["device_ms"] > 0
     assert status["latency"]["n"] == 3
+
+
+@pytest.mark.anyio
+async def test_the_pipelined_flushes_counter_follows_the_batchers_count():
+    from ics_tpu_torch.runtime.batcher import DynamicBatcher
+
+    def dispatch(images, _):
+        def resolve():
+            time.sleep(0.02)                        # the next flush dispatches meanwhile
+            return np.zeros((len(images), 5), np.int64), np.zeros((len(images), 5), np.float32)
+        return resolve
+
+    batcher = DynamicBatcher(predict_staged=None, stage_batch=lambda images: (images, None),
+                             max_batch=4, deadline_us=500, predict_dispatch=dispatch)
+    before = _count("pipelined_flushes")
+    await batcher.start()
+    try:
+        await asyncio.gather(*(batcher.submit(np.zeros((2, 2, 3), np.uint8)) for _ in range(24)))
+    finally:
+        await batcher.stop()
+    assert batcher.stats["pipelined"] >= 1
+    assert _count("pipelined_flushes") - before == batcher.stats["pipelined"]
 
 
 def test_the_engine_keeps_warm_up_and_compiles_out_of_its_step_time():
